@@ -1,0 +1,146 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The CUDA C++ sources under csrc/ have a plain C interface. At first use they
+are compiled with nvcc for sm_90a (one nvcc per source, all started together)
+and linked into one shared library, which is loaded with ctypes. The build
+lands in _build/<hash of the sources>/ inside the package, so a checkout
+builds itself and a changed source rebuilds.
+
+Every C entry launches on the caller's CUDA stream, allocates nothing and
+returns cudaGetLastError(); `call` raises if that is not 0.
+
+`launches` counts, per kernel name, the launches the wrappers made. A run
+resets it with `reset_launches()` and reads it afterwards to show which
+kernels a path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).parent / "csrc"
+_BUILD_ROOT = Path(__file__).parent / "_build"
+_SOURCES = ("deform_scores.cu", "binning.cu", "composite.cu")
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    # No fused multiply-add contraction: the kernels reproduce the plain
+    # PyTorch (and JAX) float32 rounding of e.g. floor(loc * W - 0.5).
+    "-fmad=false",
+)
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    # scores, loc, aw, out, n_queries, h, w, d, p, stream
+    "tp_deform_scores": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    # gfeat, rects, counts, n, ntx, nty, tile, stream
+    "tp_bin_rects": (_P, _P, _P, _LL, _I, _I, _I, _P),
+    # rects, counts, incl, keys, vals, n, g, num_tiles, ntx, stream
+    "tp_bin_emit": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
+    # keys, ranges, n_pairs, stream
+    "tp_bin_ranges": (_P, _P, _LL, _P),
+    # gfeat, colors, idx, ranges, bg, out, views, g, c, h, w, ntx, nty, stream
+    "tp_composite": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+}
+
+launches: dict[str, int] = {}
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for name in sorted(p.name for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh")):
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library (if not built yet) and return its path."""
+    out_dir = _BUILD_ROOT / _source_hash()
+    lib_path = out_dir / "libtransplat_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs, procs = [], []
+        for src in _SOURCES:
+            obj = Path(tmp) / (Path(src).stem + ".o")
+            cmd = [nvcc, *_NVCC_FLAGS, "-c", str(_CSRC / src), "-o", str(obj)]
+            procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            objs.append(str(obj))
+        failed = []
+        for src, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src}:\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = Path(tmp) / lib_path.name
+        subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", *objs, "-o", str(tmp_lib)],
+            check=True, capture_output=True, text=True,
+        )
+        os.replace(tmp_lib, lib_path)  # atomic: concurrent builds agree
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def call(name: str, counter: str, *args) -> None:
+    """Launch C entry `name` on the current stream, count it under `counter`, raise on error."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(load(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    launches[counter] = launches.get(counter, 0) + 1
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int | None = None) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and `ndim`)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got device {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if ndim is not None and t.ndim != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
