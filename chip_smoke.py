@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from transplat_tpu_torch/csrc (nvcc, sm_90a).
-2. The slice: the full-width re10k encoder with random weights from a seeded
+2. Serving: the full-width re10k encoder with random weights from a seeded
    generator (cross-attention offsets perturbed, so samples fall between
    pixels and outside the map) serves one warm-up and five requests of
    2 context views at 256x256 -> 131,072 Gaussians -> 4 target views at
    256x256. Launch counts are reset just before the five requests and read
-   just after; every kernel of the path must have launched.
+   just after; every forward kernel must have launched.
 3. Each kernel is held against its plain PyTorch version on the card at the
-   shapes of the path (K1 and K3 on the Gaussians a request produced, and
-   on a synthetic scene of elongated splats), and timed with CUDA events.
-4. The tiled renderer is held against the naive oracle, and the whole slice
-   at a tiny width against the plain versions on the CPU.
+   shapes of the paths (K1, K3, K4 and K2 on the Gaussians a request
+   produced and on a synthetic scene of elongated splats; K5 and K6 at 2 x
+   4096 queries of 64x64 maps), and timed with CUDA events.
+4. The tiled renderer is held against the naive oracle, and the serving
+   slice at a tiny width against the plain versions on the CPU.
+5. Training (`train_slice`): the same full-width configuration takes one
+   warm-up and three timed steps through make_train_step (MSE + random-init
+   LPIPS, backward, clip 0.5 + Adam, dropout on). Launch counts are reset
+   just before the timed steps; every forward and backward kernel must have
+   launched, every trainable parameter must have moved, DAv2 must not, and
+   the loss on the fixed batch (dropout off) must be lower afterwards.
+6. `tiny_train_vs_cpu`: one training step's loss and gradients at a tiny
+   width, kernels on the card against plain versions on the CPU.
 
 Prints JSON records, then the card's name and power limit as nvidia-smi
 gives them, a `kernels` record, and as the last line
@@ -24,6 +34,7 @@ any check fails. Float32 throughout, TF32 off.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -38,6 +49,16 @@ SEED = 0
 IMAGE = (256, 256)
 NUM_TARGET = 4
 REQUESTS = 5
+TRAIN_STEPS = 3
+FORWARD_KERNELS = ("deform_scores_p1", "deform_scores_p4", "bin_rects", "bin_emit", "bin_ranges", "composite")
+BACKWARD_KERNELS = ("deform_scores_bwd_p1", "deform_scores_bwd_p4", "composite_bwd", "bin_bwd")
+# Gradients are compared on values scaled to the gradient's largest entry.
+# K6 and K2 repeat their plain versions' float32 sums in another order
+# (atomics): 1e-5. K4 sums an entry's 256 pixels in another order than the
+# plain version's chunked cumsum, 1 / (1 - alpha) reaches 100, and where T
+# crosses 1e-4 the two forwards (sequential product vs cumprod) can gate an
+# entry differently: 1e-4.
+GRAD_TOL = {"deform": 1e-5, "bin": 1e-5, "composite": 1e-4}
 
 
 def emit(record: dict) -> None:
@@ -72,6 +93,11 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def scaled_err(a, b) -> float:
+    """Max abs error of `a` against `b`, both scaled to b's largest entry."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
 def synthetic_scene(g: int, views: int, dev, seed: int):
@@ -118,12 +144,8 @@ def touched_sectors(loc: torch.Tensor, h: int, w: int) -> int:
     return int(new.sum())
 
 
-def check_deform(dev, p: int, launches: dict) -> dict:
-    """K5 at the path's shapes: 2 directed pairs x 4096 queries, 64x64 maps, D = 128."""
-    from torch.nn import functional as F
-
-    from transplat_tpu_torch.ops import deform
-
+def deform_inputs(dev, p: int):
+    """K5/K6 inputs at the paths' shapes: 2 directed pairs x 4096 queries, 64x64 maps, D = 128."""
     n, q, d, h, w = 2, 4096, 128, 64, 64
     gen = torch.Generator(device=dev).manual_seed(SEED + p)
     scores = torch.randn((n, q, h * w), device=dev, generator=gen)
@@ -132,6 +154,17 @@ def check_deform(dev, p: int, launches: dict) -> dict:
     aw = torch.ones((n, q, d, p), device=dev) if p == 1 else torch.softmax(
         torch.randn((n, q, d, p), device=dev, generator=gen), dim=-1
     )
+    gbar = torch.randn((n, q, d), device=dev, generator=gen)
+    return scores, loc, aw, gbar, (n, q, d, h, w)
+
+
+def check_deform(dev, p: int, launches: dict) -> dict:
+    """K5 at the path's shapes."""
+    from torch.nn import functional as F
+
+    from transplat_tpu_torch.ops import deform
+
+    scores, loc, aw, _, (n, q, d, h, w) = deform_inputs(dev, p)
     out = deform.deform_sample_scores(scores, (h, w), loc, aw)
     ref = deform.deform_sample_scores_plain(scores, (h, w), loc, aw)
     torch.cuda.synchronize()
@@ -162,6 +195,51 @@ def check_deform(dev, p: int, launches: dict) -> dict:
     return rec
 
 
+def check_deform_bwd(dev, p: int) -> dict:
+    """K6 at the path's shapes, against its plain version and against
+    autograd of the forward's plain version."""
+    from torch.nn import functional as F
+
+    from transplat_tpu_torch.ops import deform
+
+    scores, loc, aw, gbar, (n, q, d, h, w) = deform_inputs(dev, p)
+    tol = GRAD_TOL["deform"]
+    got = deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar)
+    plain = deform.deform_sample_scores_bwd_plain(scores, (h, w), loc, aw, gbar)
+    leaves = [t.clone().requires_grad_(True) for t in (scores, loc, aw)]
+    auto = torch.autograd.grad(deform.deform_sample_scores_plain(leaves[0], (h, w), leaves[1], leaves[2]), leaves, gbar)
+    through = torch.autograd.grad(deform.deform_sample_scores(leaves[0], (h, w), leaves[1], leaves[2]), leaves, gbar)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b, c, t in zip(("d_scores", "d_loc", "d_weights"), got, plain, auto, through):
+        errs[name] = max(scaled_err(a, b), scaled_err(a, c), scaled_err(t, b))
+        require(errs[name] <= tol, f"deform_scores_bwd P={p} {name}: scaled max abs err {errs[name]} > {tol}")
+    ms = time_ms(lambda: deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar))
+    plain_ms = time_ms(lambda: deform.deform_sample_scores_bwd_plain(scores, (h, w), loc, aw, gbar), iters=5, warmup=1)
+    library_ms = None
+    if p == 1:  # grid_sample's backward (input and grid gradients) is the same function at P = 1, unit weights
+        grid = (loc * 2.0 - 1.0).reshape(n * q, d, 1, 2).requires_grad_(True)
+        img = scores.reshape(n * q, 1, h, w).clone().requires_grad_(True)
+        lib = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
+        cot = gbar.reshape(n * q, 1, d, 1)
+        lib_img, lib_grid = torch.autograd.grad(lib, (img, grid), cot, retain_graph=True)
+        require(scaled_err(lib_img.reshape(n, q, h * w), plain[0]) <= tol, "grid_sample's d_input disagrees with the plain version")
+        require(scaled_err(lib_grid.reshape(n, q, d, 1, 2) * 2.0, plain[1]) <= tol, "grid_sample's d_grid disagrees with the plain version")
+        library_ms = time_ms(lambda: torch.autograd.grad(lib, (img, grid), cot, retain_graph=True))
+    sectors = touched_sectors(loc, h, w)
+    nbytes = 32 * sectors + 4 * (loc.numel() + aw.numel() + gbar.numel()) + 4 * sum(t.numel() for t in got)
+    b_ms, b_by = bound(nbytes, n * q * d * p * 60.0)
+    name = f"deform_scores_bwd_p{p}"
+    rec = dict(
+        name=name, route="cuda", source="transplat_tpu_torch/csrc/deform_scores_bwd.cu",
+        replaces="transplat_tpu/ops/deform_pallas.py:133", launches=0,
+        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+    )
+    emit({"phase": "kernel", "tolerance": tol, "error_is": "max abs, values scaled to the gradient's largest entry",
+          "errors": errs, "shape": dict(pairs=n, q=q, d=d, p=p, h=h, w=w), "bytes": nbytes, **rec})
+    return rec
+
+
 def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> list[dict]:
     """K1 (bin_rects, bin_emit, bin_ranges) and K3 (composite) against their
     plain versions on one set of projected Gaussians."""
@@ -187,19 +265,51 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
     lists = binning.TileLists(vals[perm].contiguous(), ranges, ntx, nty)
     bg = torch.zeros((b, colors.shape[-1]), device=gfeat.device)
     img = composite.composite_tiles(gfeat, colors, lists, bg, image_shape)
-    img_p, evaluations = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
+    img_p, _, evaluations = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
     torch.cuda.synchronize()
     err = max_err(img, img_p)
     require(err <= tol, f"{label}: composite max abs err {err} > {tol}")
     sizes = dict(views=b, gaussians=g, pairs=total, h=image_shape[0], w=image_shape[1])
     emit({"phase": "raster_check", "scene": label, "tolerance": tol, "composite_max_abs_err": err,
           "binning_exact": True, "evaluations": evaluations, **sizes})
+
+    # Backward: K4 and K2 with a random d out and a non-black background.
+    c = colors.shape[-1]
+    gen = torch.Generator(device=gfeat.device).manual_seed(SEED + 7)
+    bg_b = torch.rand((b, c), device=gfeat.device, generator=gen)
+    g_out = torch.randn((b, *image_shape, c), device=gfeat.device, generator=gen)
+    image, t_final = composite._composite_fwd_cuda(gfeat, colors, lists, bg_b, image_shape)
+    image_p, t_final_p, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg_b, image_shape)
+    require(max_err(image, image_p) <= tol and max_err(t_final, t_final_p) <= tol, f"{label}: composite / T_final != plain")
+    d_pair = composite._composite_bwd_cuda(gfeat, colors, lists, bg_b, image, t_final, g_out)
+    d_pair_p = composite.composite_tiles_bwd_plain(gfeat, colors, lists, bg_b, image_p, t_final_p, g_out)
+    k4_errs = {
+        name: scaled_err(d_pair[:, lo:hi], d_pair_p[:, lo:hi])
+        for name, lo, hi in (("d_mean", 0, 2), ("d_conic", 2, 5), ("d_opacity", 6, 7), ("d_colour", 8, 8 + c))
+    }
+    for name, e in k4_errs.items():
+        require(e <= GRAD_TOL["composite"], f"{label}: composite_bwd {name}: scaled max abs err {e} > {GRAD_TOL['composite']}")
+    require(float(d_pair[:, 5].abs().max()) == 0.0, f"{label}: the radius column of d_pair is not 0")
+    ref_g, ref_c = binning.bin_bwd_plain(d_pair, lists, b, g)
+    k2_errs = {}
+    for mode, deterministic in (("atomic", False), ("sorted", True)):
+        got_g, got_c = binning.bin_bwd(d_pair, lists, b, g, deterministic=deterministic)
+        k2_errs[mode] = max(scaled_err(got_g, ref_g), scaled_err(got_c, ref_c))
+        require(k2_errs[mode] <= GRAD_TOL["bin"], f"{label}: bin_bwd ({mode}): scaled max abs err {k2_errs[mode]} > {GRAD_TOL['bin']}")
+    first = binning.bin_bwd(d_pair, lists, b, g, deterministic=True)
+    second = binning.bin_bwd(d_pair, lists, b, g, deterministic=True)
+    require(all(torch.equal(x, y) for x, y in zip(first, second)), f"{label}: bin_bwd sorted mode is not deterministic")
+    torch.cuda.synchronize()
+    emit({"phase": "raster_bwd_check", "scene": label, "tolerance": GRAD_TOL,
+          "error_is": "max abs, values scaled to the gradient's largest entry",
+          "composite_bwd_errors": k4_errs, "bin_bwd_errors": k2_errs, **sizes})
     if not timed:
         return []
     srcs = dict(bin="transplat_tpu_torch/csrc/binning.cu", comp="transplat_tpu_torch/csrc/composite.cu")
     k1 = "transplat_tpu/ops/rasterizer/pallas_binning.py:276"
     k3 = "transplat_tpu/ops/rasterizer/pallas_composite.py:160"
     boundaries = torch.arange(cells + 1, dtype=keys_sorted.dtype, device=keys_sorted.device)
+    pair_rows = binning._pair_rows(lists, b, g)
     recs = []
     specs = [
         ("bin_rects", srcs["bin"], k1, 0.0,
@@ -218,6 +328,23 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
          lambda: composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape), None,
          4 * (gfeat.numel() + colors.numel() + total + 2 * cells + bg.numel() + img.numel()),
          evaluations * (20.0 + 2 * colors.shape[-1])),
+        # K4: the forward's evaluations, each with the gradient chain (~59 +
+        # 4C operations: the forward's 20, <g, c>, d_alpha, the seven products,
+        # and one add per value for the sum over pixels).
+        ("composite_bwd", "transplat_tpu_torch/csrc/composite_bwd.cu",
+         "transplat_tpu/ops/rasterizer/pallas_composite.py:250", max(k4_errs.values()),
+         lambda: composite._composite_bwd_cuda(gfeat, colors, lists, bg_b, image, t_final, g_out),
+         lambda: composite.composite_tiles_bwd_plain(gfeat, colors, lists, bg_b, image_p, t_final_p, g_out), None,
+         4 * (gfeat.numel() + colors.numel() + total + 2 * cells + bg_b.numel() + 2 * image.numel()
+              + t_final.numel() + d_pair.numel()),
+         evaluations * (59.0 + 4 * c)),
+        # K2 (atomic mode, the one on the path): d_pair and idx in, (B, G, 8 + C) out.
+        ("bin_bwd", "transplat_tpu_torch/csrc/binning_bwd.cu",
+         "transplat_tpu/ops/rasterizer/pallas_binning.py:457", k2_errs["atomic"],
+         lambda: binning.bin_bwd(d_pair, lists, b, g),
+         lambda: binning.bin_bwd_plain(d_pair, lists, b, g),
+         lambda: torch.zeros((b * g, 8 + c), device=d_pair.device).index_add_(0, pair_rows, d_pair),
+         4 * (d_pair.numel() + total + b * g * (8 + c)), float(d_pair.numel())),
     ]
     for name, src, replaces, e, fn, plain_fn, lib_fn, nbytes, flops in specs:
         b_ms, b_by = bound(nbytes, flops)
@@ -226,9 +353,127 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
             max_abs_err=e, ms=time_ms(fn), plain_ms=time_ms(plain_fn, iters=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None if lib_fn is None else time_ms(lib_fn),
         )
+        if name == "bin_bwd":  # the deterministic mode beside the atomic one (torch.sort included)
+            rec["sorted_ms"] = time_ms(lambda: binning.bin_bwd(d_pair, lists, b, g, deterministic=True))
+            rec["sorted_max_abs_err"] = k2_errs["sorted"]
         emit({"phase": "kernel", "scene": label, **sizes, **rec})
         recs.append(rec)
     return recs
+
+
+def train_slice(dev, records: list[dict]) -> None:
+    """Three full-width re10k training steps through make_train_step."""
+    from transplat_tpu_torch import kernels
+    from transplat_tpu_torch.inference import re10k_decoder_cfg, re10k_encoder_cfg
+    from transplat_tpu_torch.loss import LossCfg
+    from transplat_tpu_torch.train_demo import build
+    from transplat_tpu_torch.training.step import loss_and_grads
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()  # what earlier phases still hold; part of the peak below
+    cfg = re10k_encoder_cfg()
+    state, step, batch, gen = build(cfg, IMAGE, dev, SEED, num_target=NUM_TARGET)
+
+    def fixed_batch_loss():
+        """Loss and gradients on the fixed batch with dropout off (BatchNorm on batch statistics)."""
+        metrics, grads = loss_and_grads(state, batch, LossCfg(), re10k_decoder_cfg(), IMAGE, deterministic=True)
+        return float(metrics["loss"]), grads
+
+    loss_before, grads = fixed_batch_loss()
+    require(np.isfinite(loss_before), "train_slice: loss is not finite")
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    require(not bad, f"train_slice: non-finite gradients: {bad[:5]}")
+    del grads
+    state, _ = step(state, batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    trainable = {k: p.detach().clone() for k, p in state.trainable().items()}
+    frozen = {k: p.detach().clone() for k, p in state.encoder.da_model.named_parameters()}
+    # The two snapshots stay alive through the timed steps and are part of the peak below.
+    snapshot_bytes = sum(4 * p.numel() for p in (*trainable.values(), *frozen.values()))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times, metrics_all = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics_all.append({k: float(v) for k, v in metrics.items()})
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for name in FORWARD_KERNELS + BACKWARD_KERNELS:
+        require(launches.get(name, 0) > 0, f"kernel {name} was not launched by the training steps")
+    for m in metrics_all:
+        require(all(np.isfinite(v) for v in m.values()), f"train_slice: non-finite metrics {m}")
+        require(m["grad_norm"] > 0.0, "train_slice: grad_norm is 0")
+    unmoved = [k for k, p in state.trainable().items() if torch.equal(p, trainable[k])]
+    require(not unmoved, f"train_slice: {len(unmoved)} trainable parameters did not move, e.g. {unmoved[:5]}")
+    moved = [k for k, p in state.encoder.da_model.named_parameters() if not torch.equal(p, frozen[k])]
+    require(not moved, f"train_slice: frozen DAv2 parameters moved: {moved[:5]}")
+    del trainable, frozen
+    loss_after, _ = fixed_batch_loss()
+    require(loss_after < loss_before, f"train_slice: loss on the fixed batch went from {loss_before} to {loss_after}")
+    for rec in records:  # launches of each kernel by the three training steps, beside the serving count
+        rec["launches_train"] = launches.get(rec["name"], 0)
+        if rec["name"] in BACKWARD_KERNELS:
+            rec["launches"] = rec["launches_train"]
+    emit({"phase": "train_slice", "steps": TRAIN_STEPS, "ms_per_step": float(np.median(times)), "ms_all": times,
+          "peak_mem_bytes": peak, "held_by_earlier_phases_bytes": held_before,
+          "parameter_snapshots_bytes": snapshot_bytes, "launches": launches,
+          "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+          "loss_fixed_batch_before": loss_before, "loss_fixed_batch_after": loss_after,
+          "trainable_parameters": len(state.trainable()), "metrics": metrics_all, "dropout": True,
+          "lpips": "random-init weights", "gaussians": 2 * IMAGE[0] * IMAGE[1]})
+
+
+def tiny_train_vs_cpu(dev) -> None:
+    """One training step's loss and gradients (dropout off) at a tiny width:
+    the kernels on the card against the plain versions on the CPU, from the
+    same state."""
+    from transplat_tpu_torch import kernels
+    from transplat_tpu_torch.inference import re10k_decoder_cfg
+    from transplat_tpu_torch.loss import LossCfg
+    from transplat_tpu_torch.train_demo import build, tiny_encoder_cfg
+    from transplat_tpu_torch.training.step import loss_and_grads
+
+    cfg, shape = tiny_encoder_cfg(), (64, 64)
+    st_gpu, _, batch_gpu, _ = build(cfg, shape, dev, SEED + 3, num_target=2)
+    with torch.no_grad():  # keep depths off the 1/far clip, where 1/disparity amplifies rounding
+        st_gpu.encoder.depth_predictor.to_disparity_2.weight[0] *= 0.01
+    st_cpu, _, batch_cpu, _ = build(cfg, shape, "cpu", SEED + 3, num_target=2)
+    st_cpu.encoder.load_state_dict(st_gpu.encoder.state_dict())
+    st_cpu.lpips.load_state_dict(st_gpu.lpips.state_dict())
+    batch_cpu = {side: {k: v.cpu() for k, v in views.items()} for side, views in batch_gpu.items()}
+    kernels.reset_launches()
+    args = (LossCfg(), re10k_decoder_cfg(), shape)
+    metrics_g, grads_g = loss_and_grads(st_gpu, batch_gpu, *args, deterministic=True)
+    metrics_c, grads_c = loss_and_grads(st_cpu, batch_cpu, *args, deterministic=True)
+    loss_g, loss_c = metrics_g["loss"], metrics_c["loss"]
+    for name in FORWARD_KERNELS + BACKWARD_KERNELS:
+        require(kernels.launches.get(name, 0) > 0, f"tiny_train_vs_cpu: kernel {name} was not launched")
+    # The rendered image is a step function of the Gaussians (integer cutoff
+    # radius, 1/255 alpha floor): ~1.5% of its values differ between card and
+    # CPU end to end in the worst case, and every gradient inherits those
+    # flipped terms. Bounds (those of tests/test_torch_training.py against
+    # JAX): loss within 1e-4 relative; the whole gradient within 0.01 of its
+    # norm; every leaf within 0.05 of its own norm plus 5e-4 of the whole
+    # gradient's (a bias in front of a normalisation has a gradient of pure
+    # rounding noise, which no relative bound can hold).
+    rel_loss = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    require(rel_loss <= 1e-4, f"tiny_train_vs_cpu: loss {float(loss_g)} vs {float(loss_c)}")
+    diffs = {k: float((grads_g[k].cpu() - gc).norm()) for k, gc in grads_c.items()}
+    norms = {k: float(gc.norm()) for k, gc in grads_c.items()}
+    require(all(np.isfinite(d) for d in diffs.values()), "tiny_train_vs_cpu: non-finite gradients on the card")
+    whole = sum(n**2 for n in norms.values()) ** 0.5
+    total = sum(d**2 for d in diffs.values()) ** 0.5 / whole
+    leaf_err = {k: diffs[k] / (norms[k] + 1e-2 * whole) for k in diffs}
+    worst = max(leaf_err, key=leaf_err.get)
+    require(leaf_err[worst] <= 0.05, f"tiny_train_vs_cpu: gradient of {worst} differs by {leaf_err[worst]} of its norm")
+    require(total <= 0.01, f"tiny_train_vs_cpu: the whole gradient differs by {total} of its norm")
+    emit({"phase": "tiny_train_vs_cpu", "loss_card": float(loss_g), "loss_cpu": float(loss_c), "loss_rel_err": rel_loss,
+          "leaves": len(grads_c), "worst_leaf": worst, "worst_leaf_rel_l2": leaf_err[worst], "whole_gradient_rel_l2": total,
+          "tolerance": "loss 1e-4 relative; each leaf 0.05 of (its norm + 1e-2 of the whole gradient's); whole gradient 0.01 of its norm"})
 
 
 def main() -> int:
@@ -272,10 +517,9 @@ def main() -> int:
         times.append((time.perf_counter() - t0) * 1e3)
     launches = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    path_kernels = ("deform_scores_p1", "deform_scores_p4", "bin_rects", "bin_emit", "bin_ranges", "composite")
     require(tuple(out.shape) == (1, NUM_TARGET, *IMAGE, 3), f"output shape {tuple(out.shape)}")
     require(bool(torch.isfinite(out).all()), "non-finite output")
-    for name in path_kernels:
+    for name in FORWARD_KERNELS:
         require(launches.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
     with torch.no_grad():
         gaussians = encoder(*(torch.as_tensor(ctx[k], device=dev) for k in ("image", "intrinsics", "extrinsics", "near", "far")))
@@ -286,7 +530,8 @@ def main() -> int:
           "launches": launches})
 
     # ---- every kernel against its plain version ---------------------------
-    records = [check_deform(dev, 1, launches), check_deform(dev, 4, launches)]
+    records = [check_deform(dev, 1, launches), check_deform(dev, 4, launches),
+               check_deform_bwd(dev, 1), check_deform_bwd(dev, 4)]
     tv = NUM_TARGET
     rep = lambda x: x.expand(tv, *x.shape[1:]).contiguous()  # noqa: E731
     cams = [torch.as_tensor(tgt[k][0], device=dev) for k in ("extrinsics", "intrinsics", "near")]
@@ -345,6 +590,13 @@ def main() -> int:
           "end_to_end_max_abs_err": float(e2e_err.max()),
           "end_to_end_share_beyond_1e-4": float((e2e_err > 1e-4).float().mean()),
           "tolerance": "98% within 1e-4, all within 0.05"})
+
+    del enc_gpu, enc_cpu, encoder, gaussians, proj
+    torch.cuda.empty_cache()
+
+    # ---- the training path -------------------------------------------------
+    train_slice(dev, records)
+    tiny_train_vs_cpu(dev)
 
     print(smi, flush=True)
     emit({"kernels": records})

@@ -83,7 +83,7 @@ def test_render_kernels_match_plain(dev, image_shape):
     # plain versions exactly, test above), and the naive oracle.
     gfeat, colors = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, image_shape))
     lists = binning.bin_gaussians(gfeat, image_shape)
-    plain, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
+    plain, _, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
     ref = api.render(*cams, image_shape, bg, *gs, cfg=RasterizeConfig(mode="reference"))
     torch.cuda.synchronize()
     np.testing.assert_allclose(out.color.cpu().numpy(), plain.cpu().numpy(), atol=ATOL)
@@ -92,6 +92,149 @@ def test_render_kernels_match_plain(dev, image_shape):
     depth_ref = api.render_depth(*cams, image_shape, gs[0], gs[1], gs[3], cfg=RasterizeConfig(mode="reference"))
     # Depth features reach ~8: relative 2e-6 on top of the absolute bound.
     np.testing.assert_allclose(depth.cpu().numpy(), depth_ref.cpu().numpy(), atol=ATOL, rtol=2e-6)
+
+
+# Gradients are compared on values scaled by the gradient's largest entry.
+# K6 and K2 (sorted mode) repeat their plain versions' sums in another order:
+# 1e-5. K4 sums 256 pixels per entry in another order than the plain
+# version's chunked cumsum, and its 1 / (1 - alpha) reaches 100: 1e-4.
+GRAD_RTOL = {"deform": 1e-5, "bin": 1e-5, "composite": 1e-4}
+
+
+def _scaled_err(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize(
+    "q,d,p,h,w", [(4096, 128, 4, 64, 64), (4096, 128, 1, 64, 64), (37, 5, 3, 7, 11), (8, 4, 2, 160, 160)]
+)
+def test_deform_scores_bwd(dev, q, d, p, h, w):
+    """K6 against its plain version and against autograd of the forward's plain version."""
+    scores, loc, aw = _deform_case(q, d, p, h, w, q + d, dev)
+    gbar = torch.from_numpy(np.random.default_rng(q).standard_normal((q, d)).astype(np.float32)).to(dev)
+    kernels.reset_launches()
+    leaves = [t.clone().requires_grad_(True) for t in (scores, loc, aw)]
+    out = deform.deform_sample_scores(leaves[0], (h, w), leaves[1], leaves[2])
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, gbar)
+    assert kernels.launches.get(f"deform_scores_bwd_p{p}") == 1
+    plain = deform.deform_sample_scores_bwd_plain(scores, (h, w), loc, aw, gbar)
+    leaves = [t.clone().requires_grad_(True) for t in (scores, loc, aw)]
+    auto = torch.autograd.grad(deform.deform_sample_scores_plain(leaves[0], (h, w), leaves[1], leaves[2]), leaves, gbar)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("scores", "loc", "weights"), got, plain, auto):
+        assert _scaled_err(a, b) <= GRAD_RTOL["deform"], (name, "plain", _scaled_err(a, b))
+        assert _scaled_err(a, c) <= GRAD_RTOL["deform"], (name, "autograd", _scaled_err(a, c))
+
+
+def _raster_case(dev, image_shape, channels, seed=2, g=3000):
+    cams, gs = scene(g, 3, dev, seed)
+    opac = torch.from_numpy(np.random.default_rng(seed).uniform(0.0, 1.2, (3, g)).astype(np.float32)).to(dev)
+    gs = (gs[0], gs[1], gs[2], opac.clamp(0.5 / 255, 0.999))  # capped alphas and saturating tiles
+    gfeat, colors = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, image_shape))
+    colors = colors[..., :channels].contiguous()
+    lists = binning.bin_gaussians(gfeat, image_shape)
+    bg = torch.tensor([[0.2, 0.5, 0.9], [0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], device=dev)[:, :channels].contiguous()
+    return gfeat, colors, lists, bg
+
+
+@pytest.mark.parametrize("image_shape,channels", [((64, 80), 3), ((100, 76), 3), ((64, 64), 1)])
+def test_composite_and_bin_bwd_match_plain(dev, image_shape, channels):
+    """K4 and K2 (both modes) against their plain versions; K3's T_final."""
+    gfeat, colors, lists, bg = _raster_case(dev, image_shape, channels)
+    image, t_final = composite._composite_fwd_cuda(gfeat, colors, lists, bg, image_shape)
+    image_p, t_final_p, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
+    np.testing.assert_allclose(image.cpu().numpy(), image_p.cpu().numpy(), atol=ATOL)
+    np.testing.assert_allclose(t_final.cpu().numpy(), t_final_p.cpu().numpy(), atol=ATOL)
+    assert float(t_final.min()) < 1e-4  # some pixels saturate
+    g_out = torch.from_numpy(np.random.default_rng(0).standard_normal(tuple(image.shape)).astype(np.float32)).to(dev)
+    d_pair = composite._composite_bwd_cuda(gfeat, colors, lists, bg, image, t_final, g_out)
+    d_pair_p = composite.composite_tiles_bwd_plain(gfeat, colors, lists, bg, image_p, t_final_p, g_out)
+    torch.cuda.synchronize()
+    for lo, hi, name in ((0, 2, "mean"), (2, 5, "conic"), (6, 7, "opacity"), (8, 8 + channels, "colour")):
+        err = _scaled_err(d_pair[:, lo:hi], d_pair_p[:, lo:hi])
+        assert err <= GRAD_RTOL["composite"], (name, err)
+    assert float(d_pair[:, 5].abs().max()) == 0.0 and float(d_pair[:, 7].abs().max()) == 0.0
+    again = composite._composite_bwd_cuda(gfeat, colors, lists, bg, image, t_final, g_out)
+    assert torch.equal(d_pair, again)  # no atomics in K4
+    b, g, _ = gfeat.shape
+    ref = binning.bin_bwd_plain(d_pair, lists, b, g)
+    for deterministic in (True, False):
+        got = binning.bin_bwd(d_pair, lists, b, g, deterministic=deterministic)
+        for a, r in zip(got, ref):
+            assert _scaled_err(a, r) <= GRAD_RTOL["bin"], (deterministic, _scaled_err(a, r))
+    first = binning.bin_bwd(d_pair, lists, b, g, deterministic=True)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, binning.bin_bwd(d_pair, lists, b, g, deterministic=True)))
+
+
+def test_render_gradients_match_finite_differences(dev):
+    """The kernels' renderer gradient against central differences of the
+    kernels' own forward, in float32 on a few tiles: a smooth scene (opacity
+    0.3-0.6, no capped or floor-level alphas, tiny steps do not flip the
+    integer radius), loose tolerance 5% of each gradient's largest entry."""
+    image_shape = (32, 48)
+    cams, gs = scene(40, 1, dev, 7)
+    rng = np.random.default_rng(7)
+    means = gs[0].clone()
+    means[..., :2] *= 0.3
+    cov = gs[1] * 30.0
+    opac = torch.from_numpy(rng.uniform(0.3, 0.6, (1, 40)).astype(np.float32)).to(dev)
+    weight = torch.from_numpy(rng.standard_normal((1, *image_shape, 3)).astype(np.float32)).to(dev)
+    bg = torch.tensor([[0.3, 0.1, 0.6]], device=dev)
+
+    def loss(m, o, s):
+        return torch.sum(api.render(*cams, image_shape, bg, m, cov, s, o).color * weight)
+
+    leaves = [t.clone().requires_grad_(True) for t in (means, opac, gs[2])]
+    kernels.reset_launches()
+    value = loss(*leaves)
+    assert value.grad_fn is not None
+    grads = torch.autograd.grad(value, leaves)
+    assert kernels.launches.get("composite_bwd") == 1 and kernels.launches.get("bin_bwd") == 1
+    eps = 1e-3
+    for which, (leaf, grad) in enumerate(zip(leaves, grads)):
+        flat = leaf.detach().reshape(-1)
+        picks = rng.choice(flat.numel(), size=12, replace=False)
+        for i in picks:
+            args = [t.detach().clone() for t in leaves]
+            hi, lo = args[which].reshape(-1).clone(), args[which].reshape(-1).clone()
+            hi[i] += eps
+            lo[i] -= eps
+            args[which] = hi.reshape(leaf.shape)
+            up = loss(*args)
+            args[which] = lo.reshape(leaf.shape)
+            fd = float(up - loss(*args)) / (2 * eps)
+            scale = float(grad.abs().max())
+            assert abs(fd - float(grad.reshape(-1)[i])) <= 0.05 * scale + 1e-3, (which, int(i), fd, float(grad.reshape(-1)[i]), scale)
+
+
+def test_every_wrapper_keeps_the_graph(dev):
+    """A CUDA tensor that requires grad never leaves a wrapper without a grad_fn."""
+    scores, loc, aw = (t.requires_grad_(True) for t in _deform_case(16, 8, 2, 8, 8, 0, dev))
+    assert deform.deform_sample_scores(scores, (8, 8), loc, aw).grad_fn is not None
+    values = torch.randn(64, 8, device=dev, requires_grad=True)
+    assert deform.deform_sample_vectors(values, (8, 8), loc[:, 0], aw[:, 0]).grad_fn is not None
+    gfeat, colors, lists, bg = _raster_case(dev, (32, 32), 3, g=200)
+    for t in (gfeat, colors, bg):
+        t.requires_grad_(True)
+    assert composite.composite_tiles(gfeat, colors, lists, bg, (32, 32)).grad_fn is not None
+    cams, gs = scene(200, 2, dev, 3)
+    gs = [t.requires_grad_(True) for t in gs]
+    out = api.render(*cams, (32, 32), bg[:2].detach(), *gs)
+    assert out.color.grad_fn is not None
+    grads = torch.autograd.grad(out.color.sum(), gs)
+    assert all(bool(torch.isfinite(x).all()) for x in grads)
+    depth = api.render_depth(*cams, (32, 32), gs[0], gs[1], gs[3])
+    assert depth.grad_fn is not None
+    # The raw launchers refuse what they could only return with the graph cut.
+    with pytest.raises(ValueError, match="requires grad"):
+        deform._scores_fwd_cuda(scores, (8, 8), loc, aw)
+    with pytest.raises(ValueError, match="requires grad"):
+        composite._composite_fwd_cuda(gfeat, colors, lists, bg, (32, 32))
+    with pytest.raises(ValueError, match="requires grad"):
+        binning.bin_rects(gfeat, 2, 2, 16)
+    with torch.no_grad():
+        assert binning.bin_rects(gfeat, 2, 2, 16)[0].dtype == torch.int32
 
 
 def test_wrappers_reject_bad_input(dev):

@@ -11,8 +11,9 @@
 //           alpha >= 1/255 and dx^2 + dy^2 <= radius^2
 //   colour += alpha * T * c_i, T *= (1 - alpha)       while T >= 1e-4
 //   out = colour + T * background
-// which is the JAX oracle's rule (ops/rasterizer/reference.py): a Gaussian
-// contributes while T_before >= 1e-4 and T_final multiplies only those
+// and, when the caller asks for it, the final transmittance T of every pixel
+// (the residual the backward kernel, composite_bwd.cu, needs). This is the
+// JAX oracle's rule (ops/rasterizer/reference.py): a Gaussian contributes while T_before >= 1e-4 and T_final multiplies only those
 // factors. (The reference CUDA rasterizer stops one Gaussian earlier; that
 // rule is not copied.)
 //
@@ -45,8 +46,8 @@ template <int C>
 __global__ void __launch_bounds__(kThreads)
 composite_kernel(const float* __restrict__ gfeat, const float* __restrict__ colors,
                  const int* __restrict__ idx, const int2* __restrict__ ranges,
-                 const float* __restrict__ bg, float* __restrict__ out, int g, int h, int w,
-                 int ntx, int nty) {
+                 const float* __restrict__ bg, float* __restrict__ out,
+                 float* __restrict__ t_final, int g, int h, int w, int ntx, int nty) {
   __shared__ float4 s_geo0[kThreads];  // mean x, mean y, conic a, conic b
   __shared__ float4 s_geo1[kThreads];  // conic c, radius, opacity, -
   __shared__ float s_col[kThreads * C];
@@ -101,35 +102,38 @@ composite_kernel(const float* __restrict__ gfeat, const float* __restrict__ colo
     float* o = out + (((long long)view * h + pix_y) * w + pix_x) * C;
 #pragma unroll
     for (int ch = 0; ch < C; ++ch) o[ch] = acc[ch] + t * bg[view * C + ch];
+    if (t_final != nullptr) t_final[((long long)view * h + pix_y) * w + pix_x] = t;
   }
 }
 
 template <int C>
 int launch(const float* gfeat, const float* colors, const int* idx, const int* ranges,
-           const float* bg, float* out, int views, int g, int h, int w, int ntx, int nty,
-           cudaStream_t stream) {
+           const float* bg, float* out, float* t_final, int views, int g, int h, int w, int ntx,
+           int nty, cudaStream_t stream) {
   dim3 grid(ntx * nty, views);
   composite_kernel<C><<<grid, kThreads, 0, stream>>>(
-      gfeat, colors, idx, reinterpret_cast<const int2*>(ranges), bg, out, g, h, w, ntx, nty);
+      gfeat, colors, idx, reinterpret_cast<const int2*>(ranges), bg, out, t_final, g, h, w, ntx,
+      nty);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int tp_composite(const float* gfeat, const float* colors, const int* idx,
-                            const int* ranges, const float* bg, float* out, int views, int g,
-                            int c, int h, int w, int ntx, int nty, void* stream) {
+                            const int* ranges, const float* bg, float* out, float* t_final,
+                            int views, int g, int c, int h, int w, int ntx, int nty,
+                            void* stream) {
   if (views == 0 || ntx * nty == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (c) {
-    case 1: return launch<1>(gfeat, colors, idx, ranges, bg, out, views, g, h, w, ntx, nty, s);
-    case 2: return launch<2>(gfeat, colors, idx, ranges, bg, out, views, g, h, w, ntx, nty, s);
-    case 3: return launch<3>(gfeat, colors, idx, ranges, bg, out, views, g, h, w, ntx, nty, s);
-    case 4: return launch<4>(gfeat, colors, idx, ranges, bg, out, views, g, h, w, ntx, nty, s);
-    case 5: return launch<5>(gfeat, colors, idx, ranges, bg, out, views, g, h, w, ntx, nty, s);
-    case 6: return launch<6>(gfeat, colors, idx, ranges, bg, out, views, g, h, w, ntx, nty, s);
-    case 7: return launch<7>(gfeat, colors, idx, ranges, bg, out, views, g, h, w, ntx, nty, s);
-    case 8: return launch<8>(gfeat, colors, idx, ranges, bg, out, views, g, h, w, ntx, nty, s);
+    case 1: return launch<1>(gfeat, colors, idx, ranges, bg, out, t_final, views, g, h, w, ntx, nty, s);
+    case 2: return launch<2>(gfeat, colors, idx, ranges, bg, out, t_final, views, g, h, w, ntx, nty, s);
+    case 3: return launch<3>(gfeat, colors, idx, ranges, bg, out, t_final, views, g, h, w, ntx, nty, s);
+    case 4: return launch<4>(gfeat, colors, idx, ranges, bg, out, t_final, views, g, h, w, ntx, nty, s);
+    case 5: return launch<5>(gfeat, colors, idx, ranges, bg, out, t_final, views, g, h, w, ntx, nty, s);
+    case 6: return launch<6>(gfeat, colors, idx, ranges, bg, out, t_final, views, g, h, w, ntx, nty, s);
+    case 7: return launch<7>(gfeat, colors, idx, ranges, bg, out, t_final, views, g, h, w, ntx, nty, s);
+    case 8: return launch<8>(gfeat, colors, idx, ranges, bg, out, t_final, views, g, h, w, ntx, nty, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -29,7 +29,10 @@ import torch
 
 _CSRC = Path(__file__).parent / "csrc"
 _BUILD_ROOT = Path(__file__).parent / "_build"
-_SOURCES = ("deform_scores.cu", "binning.cu", "composite.cu")
+_SOURCES = (
+    "deform_scores.cu", "deform_scores_bwd.cu", "binning.cu", "binning_bwd.cu",
+    "composite.cu", "composite_bwd.cu",
+)
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -48,8 +51,16 @@ _SIGNATURES = {
     "tp_bin_emit": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
     # keys, ranges, n_pairs, stream
     "tp_bin_ranges": (_P, _P, _LL, _P),
-    # gfeat, colors, idx, ranges, bg, out, views, g, c, h, w, ntx, nty, stream
-    "tp_composite": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # gfeat, colors, idx, ranges, bg, out, t_final (or null), views, g, c, h, w, ntx, nty, stream
+    "tp_composite": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # scores, loc, aw, gbar, d_scores, d_loc, d_aw, n_queries, h, w, d, p, stream
+    "tp_deform_scores_bwd": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    # gfeat, colors, idx, ranges, bg, out, t_final, gout, d_pair, views, g, c, h, w, ntx, nty, stream
+    "tp_composite_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # d_pair, idx, view_end, d_feat, n_pairs, row, views, g, stream
+    "tp_bin_bwd": (_P, _P, _P, _P, _LL, _I, _I, _I, _P),
+    # d_pair, perm, segments, d_feat, n_gaussians, row, stream
+    "tp_bin_bwd_sorted": (_P, _P, _P, _P, _LL, _I, _P),
 }
 
 launches: dict[str, int] = {}
@@ -135,7 +146,12 @@ def call(name: str, counter: str, *args) -> None:
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int | None = None) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and `ndim`)."""
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and `ndim`)
+    that a raw launch may take: a launch records no graph, so a tensor that
+    requires grad is refused while autograd is recording (the differentiable
+    wrappers launch from inside their autograd.Function, where it is not)."""
+    if t.requires_grad and torch.is_grad_enabled():
+        raise ValueError(f"{name}: requires grad, and a raw kernel launch would cut the graph; use the differentiable wrapper")
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got device {t.device}")
     if t.dtype != dtype:

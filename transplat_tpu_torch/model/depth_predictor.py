@@ -94,12 +94,13 @@ class DepthPredictor(nn.Module):
         pairs = [(i, j) for i in range(v) for j in range(v) if j != i]
         feats_tok = features.reshape(b, v, q, c)
         grids = []
-        for i, j in pairs:
-            g = epipolar_sample_grid(
-                intr_px[:, i], relative_pose(extrinsics[:, i], extrinsics[:, j]),
-                1.0 / disp_candidates[:, i], hf, wf,
-            )  # (b, D, HW, 2)
-            grids.append(g.transpose(1, 2))  # (b, Q, D, 2)
+        with torch.no_grad():  # the sampling grid is a constant of the gradient, as in the JAX package
+            for i, j in pairs:
+                g = epipolar_sample_grid(
+                    intr_px[:, i], relative_pose(extrinsics[:, i], extrinsics[:, j]),
+                    1.0 / disp_candidates[:, i], hf, wf,
+                )  # (b, D, HW, 2)
+                grids.append(g.transpose(1, 2))  # (b, Q, D, 2)
         n = b * len(pairs)
         ry = (torch.arange(hf, dtype=features.dtype, device=features.device) + 0.5) / hf
         rx = (torch.arange(wf, dtype=features.dtype, device=features.device) + 0.5) / wf
@@ -114,9 +115,9 @@ class DepthPredictor(nn.Module):
             "disp_candidates": disp_candidates,
         }
 
-    def matching(self, prep, hw: tuple[int, int]):
+    def matching(self, prep, hw: tuple[int, int], generator=None):
         """Directed-pair UV matching -> per-view correlation (b, v, Q, C) (encoder_4b)."""
-        corr = self.uv_matcher(prep["key"], prep["value"], prep["pos"], prep["grid"], prep["ref2d"], hw)
+        corr = self.uv_matcher(prep["key"], prep["value"], prep["pos"], prep["grid"], prep["ref2d"], hw, generator)
         v = self.num_views
         b = corr.shape[0] // (v * (v - 1))
         return corr.reshape(b, v, v - 1, hw[0] * hw[1], corr.shape[-1]).mean(dim=2)
@@ -183,14 +184,18 @@ class DepthPredictor(nn.Module):
         depths = (1.0 / to_nhwc(fine_disps)).reshape(b, v, big_h * big_w, 1, gpp)
         return depths, densities, raw_gaussians
 
-    def forward(self, features, cnn_features, images, intrinsics, extrinsics, near, far, da_depth, dino_feature):
+    def forward(
+        self, features, cnn_features, images, intrinsics, extrinsics, near, far, da_depth, dino_feature,
+        generator=None,
+    ):
         """features/cnn_features (b, v, hf, wf, C); images (b, v, H, W, 3);
-        da_depth (b, v, H, W, 1); dino_feature (b, v, hd, wd, cd).
+        da_depth (b, v, H, W, 1); dino_feature (b, v, hd, wd, cd); generator:
+        the dropout masks' source in training mode.
         Returns depths, densities (b, v, H*W, 1, gpp), raw_gaussians (b, v, H*W, raw), aux."""
         b, v, hf, wf, _ = features.shape
         big_h, big_w = images.shape[2:4]
         prep = self.prep(features, intrinsics, extrinsics, near, far, dino_feature)
-        corr = self.matching(prep, (hf, wf))
+        corr = self.matching(prep, (hf, wf), generator)
         raw_corr = self.cost_unet(corr, features)
         coarse = self.coarse_depth(raw_corr, prep["disp_candidates"], (big_h, big_w))
         refine_out, proj_feat_fullres = self.refine(features, cnn_features, images, da_depth, coarse)

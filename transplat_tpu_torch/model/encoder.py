@@ -2,8 +2,10 @@
 
 Counterpart of transplat_tpu/model/encoder.py: backbone (CNN + multi-view
 Swin) -> frozen DAv2 mono prior -> depth predictor (epipolar deformable cost
-volume) -> Gaussian adapter. Inference only: the module puts itself in eval
-mode (BatchNorm running statistics, no dropout).
+volume) -> Gaussian adapter. The module starts in eval mode (BatchNorm
+running statistics, no dropout) and honours train(): batch statistics, and
+dropout masks from the generator given to forward. DAv2 is frozen: its
+parameters take no gradient and it runs under no_grad.
 """
 
 from __future__ import annotations
@@ -86,6 +88,7 @@ class EncoderTranSplat(nn.Module):
             depth_unet_channel_mult=cfg.depth_unet_channel_mult,
             dino_channels=DAV2_CONFIGS[cfg.dav2_encoder]["features"] // 2,
         )
+        self.da_model.requires_grad_(False)
         self.to(device)
         self.eval()
 
@@ -96,6 +99,8 @@ class EncoderTranSplat(nn.Module):
         extrinsics: torch.Tensor,  # (b, v, 4, 4) camera-to-world
         near: torch.Tensor,  # (b, v)
         far: torch.Tensor,  # (b, v)
+        global_step: int = 0,  # position in the opacity warm-up
+        generator: torch.Generator | None = None,  # dropout masks (training mode)
     ) -> Gaussians:
         cfg = self.cfg
         b, v, h, w, _ = images.shape
@@ -120,7 +125,8 @@ class EncoderTranSplat(nn.Module):
 
         # 3. Depth predictor.
         depths, densities, raw_gaussians, _ = self.depth_predictor(
-            trans_features, cnn_features, images, intrinsics, extrinsics, near, far, da_depth, dino_feature
+            trans_features, cnn_features, images, intrinsics, extrinsics, near, far, da_depth, dino_feature,
+            generator=generator,
         )
 
         # 4. Gaussian adapter: rays + depths -> world Gaussians.
@@ -131,7 +137,7 @@ class EncoderTranSplat(nn.Module):
         offset_xy = torch.sigmoid(raw[..., :2])
         pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=raw.dtype, device=raw.device)
         coords = xy + (offset_xy - 0.5) * pixel_size
-        opacities = map_pdf_to_opacity(densities[..., 0, 0], cfg.opacity_mapping) / cfg.gaussians_per_pixel
+        opacities = map_pdf_to_opacity(densities[..., 0, 0], cfg.opacity_mapping, global_step) / cfg.gaussians_per_pixel
         adapter = cfg.gaussian_adapter
         out = adapt_gaussians(
             adapter, extrinsics, intrinsics, coords, depths[..., 0, 0], opacities, raw[..., 2:], (h, w)

@@ -8,6 +8,8 @@ channels double as the depth-candidate slots.
 
 Every tensor carries a leading pair dim (N, ...): the JAX package vmaps
 UVMatcher over directed view pairs; here the pair dim is written out.
+Dropout (rate 0.1) sits where the Flax modules have it: on the outputs of
+the self- and cross-attention and twice in the FFN.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.deform import deform_sample_scores, deform_sample_vectors
-from .layers import FFN, layer_norm
+from .layers import FFN, Dropout, layer_norm
 
 
 def coarse_correlation(key_feat, value_feat, grid, hw: tuple[int, int]) -> torch.Tensor:
@@ -31,15 +33,16 @@ def coarse_correlation(key_feat, value_feat, grid, hw: tuple[int, int]) -> torch
 class UVSelfAttention(nn.Module):
     """Deformable self-attention over the query map (P points)."""
 
-    def __init__(self, embed_dims: int = 128, num_points: int = 4):
+    def __init__(self, embed_dims: int = 128, num_points: int = 4, dropout: float = 0.1):
         super().__init__()
         self.num_points = num_points
+        self.dropout = Dropout(dropout)
         self.sampling_offsets = nn.Linear(embed_dims, num_points * 2)
         self.attention_weights = nn.Linear(embed_dims, num_points)
         self.value_proj = nn.Linear(embed_dims, embed_dims)
         self.output_proj = nn.Linear(embed_dims, embed_dims)
 
-    def forward(self, query, query_pos, ref_2d, hw):
+    def forward(self, query, query_pos, ref_2d, hw, generator=None):
         """query (N, Q, C); query_pos (N, Q, C) or None; ref_2d (N, Q, 2) in [0, 1]."""
         q_in = query if query_pos is None else query + query_pos
         p = self.num_points
@@ -50,21 +53,22 @@ class UVSelfAttention(nn.Module):
         norm = torch.tensor([w, h], dtype=q_in.dtype, device=q_in.device)
         loc = ref_2d[..., None, :] + offsets / norm
         out = deform_sample_vectors(value, hw, loc, weights)
-        return self.output_proj(out) + query
+        return self.dropout(self.output_proj(out), generator) + query
 
 
 class UVCrossAttention(nn.Module):
     """Depth-aware deformable cross-attention (learned offsets per depth)."""
 
-    def __init__(self, embed_dims: int = 128, num_depth: int = 128, num_points: int = 4):
+    def __init__(self, embed_dims: int = 128, num_depth: int = 128, num_points: int = 4, dropout: float = 0.1):
         super().__init__()
         self.num_depth, self.num_points, self.embed_dims = num_depth, num_points, embed_dims
+        self.dropout = Dropout(dropout)
         self.sampling_offsets = nn.Linear(embed_dims, num_depth * num_points * 2)
         self.attention_weights = nn.Linear(embed_dims, num_depth * num_points)
         self.value_proj = nn.Linear(embed_dims, embed_dims)
         self.output_proj = nn.Linear(num_depth, embed_dims)
 
-    def forward(self, query, key_feat, value_feat, grid, hw):
+    def forward(self, query, key_feat, value_feat, grid, hw, generator=None):
         """query/key_feat (N, Q, C); value_feat (N, HW, C); grid (N, Q, D, 2)."""
         d, p, c = self.num_depth, self.num_points, self.embed_dims
         offsets = self.sampling_offsets(query).reshape(*query.shape[:-1], d, p, 2)
@@ -75,7 +79,7 @@ class UVCrossAttention(nn.Module):
         norm = torch.tensor([w, h], dtype=query.dtype, device=query.device)
         loc = grid[..., None, :] + offsets / norm
         corr = deform_sample_scores(scores, hw, loc, weights)  # (N, Q, D)
-        return self.output_proj(corr) + query
+        return self.dropout(self.output_proj(corr), generator) + query
 
 
 class UVFineLayer(nn.Module):
@@ -90,10 +94,10 @@ class UVFineLayer(nn.Module):
         self.ffn = FFN(embed_dims, 256)
         self.norm2 = layer_norm(embed_dims)
 
-    def forward(self, query, bev_pos, key_feat, value_feat, grid, ref_2d, hw):
-        query = self.norm0(self.self_attn(query, bev_pos, ref_2d, hw))
-        query = self.norm1(self.cross_attn(query, key_feat, value_feat, grid, hw))
-        return self.norm2(self.ffn(query))
+    def forward(self, query, bev_pos, key_feat, value_feat, grid, ref_2d, hw, generator=None):
+        query = self.norm0(self.self_attn(query, bev_pos, ref_2d, hw, generator))
+        query = self.norm1(self.cross_attn(query, key_feat, value_feat, grid, hw, generator))
+        return self.norm2(self.ffn(query, generator))
 
 
 class UVMatcher(nn.Module):
@@ -107,10 +111,11 @@ class UVMatcher(nn.Module):
         for i in range(num_fine_layers):
             self.add_module(f"fine_{i}", UVFineLayer(embed_dims, num_depth))
 
-    def forward(self, key_feat, value_feat, bev_pos, grid, ref_2d, hw):
+    def forward(self, key_feat, value_feat, bev_pos, grid, ref_2d, hw, generator=None):
         """key_feat (N, Q, C); value_feat (N, HW, C); bev_pos (N, Q, C);
-        grid (N, Q, D, 2); ref_2d (N, Q, 2). Returns (N, Q, C)."""
+        grid (N, Q, D, 2); ref_2d (N, Q, 2); generator: the dropout masks'
+        source in training mode. Returns (N, Q, C)."""
         query = coarse_correlation(key_feat, value_feat, grid, hw)
         for i in range(self.num_fine_layers):
-            query = getattr(self, f"fine_{i}")(query, bev_pos, key_feat, value_feat, grid, ref_2d, hw)
+            query = getattr(self, f"fine_{i}")(query, bev_pos, key_feat, value_feat, grid, ref_2d, hw, generator)
         return query

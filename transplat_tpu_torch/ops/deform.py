@@ -4,9 +4,11 @@ Counterpart of transplat_tpu/ops/deform.py. Sampling conventions are mmcv's:
 locations in [0, 1], grid_sample align_corners=False, zero padding.
 
   * deform_sample_scores — sums of attention-weighted bilinear samples of a
-    per-query score map S = K V^T (UVCoarse / UVCross). For CUDA tensors it
-    launches the hand-written kernel (K5, csrc/deform_scores.cu); for CPU
-    tensors it runs the plain version, the gather oracle.
+    per-query score map S = K V^T (UVCoarse / UVCross), an autograd.Function.
+    For CUDA tensors it launches the hand-written kernels (K5 forward,
+    csrc/deform_scores.cu; K6 backward, csrc/deform_scores_bwd.cu); for CPU
+    tensors it runs their plain versions (the gather oracle, and
+    deform_sample_scores_bwd_plain).
   * deform_sample_vectors — classic deformable attention over value vectors
     (UVSelf), plain PyTorch in float32 (the JAX default is XLA, not Pallas).
 
@@ -21,11 +23,12 @@ import torch
 from .. import kernels
 
 
-def _bilinear_weights(loc01: torch.Tensor, h: int, w: int):
-    """loc01 (..., 2) -> flat corner indices (4, ...) int64 and weights (4, ...).
+def _corners(loc01: torch.Tensor, h: int, w: int):
+    """loc01 (..., 2) -> flat corner indices (4, ...) int64 (clipped into the
+    map), in-map masks (4, ...), and the fractions wx, wy (...).
 
-    px = loc_x * W - 0.5 and floor(px) in float32, as the JAX `_prep` does;
-    out-of-range corners get weight 0 (and a clipped, harmless index)."""
+    px = loc_x * W - 0.5 and floor(px) in float32, as the JAX `_prep` does.
+    Corner order: (y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1)."""
     px = loc01[..., 0] * w - 0.5
     py = loc01[..., 1] * h - 0.5
     x0 = torch.floor(px)
@@ -36,19 +39,19 @@ def _bilinear_weights(loc01: torch.Tensor, h: int, w: int):
     # integer conversion defined without changing which corners are inside.
     x0i = torch.clamp(x0, -2.0, w + 1.0).to(torch.int64)
     y0i = torch.clamp(y0, -2.0, h + 1.0).to(torch.int64)
+    idx, inside = [], []
+    for iy, ix in ((y0i, x0i), (y0i, x0i + 1), (y0i + 1, x0i), (y0i + 1, x0i + 1)):
+        inside.append((iy >= 0) & (iy < h) & (ix >= 0) & (ix < w))
+        idx.append(torch.clamp(iy, 0, h - 1) * w + torch.clamp(ix, 0, w - 1))
+    return torch.stack(idx), torch.stack(inside), wx, wy
 
-    def corner(iy, ix, weight):
-        inb = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
-        idx = torch.clamp(iy, 0, h - 1) * w + torch.clamp(ix, 0, w - 1)
-        return idx, torch.where(inb, weight, torch.zeros_like(weight))
 
-    corners = [
-        corner(y0i, x0i, (1 - wx) * (1 - wy)),
-        corner(y0i, x0i + 1, wx * (1 - wy)),
-        corner(y0i + 1, x0i, (1 - wx) * wy),
-        corner(y0i + 1, x0i + 1, wx * wy),
-    ]
-    return torch.stack([c[0] for c in corners]), torch.stack([c[1] for c in corners])
+def _bilinear_weights(loc01: torch.Tensor, h: int, w: int):
+    """loc01 (..., 2) -> flat corner indices (4, ...) int64 and weights (4, ...);
+    out-of-range corners get weight 0 (and a clipped, harmless index)."""
+    idx, inside, wx, wy = _corners(loc01, h, w)
+    weights = torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy, wx * wy])
+    return idx, torch.where(inside, weights, torch.zeros_like(weights))
 
 
 def deform_sample_scores_gather(
@@ -73,15 +76,43 @@ def deform_sample_scores_gather(
 deform_sample_scores_plain = deform_sample_scores_gather
 
 
-def deform_sample_scores(
-    scores: torch.Tensor,
+def deform_sample_scores_bwd_plain(
+    scores: torch.Tensor,  # (..., Q, H*W)
     spatial_shape: tuple[int, int],
-    loc01: torch.Tensor,
-    attn_weights: torch.Tensor,
-) -> torch.Tensor:
-    """K5: (..., Q, H*W) score maps sampled at (..., Q, D, P, 2) -> (..., Q, D)."""
-    if not scores.is_cuda:
-        return deform_sample_scores_plain(scores, spatial_shape, loc01, attn_weights)
+    loc01: torch.Tensor,  # (..., Q, D, P, 2)
+    attn_weights: torch.Tensor,  # (..., Q, D, P)
+    gbar: torch.Tensor,  # (..., Q, D) cotangent of the output
+):
+    """Plain PyTorch version of K6: (d_scores, d_loc, d_attn_weights), written
+    out term by term as the kernel computes them. floor() is a constant and a
+    corner outside the map contributes 0 to every gradient."""
+    h, w = spatial_shape
+    hw = scores.shape[-1]
+    flat = scores.reshape(-1, hw)
+    n = flat.shape[0]
+    d, p = loc01.shape[-3], loc01.shape[-2]
+    idx, inside, wx, wy = _corners(loc01.reshape(n, d, p, 2), h, w)
+    at = torch.arange(n, device=scores.device)[None, :, None, None] * hw + idx  # (4, N, D, P)
+    zero = torch.zeros((), dtype=scores.dtype, device=scores.device)
+    v00, v01, v10, v11 = torch.where(inside, flat.reshape(-1)[at], zero)
+    w00, w01, w10, w11 = (1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy, wx * wy
+    gb = gbar.reshape(n, d, 1)
+    s = gb * attn_weights.reshape(n, d, p)
+    d_aw = gb * (v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11)
+    d_loc = torch.stack(
+        [
+            s * w * ((1 - wy) * (v01 - v00) + wy * (v11 - v10)),
+            s * h * ((1 - wx) * (v10 - v00) + wx * (v11 - v01)),
+        ],
+        dim=-1,
+    )
+    spread = torch.where(inside, s[None] * torch.stack([w00, w01, w10, w11]), zero)
+    d_scores = torch.zeros(n * hw, dtype=scores.dtype, device=scores.device)
+    d_scores.index_add_(0, at.reshape(-1), spread.reshape(-1))
+    return d_scores.reshape(scores.shape), d_loc.reshape(loc01.shape), d_aw.reshape(attn_weights.shape)
+
+
+def _check_scores_args(scores, spatial_shape, loc01, attn_weights):
     h, w = spatial_shape
     *lead, q, hw = scores.shape
     d, p = loc01.shape[-3], loc01.shape[-2]
@@ -92,10 +123,16 @@ def deform_sample_scores(
             f"shapes disagree: scores {tuple(scores.shape)}, loc {tuple(loc01.shape)}, "
             f"weights {tuple(attn_weights.shape)}"
         )
-    scores, loc01, attn_weights = (t.contiguous() for t in (scores, loc01, attn_weights))
     for name, t in (("scores", scores), ("loc01", loc01), ("attn_weights", attn_weights)):
         kernels.check_cuda_tensor(name, t, torch.float32)
-    out = torch.empty((*lead, q, d), dtype=torch.float32, device=scores.device)
+
+
+def _scores_fwd_cuda(scores, spatial_shape, loc01, attn_weights):
+    """Launch K5 on contiguous float32 CUDA tensors."""
+    _check_scores_args(scores, spatial_shape, loc01, attn_weights)
+    h, w = spatial_shape
+    d, p = loc01.shape[-3], loc01.shape[-2]
+    out = torch.empty((*scores.shape[:-1], d), dtype=torch.float32, device=scores.device)
     n = out.numel() // d if d else 0
     kernels.call(
         "tp_deform_scores", f"deform_scores_p{p}",
@@ -103,6 +140,60 @@ def deform_sample_scores(
         n, h, w, d, p,
     )
     return out
+
+
+def _scores_bwd_cuda(scores, spatial_shape, loc01, attn_weights, gbar):
+    """Launch K6 on contiguous float32 CUDA tensors."""
+    _check_scores_args(scores, spatial_shape, loc01, attn_weights)
+    h, w = spatial_shape
+    d, p = loc01.shape[-3], loc01.shape[-2]
+    kernels.check_cuda_tensor("gbar", gbar, torch.float32)
+    if tuple(gbar.shape) != (*scores.shape[:-1], d):
+        raise ValueError(f"gbar: shape {tuple(gbar.shape)} is not the output's {(*scores.shape[:-1], d)}")
+    d_scores, d_loc, d_aw = torch.empty_like(scores), torch.empty_like(loc01), torch.empty_like(attn_weights)
+    n = gbar.numel() // d if d else 0
+    kernels.call(
+        "tp_deform_scores_bwd", f"deform_scores_bwd_p{p}",
+        scores.data_ptr(), loc01.data_ptr(), attn_weights.data_ptr(), gbar.data_ptr(),
+        d_scores.data_ptr(), d_loc.data_ptr(), d_aw.data_ptr(), n, h, w, d, p,
+    )
+    return d_scores, d_loc, d_aw
+
+
+class DeformSampleScores(torch.autograd.Function):
+    """deform_sample_scores with its hand-written backward: the kernels K5 and
+    K6 for CUDA tensors, their plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, scores, loc01, attn_weights, spatial_shape):
+        scores, loc01, attn_weights = (t.contiguous() for t in (scores, loc01, attn_weights))
+        ctx.save_for_backward(scores, loc01, attn_weights)
+        ctx.spatial_shape = spatial_shape
+        if scores.is_cuda:
+            return _scores_fwd_cuda(scores, spatial_shape, loc01, attn_weights)
+        return deform_sample_scores_plain(scores, spatial_shape, loc01, attn_weights)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gbar):
+        scores, loc01, attn_weights = ctx.saved_tensors
+        bwd = _scores_bwd_cuda if scores.is_cuda else deform_sample_scores_bwd_plain
+        d_scores, d_loc, d_aw = bwd(scores, ctx.spatial_shape, loc01, attn_weights, gbar.contiguous())
+        need = ctx.needs_input_grad
+        return (d_scores if need[0] else None, d_loc if need[1] else None, d_aw if need[2] else None, None)
+
+
+def deform_sample_scores(
+    scores: torch.Tensor,
+    spatial_shape: tuple[int, int],
+    loc01: torch.Tensor,
+    attn_weights: torch.Tensor,
+) -> torch.Tensor:
+    """K5 / K6: (..., Q, H*W) score maps sampled at (..., Q, D, P, 2) -> (..., Q, D).
+
+    Differentiable in scores, locations and weights on both devices; on the
+    card forward and backward are the hand-written kernels."""
+    return DeformSampleScores.apply(scores, loc01, attn_weights, tuple(spatial_shape))
 
 
 def deform_sample_vectors(

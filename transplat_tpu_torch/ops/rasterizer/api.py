@@ -3,9 +3,13 @@
 Counterpart of transplat_tpu/ops/rasterizer/api.py. Modes:
 
   * "auto"      the tile rasterizer; its kernels (K1 binning, K3
-                compositing) launch for CUDA tensors, and their plain
-                PyTorch versions run for CPU tensors
-  * "reference" the naive per-pixel oracle
+                compositing, and in the backward K4 and K2) launch for CUDA
+                tensors, and their plain PyTorch versions run for CPU tensors
+  * "reference" the naive per-pixel oracle (differentiable by autograd)
+
+Both modes are differentiable in the Gaussians and the background on both
+devices: the gradient reaches the projection and the depth sort's gather by
+autograd, and the tile lists are constants.
 
 The port drops nothing at capacity, so `RenderOutput.overflow` is always 0.
 The TPU kernels' tuning fields (capacity, chunk, stream_window, bin_chunk,
@@ -84,7 +88,8 @@ def rasterize(
             ]
         )
     gfeat, colors = sort_by_depth(proj, feature)
-    lists = bin_gaussians(gfeat, image_shape, cfg.tile_size)
+    with torch.no_grad():  # the lists are integers: constants of the gradient
+        lists = bin_gaussians(gfeat, image_shape, cfg.tile_size)
     background = background.to(colors.dtype).contiguous()
     return composite_tiles(gfeat, colors, lists, background, image_shape, cfg.tile_size)
 

@@ -1,9 +1,11 @@
-"""Tile binning (K1): depth-ordered per-tile Gaussian lists.
+"""Tile binning (K1) and its transpose (K2).
 
 Counterpart of transplat_tpu/ops/rasterizer/pallas_binning.py
-(`build_sorted_features`, `cull_radii`, `_bin_fwd_kernel`). The port builds
-index lists plus per-tile [start, end) ranges instead of routed feature
-copies, with no capacity and nothing dropped (csrc/binning.cu says how).
+(`build_sorted_features`, `cull_radii`, `_bin_fwd_kernel`, `_bin_bwd_kernel`).
+The port builds index lists plus per-tile [start, end) ranges instead of
+routed feature copies, with no capacity and nothing dropped (csrc/binning.cu
+says how); `bin_bwd` adds the list entries' gradients back into per-Gaussian
+rows (csrc/binning_bwd.cu).
 
 Each step has a wrapper that launches its CUDA kernel for CUDA tensors and
 runs its plain PyTorch version (same arithmetic, `*_plain`) for CPU tensors.
@@ -202,3 +204,74 @@ def bin_gaussians(gfeat: torch.Tensor, image_shape: tuple[int, int], tile: int =
     idx = vals[perm].contiguous()
     ranges = bin_ranges(keys_sorted, b * num_tiles)
     return TileLists(idx=idx, ranges=ranges, num_tiles_x=ntx, num_tiles_y=nty)
+
+
+# ---------------------------------------------------------------------------
+# Backward (K2): list-entry gradients summed back into Gaussian rows
+# ---------------------------------------------------------------------------
+
+
+def _pairs_per_view(lists: TileLists, views: int) -> torch.Tensor:
+    """(B,) int64 number of list entries of each view (entries are sorted by view, then tile)."""
+    lengths = (lists.ranges[:, 1] - lists.ranges[:, 0]).to(torch.int64)
+    return lengths.reshape(views, -1).sum(dim=1)
+
+
+def _pair_rows(lists: TileLists, views: int, g: int) -> torch.Tensor:
+    """(N,) int64 row view * G + idx of every list entry in the flattened (B * G) Gaussians."""
+    n = lists.idx.shape[0]
+    view = torch.repeat_interleave(
+        torch.arange(views, device=lists.idx.device), _pairs_per_view(lists, views), output_size=n
+    )
+    return view * g + lists.idx.to(torch.int64)
+
+
+def bin_bwd_plain(d_pair: torch.Tensor, lists: TileLists, views: int, g: int):
+    """d_pair (N, 8 + C) -> d_gfeat (B, G, 8), d_colors (B, G, C): index_add_ by Gaussian."""
+    row = d_pair.shape[1]
+    d_feat = torch.zeros((views * g, row), dtype=d_pair.dtype, device=d_pair.device)
+    d_feat.index_add_(0, _pair_rows(lists, views, g), d_pair)
+    d_feat = d_feat.reshape(views, g, row)
+    return d_feat[..., :GFEAT_WIDTH], d_feat[..., GFEAT_WIDTH:]
+
+
+def bin_bwd(d_pair: torch.Tensor, lists: TileLists, views: int, g: int, deterministic: bool = False):
+    """K2: the transpose of the binning's routing. d_pair (N, 8 + C), one row
+    per list entry -> d_gfeat (B, G, 8), d_colors (B, G, C).
+
+    On the card the default adds with float atomics (the last bits change
+    from run to run); `deterministic` re-sorts the entries by Gaussian and
+    adds each Gaussian's segment in order."""
+    if not d_pair.is_cuda:
+        return bin_bwd_plain(d_pair, lists, views, g)
+    kernels.check_cuda_tensor("d_pair", d_pair, torch.float32, 2)
+    kernels.check_cuda_tensor("idx", lists.idx, torch.int32, 1)
+    kernels.check_cuda_tensor("ranges", lists.ranges, torch.int32, 2)
+    n, row = d_pair.shape
+    cells = views * lists.num_tiles_x * lists.num_tiles_y
+    if lists.idx.shape[0] != n or row <= GFEAT_WIDTH or lists.ranges.shape != (cells, 2):
+        raise ValueError(f"bin_bwd: d_pair {tuple(d_pair.shape)} disagrees with the lists")
+    if views * g >= 2**31:
+        raise ValueError("bin_bwd: views * Gaussians must fit in int32")
+    if deterministic:
+        rows_sorted, perm = torch.sort(_pair_rows(lists, views, g), stable=True)
+        segments = torch.zeros((views * g, 2), dtype=torch.int32, device=d_pair.device)
+        d_feat = torch.empty((views * g, row), dtype=torch.float32, device=d_pair.device)
+        if n:
+            rows_sorted = rows_sorted.to(torch.int32)
+            kernels.call("tp_bin_ranges", "bin_bwd_segments", rows_sorted.data_ptr(), segments.data_ptr(), n)
+        if views * g:
+            kernels.call(
+                "tp_bin_bwd_sorted", "bin_bwd",
+                d_pair.data_ptr(), perm.data_ptr(), segments.data_ptr(), d_feat.data_ptr(), views * g, row,
+            )
+    else:
+        d_feat = torch.zeros((views * g, row), dtype=torch.float32, device=d_pair.device)
+        view_end = torch.cumsum(_pairs_per_view(lists, views), dim=0)
+        if n:
+            kernels.call(
+                "tp_bin_bwd", "bin_bwd",
+                d_pair.data_ptr(), lists.idx.data_ptr(), view_end.data_ptr(), d_feat.data_ptr(), n, row, views, g,
+            )
+    d_feat = d_feat.reshape(views, g, row)
+    return d_feat[..., :GFEAT_WIDTH], d_feat[..., GFEAT_WIDTH:]

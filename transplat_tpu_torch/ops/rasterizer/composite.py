@@ -1,18 +1,24 @@
-"""Tile compositing (K3): front-to-back alpha blending of per-tile lists.
+"""Tile compositing (K3) and its backward (K4): front-to-back alpha blending
+of per-tile lists.
 
 Counterpart of transplat_tpu/ops/rasterizer/pallas_composite.py
-`_composite_fwd_kernel` plus the background / raster-order epilogue of its
-api.py caller. `composite_tiles` launches the CUDA kernel (csrc/composite.cu)
-for CUDA tensors and runs `composite_tiles_plain` for CPU tensors.
+(`_composite_fwd_kernel`, `_composite_bwd_kernel`, the `composite_pallas`
+custom_vjp) plus the background / raster-order epilogue of its api.py caller.
+`composite_tiles` is an autograd.Function: for CUDA tensors it launches the
+kernels (csrc/composite.cu, csrc/composite_bwd.cu, then K2 of binning.py);
+for CPU tensors it runs `composite_tiles_plain` and
+`composite_tiles_bwd_plain`.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ... import kernels
-from .binning import CONIC_A, CONIC_C, MEAN_X, MEAN_Y, OPACITY, RADIUS, GFEAT_WIDTH, TileLists
-from .projection import gaussian_alpha
+from .binning import CONIC_A, CONIC_B, CONIC_C, MEAN_X, MEAN_Y, OPACITY, RADIUS, GFEAT_WIDTH, TileLists, bin_bwd
+from .projection import ALPHA_MAX, ALPHA_MIN, gaussian_alpha
 from .reference import TRANSMITTANCE_EPS
 
 
@@ -22,6 +28,58 @@ def _tiles_to_image(x: torch.Tensor, b: int, ntx: int, nty: int, tile: int, imag
     x = x.reshape(b, nty, ntx, tile, tile, c).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(b, nty * tile, ntx * tile, c)
     return x[:, : image_shape[0], : image_shape[1]]
+
+
+def _image_to_tiles(x: torch.Tensor, ntx: int, nty: int, tile: int) -> torch.Tensor:
+    """(B, h, w, C) raster order -> (B*T, tile*tile, C) tile-major, zero-padded to whole tiles."""
+    b, h, w, c = x.shape
+    x = torch.nn.functional.pad(x, (0, 0, 0, ntx * tile - w, 0, nty * tile - h))
+    x = x.reshape(b, nty, tile, ntx, tile, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b * nty * ntx, tile * tile, c)
+
+
+class _Chunk(NamedTuple):
+    """One chunk of every cell's padded list, as both plain compositors see it."""
+
+    mask: torch.Tensor  # (cells, K) entry exists
+    pos: torch.Tensor  # (cells, K) its row in the pair list (clamped where it does not)
+    f: torch.Tensor  # (cells, K, 8) geometry rows
+    col: torch.Tensor  # (cells, K, C) colours
+
+
+def _cells(gfeat, lists: TileLists, tile: int):
+    """Per-cell view, list start and length, and pixel centres (cells, P, 1, 2)."""
+    b = gfeat.shape[0]
+    ntx, t_count = lists.num_tiles_x, lists.num_tiles_x * lists.num_tiles_y
+    dev = gfeat.device
+    cells = b * t_count
+    view = torch.arange(cells, device=dev) // t_count
+    tile_id = torch.arange(cells, device=dev) % t_count
+    lane = torch.arange(tile * tile, device=dev)
+    px = ((tile_id % ntx) * tile)[:, None] + (lane % tile)[None]
+    py = ((tile_id // ntx) * tile)[:, None] + (lane // tile)[None]
+    pix = torch.stack([px, py], dim=-1).to(gfeat.dtype)[:, :, None, :]
+    start = lists.ranges[:, 0].long()
+    length = (lists.ranges[:, 1] - lists.ranges[:, 0]).long()
+    return view, start, length, pix
+
+
+def _chunks(gfeat, colors, lists: TileLists, view, start, length, chunk: int):
+    max_len = int(length.max()) if length.numel() else 0
+    n_idx = lists.idx.shape[0]
+    for k0 in range(0, max_len, chunk):
+        kk = k0 + torch.arange(chunk, device=gfeat.device)
+        mask = kk[None, :] < length[:, None]
+        pos = torch.clamp(start[:, None] + kk[None, :], max=max(n_idx - 1, 0))
+        gi = torch.where(mask, lists.idx[pos].long(), 0)
+        yield _Chunk(mask, pos, gfeat[view[:, None], gi], colors[view[:, None], gi])
+
+
+def _transmittance(t_run, alpha):
+    """T before each entry of a chunk (exclusive cumprod from t_run) and the live gate."""
+    cum = torch.cumprod(1.0 - alpha, dim=-1)
+    t_before = t_run[..., None] * torch.cat([torch.ones_like(cum[..., :1]), cum[..., :-1]], dim=-1)
+    return t_before, t_before >= TRANSMITTANCE_EPS
 
 
 def composite_tiles_plain(
@@ -36,68 +94,140 @@ def composite_tiles_plain(
     """Plain tiled compositor, vectorised over tiles x pixels x a chunk of
     each padded list; the transmittance is an exclusive cumprod.
 
-    Returns ((B, h, w, C) image, evaluations): evaluations counts the
-    (pixel, list entry) pairs a compositor must visit before every tile
-    saturates, i.e. the work the kernel needs on these inputs."""
-    b, g, _ = gfeat.shape
+    Returns ((B, h, w, C) image, (B, h, w) final transmittance, evaluations):
+    evaluations counts the (pixel, list entry) pairs a compositor must visit
+    before every tile saturates, i.e. the work the kernel needs on these
+    inputs."""
+    b = gfeat.shape[0]
     c = colors.shape[-1]
     ntx, nty = lists.num_tiles_x, lists.num_tiles_y
-    t_count = ntx * nty
     p = tile * tile
-    dev = gfeat.device
-    start = lists.ranges[:, 0].long()
-    length = (lists.ranges[:, 1] - lists.ranges[:, 0]).long()
-    cells = b * t_count
-    view = torch.arange(cells, device=dev) // t_count
-    tile_id = torch.arange(cells, device=dev) % t_count
-    lane = torch.arange(p, device=dev)
-    px = ((tile_id % ntx) * tile)[:, None] + (lane % tile)[None]
-    py = ((tile_id // ntx) * tile)[:, None] + (lane // tile)[None]
-    pix = torch.stack([px, py], dim=-1).to(gfeat.dtype)[:, :, None, :]  # (cells, P, 1, 2)
-
-    t_run = torch.ones((cells, p), dtype=gfeat.dtype, device=dev)
-    acc = torch.zeros((cells, p, c), dtype=gfeat.dtype, device=dev)
+    view, start, length, pix = _cells(gfeat, lists, tile)
+    cells = view.shape[0]
+    t_run = torch.ones((cells, p), dtype=gfeat.dtype, device=gfeat.device)
+    acc = torch.zeros((cells, p, c), dtype=gfeat.dtype, device=gfeat.device)
     evaluations = 0
-    max_len = int(length.max()) if cells else 0
-    n_idx = lists.idx.shape[0]
-    for k0 in range(0, max_len, chunk):
-        kk = k0 + torch.arange(chunk, device=dev)
-        mask = kk[None, :] < length[:, None]  # (cells, K)
-        pos = torch.clamp(start[:, None] + kk[None, :], max=max(n_idx - 1, 0))
-        gi = torch.where(mask, lists.idx[pos].long(), 0)
-        f = gfeat[view[:, None], gi]  # (cells, K, 8)
-        col = colors[view[:, None], gi]  # (cells, K, C)
-        opacity = torch.where(mask, f[..., OPACITY], torch.zeros_like(f[..., OPACITY]))
+    for ch in _chunks(gfeat, colors, lists, view, start, length, chunk):
+        opacity = torch.where(ch.mask, ch.f[..., OPACITY], torch.zeros_like(ch.f[..., OPACITY]))
         alpha = gaussian_alpha(
-            f[:, None, :, CONIC_A : CONIC_C + 1],
-            f[:, None, :, MEAN_X : MEAN_Y + 1],
+            ch.f[:, None, :, CONIC_A : CONIC_C + 1],
+            ch.f[:, None, :, MEAN_X : MEAN_Y + 1],
             opacity[:, None, :],
             pix,
-            f[:, None, :, RADIUS],
+            ch.f[:, None, :, RADIUS],
         )  # (cells, P, K)
-        one_minus = 1.0 - alpha
-        cum = torch.cumprod(one_minus, dim=-1)
-        t_before = t_run[..., None] * torch.cat([torch.ones_like(cum[..., :1]), cum[..., :-1]], dim=-1)
-        live = t_before >= TRANSMITTANCE_EPS
+        t_before, live = _transmittance(t_run, alpha)
         contrib = torch.where(live, alpha * t_before, torch.zeros_like(alpha))
-        acc = acc + torch.matmul(contrib, col)
-        t_run = t_run * torch.prod(torch.where(live, one_minus, torch.ones_like(one_minus)), dim=-1)
-        evaluations += int((live.any(dim=1) & mask).sum()) * p
+        acc = acc + torch.matmul(contrib, ch.col)
+        t_run = t_run * torch.prod(torch.where(live, 1.0 - alpha, torch.ones_like(alpha)), dim=-1)
+        evaluations += int((live.any(dim=1) & ch.mask).sum()) * p
     out = acc + t_run[..., None] * background[view][:, None, :]
-    return _tiles_to_image(out, b, ntx, nty, tile, image_shape), evaluations
+    image = _tiles_to_image(out, b, ntx, nty, tile, image_shape)
+    t_final = _tiles_to_image(t_run[..., None], b, ntx, nty, tile, image_shape)[..., 0]
+    return image, t_final, evaluations
 
 
-def composite_tiles(
-    gfeat: torch.Tensor,
-    colors: torch.Tensor,
+def composite_tiles_bwd_plain(
+    gfeat: torch.Tensor,  # (B, G, 8)
+    colors: torch.Tensor,  # (B, G, C)
     lists: TileLists,
-    background: torch.Tensor,
-    image_shape: tuple[int, int],
+    background: torch.Tensor,  # (B, C)
+    image: torch.Tensor,  # (B, h, w, C) the forward's output
+    t_final: torch.Tensor,  # (B, h, w) the forward's final transmittance
+    g_out: torch.Tensor,  # (B, h, w, C) cotangent of the image
     tile: int = 16,
+    chunk: int = 64,
 ) -> torch.Tensor:
-    """(B, h, w, C) composite of the tile lists over `background` (B, C)."""
-    if not gfeat.is_cuda:
-        return composite_tiles_plain(gfeat, colors, lists, background, image_shape, tile)[0]
+    """Plain PyTorch version of K4: d_pair (N, 8 + C), the gradient of every
+    tile-list entry (mean x, y, conic a, b, c, radius = 0, opacity, pad = 0,
+    colours) summed over its tile's pixels, term by term as
+    csrc/composite_bwd.cu computes it; the transmittance is the forward plain
+    version's exclusive cumprod, so both take the same live gate."""
+    c = colors.shape[-1]
+    ntx, nty = lists.num_tiles_x, lists.num_tiles_y
+    view, start, length, pix = _cells(gfeat, lists, tile)
+    cells = view.shape[0]
+    dt, dev = gfeat.dtype, gfeat.device
+    g = _image_to_tiles(g_out, ntx, nty, tile)  # (cells, P, C)
+    out = _image_to_tiles(image, ntx, nty, tile)
+    tfin = _image_to_tiles(t_final[..., None], ntx, nty, tile)[..., 0]  # (cells, P)
+    bg = background[view][:, None, :]
+    g_t_tfin = torch.sum(g * bg, dim=-1) * tfin
+    g_total = torch.sum(g * (out - tfin[..., None] * bg), dim=-1)
+    t_run = torch.ones((cells, tile * tile), dtype=dt, device=dev)
+    prefix = torch.zeros_like(t_run)
+    d_pair = torch.zeros((lists.idx.shape[0], GFEAT_WIDTH + c), dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    for ch in _chunks(gfeat, colors, lists, view, start, length, chunk):
+        f = ch.f[:, None]  # (cells, 1, K, 8)
+        a, b_, c_ = f[..., CONIC_A], f[..., CONIC_B], f[..., CONIC_C]
+        dx = pix[..., 0] - f[..., MEAN_X]
+        dy = pix[..., 1] - f[..., MEAN_Y]
+        power = -0.5 * (a * dx * dx + c_ * dy * dy) - b_ * dx * dy
+        e = torch.exp(power)
+        raw = torch.where(ch.mask, ch.f[..., OPACITY], zero)[:, None] * e
+        alpha = torch.clamp(raw, max=ALPHA_MAX)
+        keep = (power <= 0.0) & (alpha >= ALPHA_MIN) & (dx * dx + dy * dy <= f[..., RADIUS] ** 2)
+        alpha = torch.where(keep, alpha, zero)
+        t_before, live = _transmittance(t_run, alpha)
+        weight = torch.where(live, alpha * t_before, zero)  # (cells, P, K)
+        g_dot_c = torch.matmul(g, ch.col.transpose(-1, -2))
+        contrib = g_dot_c * weight
+        prefix_k = prefix[..., None] + torch.cumsum(contrib, dim=-1)
+        one_minus = torch.clamp(1.0 - alpha, min=1.0 - ALPHA_MAX)
+        d_alpha = g_dot_c * t_before - (g_total[..., None] - prefix_k) / one_minus - g_t_tfin[..., None] / one_minus
+        d_alpha = torch.where(live & keep & (raw < ALPHA_MAX), d_alpha, zero)
+        d_power = d_alpha * alpha
+        per_pixel = [
+            d_power * (a * dx + b_ * dy), d_power * (c_ * dy + b_ * dx),
+            d_power * (-0.5 * dx * dx), d_power * (-dx * dy), d_power * (-0.5 * dy * dy),
+            None, d_alpha * e, None,
+        ]
+        rows = torch.stack(
+            [torch.zeros_like(ch.f[..., 0]) if x is None else x.sum(dim=1) for x in per_pixel], dim=-1
+        )  # (cells, K, 8)
+        d_col = torch.matmul(weight.transpose(-1, -2), g)  # (cells, K, C)
+        d_pair[ch.pos[ch.mask]] = torch.cat([rows, d_col], dim=-1)[ch.mask]
+        prefix = prefix + contrib.sum(dim=-1)
+        t_run = t_run * torch.prod(torch.where(live, 1.0 - alpha, torch.ones_like(alpha)), dim=-1)
+    return d_pair
+
+
+class CompositeTiles(torch.autograd.Function):
+    """composite_tiles with its hand-written backward. For CUDA tensors the
+    forward is K3, the backward K4 (list-entry gradients) followed by K2
+    (their sum per Gaussian); for CPU tensors their plain versions run."""
+
+    @staticmethod
+    def forward(ctx, gfeat, colors, background, lists, image_shape, tile):
+        if gfeat.is_cuda:
+            image, t_final = _composite_fwd_cuda(gfeat, colors, lists, background, image_shape, tile)
+        else:
+            image, t_final, _ = composite_tiles_plain(gfeat, colors, lists, background, image_shape, tile)
+        ctx.save_for_backward(gfeat, colors, background, lists.idx, lists.ranges, image, t_final)
+        ctx.grid = (lists.num_tiles_x, lists.num_tiles_y)
+        ctx.tile = tile
+        return image
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out):
+        gfeat, colors, background, idx, ranges, image, t_final = ctx.saved_tensors
+        lists = TileLists(idx, ranges, *ctx.grid)
+        b, g, _ = gfeat.shape
+        g_out = g_out.contiguous()
+        if gfeat.is_cuda:
+            d_pair = _composite_bwd_cuda(gfeat, colors, lists, background, image, t_final, g_out)
+        else:
+            d_pair = composite_tiles_bwd_plain(gfeat, colors, lists, background, image, t_final, g_out, ctx.tile)
+        d_gfeat, d_colors = bin_bwd(d_pair, lists, b, g)
+        d_bg = None
+        if ctx.needs_input_grad[2]:
+            d_bg = torch.sum(g_out * t_final[..., None], dim=(1, 2))
+        return d_gfeat, d_colors, d_bg, None, None, None
+
+
+def _check_composite_args(gfeat, colors, lists: TileLists, background, tile: int):
     if tile != 16:
         raise ValueError(f"the CUDA compositor takes 16x16 tiles, got {tile}")
     kernels.check_cuda_tensor("gfeat", gfeat, torch.float32, 3)
@@ -112,11 +242,57 @@ def composite_tiles(
         raise ValueError(f"composite: bad shapes gfeat {tuple(gfeat.shape)} colors {tuple(colors.shape)}")
     if lists.ranges.shape != (b * ntx * nty, 2) or background.shape != (b, c):
         raise ValueError("composite: ranges or background disagree with the views")
+
+
+def _composite_fwd_cuda(gfeat, colors, lists: TileLists, background, image_shape, tile: int = 16):
+    """Launch K3: (image (B, h, w, C), final transmittance (B, h, w))."""
+    _check_composite_args(gfeat, colors, lists, background, tile)
+    b, g, _ = gfeat.shape
+    c = colors.shape[-1]
     h, w = image_shape
     out = torch.empty((b, h, w, c), dtype=torch.float32, device=gfeat.device)
+    t_final = torch.empty((b, h, w), dtype=torch.float32, device=gfeat.device)
     kernels.call(
         "tp_composite", "composite",
         gfeat.data_ptr(), colors.data_ptr(), lists.idx.data_ptr(), lists.ranges.data_ptr(),
-        background.data_ptr(), out.data_ptr(), b, g, c, h, w, ntx, nty,
+        background.data_ptr(), out.data_ptr(), t_final.data_ptr(), b, g, c, h, w,
+        lists.num_tiles_x, lists.num_tiles_y,
     )
-    return out
+    return out, t_final
+
+
+def _composite_bwd_cuda(gfeat, colors, lists: TileLists, background, image, t_final, g_out, tile: int = 16):
+    """Launch K4: d_pair (N, 8 + C), one gradient row per tile-list entry."""
+    _check_composite_args(gfeat, colors, lists, background, tile)
+    b, g, _ = gfeat.shape
+    c = colors.shape[-1]
+    h, w = image.shape[1:3]
+    kernels.check_cuda_tensor("image", image, torch.float32, 4)
+    kernels.check_cuda_tensor("t_final", t_final, torch.float32, 3)
+    kernels.check_cuda_tensor("g_out", g_out, torch.float32, 4)
+    if image.shape != (b, h, w, c) or g_out.shape != image.shape or t_final.shape != (b, h, w):
+        raise ValueError("composite_bwd: image, t_final and g_out disagree in shape")
+    d_pair = torch.zeros((lists.idx.shape[0], GFEAT_WIDTH + c), dtype=torch.float32, device=gfeat.device)
+    if d_pair.shape[0]:
+        kernels.call(
+            "tp_composite_bwd", "composite_bwd",
+            gfeat.data_ptr(), colors.data_ptr(), lists.idx.data_ptr(), lists.ranges.data_ptr(),
+            background.data_ptr(), image.data_ptr(), t_final.data_ptr(), g_out.data_ptr(), d_pair.data_ptr(),
+            b, g, c, h, w, lists.num_tiles_x, lists.num_tiles_y,
+        )
+    return d_pair
+
+
+def composite_tiles(
+    gfeat: torch.Tensor,
+    colors: torch.Tensor,
+    lists: TileLists,
+    background: torch.Tensor,
+    image_shape: tuple[int, int],
+    tile: int = 16,
+) -> torch.Tensor:
+    """(B, h, w, C) composite of the tile lists over `background` (B, C).
+
+    Differentiable in gfeat, colors and background on both devices (the lists
+    are constants)."""
+    return CompositeTiles.apply(gfeat, colors, background, lists, tuple(image_shape), tile)

@@ -20,6 +20,10 @@ import torch
 from ...geometry.sh import eval_sh
 
 
+ALPHA_MIN = 1.0 / 255.0  # below it a Gaussian does not touch the pixel
+ALPHA_MAX = 0.99  # cap of a single Gaussian's alpha
+
+
 class ProjectedGaussians(NamedTuple):
     """Screen-space Gaussian data, (B, G, ...) for B views."""
 
@@ -118,8 +122,8 @@ def gaussian_alpha(
     opacity: torch.Tensor,
     pixel_xy: torch.Tensor,
     radius: torch.Tensor | None = None,
-    alpha_min: float = 1.0 / 255.0,
-    alpha_max: float = 0.99,
+    alpha_min: float = ALPHA_MIN,
+    alpha_max: float = ALPHA_MAX,
 ) -> torch.Tensor:
     """Alpha of Gaussians at pixels (broadcasting): clamped at 0.99, zeroed
     below 1/255, for power > 0, and outside the circular radius cutoff."""

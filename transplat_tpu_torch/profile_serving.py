@@ -44,6 +44,50 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
+def report(prof, spans, differences, count: int, top: int, wall_ms: float) -> tuple[float, float]:
+    """Print one JSON line per span (host ms and device span ms per
+    iteration), per difference of spans (name, outer span, inner spans) and
+    per top device kernel of a torch.profiler trace of `count` iterations.
+    Returns the device's busy ms (union of the device events' intervals) and
+    the plain sum of the device events' ms, per iteration; a busy time above
+    `wall_ms` is a measurement fault and raises."""
+    events = prof.key_averages()
+
+    def device_ms(e) -> float:
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        return us / 1e3 / count
+
+    is_device = lambda e: getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA  # noqa: E731
+    host, span = {}, {}
+    for name in spans:
+        host[name] = sum(e.cpu_time_total for e in events if e.key == name and not is_device(e)) / 1e3 / count
+        span[name] = sum(device_ms(e) for e in events if e.key == name and is_device(e))
+        print(json.dumps({"stage": name, "host_ms": host[name], "device_span_ms": span[name]}))
+    for name, outer, inner in differences:
+        print(json.dumps({
+            "stage": name,
+            "host_ms": host[outer] - sum(host[n] for n in inner),
+            "device_span_ms": span[outer] - sum(span[n] for n in inner),
+        }))
+    kernels = [e for e in events if is_device(e) and e.key not in spans]
+    kernels.sort(key=device_ms, reverse=True)
+    for e in kernels[:top]:
+        print(json.dumps({"kernel": e.key[:120], "calls": e.count // count, "device_ms": device_ms(e)}))
+    intervals = [
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if is_device(e) and e.name not in spans
+    ]
+    if not intervals:
+        raise RuntimeError("the trace holds no device events")
+    busy_ms = _union_us(intervals) / 1e3 / count
+    if busy_ms > wall_ms:
+        raise RuntimeError(f"device busy {busy_ms} ms per iteration exceeds the wall time {wall_ms} ms")
+    return busy_ms, sum(device_ms(e) for e in kernels)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--requests", type=int, default=5)
@@ -96,46 +140,11 @@ def main() -> None:
             request()
         torch.cuda.synchronize()
         traced_wall_ms = (time.perf_counter() - t0) * 1e3 / args.requests
-    events = prof.key_averages()
-
-    def device_ms(e) -> float:
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0.0)
-        return us / 1e3 / args.requests
-
-    is_device = lambda e: getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA  # noqa: E731
-    host, span = {}, {}
-    for name in spans:
-        host[name] = sum(e.cpu_time_total for e in events if e.key == name and not is_device(e)) / 1e3 / args.requests
-        span[name] = sum(device_ms(e) for e in events if e.key == name and is_device(e))
-        print(json.dumps({"stage": name, "host_ms": host[name], "device_span_ms": span[name]}))
-    parts = ("encoder.backbone", "encoder.dav2", "encoder.depth_predictor")
-    for name, outer, inner in (
-        ("encoder outside its parts (not attributed)", "encoder", parts),
+    differences = (
+        ("encoder outside its parts (not attributed)", "encoder", ("encoder.backbone", "encoder.dav2", "encoder.depth_predictor")),
         ("decoder (not attributed)", "request", ("encoder",)),
-    ):
-        print(json.dumps({
-            "stage": name,
-            "host_ms": host[outer] - sum(host[n] for n in inner),
-            "device_span_ms": span[outer] - sum(span[n] for n in inner),
-        }))
-
-    kernels = [e for e in events if is_device(e) and e.key not in spans]
-    kernels.sort(key=device_ms, reverse=True)
-    for e in kernels[: args.top]:
-        print(json.dumps({"kernel": e.key[:120], "calls": e.count // args.requests, "device_ms": device_ms(e)}))
-    intervals = [
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if is_device(e) and e.name not in spans
-    ]
-    if not intervals:
-        raise RuntimeError("the trace holds no device events")
-    busy_ms = _union_us(intervals) / 1e3 / args.requests
-    summed_ms = sum(device_ms(e) for e in kernels)
-    if busy_ms > min(wall_ms, traced_wall_ms):
-        raise RuntimeError(f"device busy {busy_ms} ms per request exceeds the wall time ({wall_ms}, traced {traced_wall_ms})")
+    )
+    busy_ms, summed_ms = report(prof, spans, differences, args.requests, args.top, min(wall_ms, traced_wall_ms))
     print(json.dumps({
         "summary": "per request", "requests": args.requests, "wall_ms": wall_ms, "wall_ms_all": times,
         "traced_wall_ms": traced_wall_ms, "device_busy_ms": busy_ms, "device_summed_ms": summed_ms,
