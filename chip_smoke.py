@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA card
-and check them.
+"""Drive the PyTorch/CUDA port's serving, training and fit -> checkpoint ->
+evaluate paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -14,7 +14,10 @@ and check them.
 3. Each kernel is held against its plain PyTorch version on the card at the
    shapes of the paths (K1, K3, K4 and K2 on the Gaussians a request
    produced and on a synthetic scene of elongated splats; K5 and K6 at 2 x
-   4096 queries of 64x64 maps), and timed with CUDA events.
+   4096 queries of 64x64 maps; K7 and K8, both modes, at 2 x 4096 queries
+   of a 64x64x128 value map with self-attention-like locations), and timed
+   with CUDA events beside its bound, its plain version and, where there is
+   one, a library call (grid_sample, index_add_, searchsorted).
 4. The tiled renderer is held against the naive oracle, and the serving
    slice at a tiny width against the plain versions on the CPU.
 5. Training (`train_slice`): the same full-width configuration takes one
@@ -25,6 +28,15 @@ and check them.
    the loss on the fixed batch (dropout off) must be lower afterwards.
 6. `tiny_train_vs_cpu`: one training step's loss and gradients at a tiny
    width, kernels on the card against plain versions on the CPU.
+7. Fit (`fit_slice`): the same configuration on the 256x256 golden scene.
+   Evaluator.evaluate_batch; Trainer.fit for FIT_STEPS steps from an
+   in-memory iterator (lr 4e-4 cosine, MSE + random-init LPIPS, one sanity
+   validation, a validation and a checkpoint in the middle and at the end,
+   into a temporary directory); a fresh Trainer resumed from the middle
+   checkpoint, whose first step must log the first run's loss; evaluate_batch
+   again. Launch counts are reset just before fit() and read just after: all
+   twelve kernels must have launched, and the PSNR must have risen by
+   FIT_MIN_PSNR_GAIN_DB.
 
 Prints JSON records, then the card's name and power limit as nvidia-smi
 gives them, a `kernels` record, and as the last line
@@ -50,8 +62,16 @@ IMAGE = (256, 256)
 NUM_TARGET = 4
 REQUESTS = 5
 TRAIN_STEPS = 3
-FORWARD_KERNELS = ("deform_scores_p1", "deform_scores_p4", "bin_rects", "bin_emit", "bin_ranges", "composite")
-BACKWARD_KERNELS = ("deform_scores_bwd_p1", "deform_scores_bwd_p4", "composite_bwd", "bin_bwd")
+FIT_STEPS = 50
+# PSNR of evaluate_batch on the golden scene must rise by this much over
+# FIT_STEPS steps. Measured on an H100 80GB HBM3: 11.0 -> 26.1 dB, a gain of
+# 15 dB (runs differ by a few tenths: the backward's atomics); an optimizer
+# or gradient fault that halves the progress fails.
+FIT_MIN_PSNR_GAIN_DB = 8.0
+FORWARD_KERNELS = (
+    "deform_scores_p1", "deform_scores_p4", "deform_vectors", "bin_rects", "bin_emit", "bin_ranges", "composite",
+)
+BACKWARD_KERNELS = ("deform_scores_bwd_p1", "deform_scores_bwd_p4", "deform_vectors_bwd", "composite_bwd", "bin_bwd")
 # Gradients are compared on values scaled to the gradient's largest entry.
 # K6 and K2 repeat their plain versions' float32 sums in another order
 # (atomics): 1e-5. K4 sums an entry's 256 pixels in another order than the
@@ -98,6 +118,20 @@ def max_err(a, b) -> float:
 def scaled_err(a, b) -> float:
     """Max abs error of `a` against `b`, both scaled to b's largest entry."""
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def require_composite(a, b, label: str) -> tuple[float, float]:
+    """The compositing kernel's `a` against its plain version's `b`: all
+    values within 1e-5, but for the few pixels where the transmittance
+    crosses the 1e-4 gate between two entries. There the kernel's running
+    product and the plain version's chunked cumprod can disagree on whether
+    one more entry counts; that entry adds at most T alpha c < 1e-4. So:
+    at most 1e-4 of the values beyond 1e-5, none beyond 1e-4. Returns (max
+    abs error, share beyond 1e-5)."""
+    diff = (a.float() - b.float()).abs()
+    err, share = float(diff.max()), float((diff > 1e-5).float().mean())
+    require(err <= 1e-4 and share <= 1e-4, f"{label}: max abs err {err}, share beyond 1e-5 {share}")
+    return err, share
 
 
 def synthetic_scene(g: int, views: int, dev, seed: int):
@@ -240,12 +274,145 @@ def check_deform_bwd(dev, p: int) -> dict:
     return rec
 
 
+def vectors_inputs(dev):
+    """K7/K8 inputs at the paths' shape: 2 directed pairs x 4096 queries of a
+    64x64 map, C = 128, P = 4. Locations are the pixel centres plus small
+    random offsets, as the self-attention produces them; an eighth sits on
+    exact corner boundaries, an eighth around and outside the map's edge and a
+    few far outside."""
+    n, h, w, c, p = 2, 64, 64, 128, 4
+    q = h * w
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    value = torch.randn((n, h * w, c), device=dev, generator=gen)
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij")
+    centres = torch.stack([(xs + 0.5) / w, (ys + 0.5) / h], dim=-1).reshape(1, q, 1, 2)
+    loc = centres + torch.randn((n, q, p, 2), device=dev, generator=gen) * (1.5 / w)
+    loc[:, : q // 8] = torch.round(loc[:, : q // 8] * w) / w  # exact corner boundaries
+    loc[:, q // 8 : q // 4] = torch.rand((n, q // 8, p, 2), device=dev, generator=gen) * 1.2 - 0.1
+    loc[:, q // 4 : q // 4 + 16] = loc[:, q // 4 : q // 4 + 16] * 1e6  # far outside
+    aw = torch.softmax(torch.randn((n, q, p), device=dev, generator=gen), dim=-1)
+    gbar = torch.randn((n, q, c), device=dev, generator=gen)
+    return value, loc.contiguous(), aw, gbar, (n, q, h, w, c, p)
+
+
+def vectors_rows_touched(loc: torch.Tensor, n: int, h: int, w: int) -> int:
+    """Rows of the value maps that the in-range corners of `loc` (N, Q, P, 2) hit."""
+    px = torch.floor(loc[..., 0] * w - 0.5).clamp(-2.0, w + 1.0).long()
+    py = torch.floor(loc[..., 1] * h - 0.5).clamp(-2.0, h + 1.0).long()
+    pair = torch.arange(n, device=loc.device).reshape(n, 1, 1)
+    hit = torch.zeros(n * h * w + 1, dtype=torch.bool, device=loc.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            ix, iy = px + dx, py + dy
+            inside = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+            hit[torch.where(inside, pair * h * w + iy * w + ix, n * h * w).reshape(-1)] = True
+    return int(hit[:-1].sum())
+
+
+def _grid_sample_vectors(value, loc, aw, shape):
+    """The library's way to the same function: grid_sample on V as (N, C, H, W)
+    with the Q x P grid, then the weighted sum over the points."""
+    from torch.nn import functional as F
+
+    n, q, h, w, c, p = shape
+    img = value.reshape(n, h, w, c).permute(0, 3, 1, 2)
+    sampled = F.grid_sample(img, loc * 2.0 - 1.0, mode="bilinear", padding_mode="zeros", align_corners=False)
+    return torch.einsum("ncqp,nqp->nqc", sampled, aw)
+
+
+def check_deform_vectors(dev, launches: dict) -> dict:
+    """K7 at the path's shape against its plain version and grid_sample."""
+    from transplat_tpu_torch.ops import deform
+
+    value, loc, aw, _, shape = vectors_inputs(dev)
+    n, q, h, w, c, p = shape
+    tol = 1e-5
+    out = deform.deform_sample_vectors(value, (h, w), loc, aw)
+    ref = deform.deform_sample_vectors_plain(value, (h, w), loc, aw)
+    lib = _grid_sample_vectors(value, loc, aw, shape)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    require(bool(torch.isfinite(out).all()) and err <= tol, f"deform_vectors: max abs err {err} > {tol}")
+    # grid_sample maps loc through [-1, 1] and back, so its fractions round differently: 1e-4.
+    require(max_err(lib, ref) <= 1e-4, "grid_sample disagrees with the plain value sampler")
+    ms = time_ms(lambda: deform.deform_sample_vectors(value, (h, w), loc, aw))
+    plain_ms = time_ms(lambda: deform.deform_sample_vectors_plain(value, (h, w), loc, aw), iters=5, warmup=1)
+    library_ms = time_ms(lambda: _grid_sample_vectors(value, loc, aw, shape))
+    rows = vectors_rows_touched(loc, n, h, w)
+    nbytes = 4 * (rows * c + loc.numel() + aw.numel() + out.numel())
+    b_ms, b_by = bound(nbytes, n * q * p * 4 * (2.0 * c + 12.0))
+    rec = dict(
+        name="deform_vectors", route="cuda", source="transplat_tpu_torch/csrc/deform_vectors.cu",
+        replaces="transplat_tpu/ops/deform_pallas.py:347", launches=launches.get("deform_vectors", 0),
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+    )
+    emit({"phase": "kernel", "tolerance": tol, "shape": dict(pairs=n, q=q, c=c, p=p, h=h, w=w),
+          "value_rows_touched": rows, "value_rows_total": n * h * w, "bytes": nbytes, **rec})
+    return rec
+
+
+def check_deform_vectors_bwd(dev) -> dict:
+    """K8 (atomic and sorted mode) at the path's shape, against its plain
+    version, against autograd of the forward's plain version, and through the
+    Function; the sorted mode twice for identical bits."""
+    from transplat_tpu_torch.ops import deform
+
+    value, loc, aw, gbar, shape = vectors_inputs(dev)
+    n, q, h, w, c, p = shape
+    tol = GRAD_TOL["deform"]
+    plain = deform.deform_sample_vectors_bwd_plain(value, (h, w), loc, aw, gbar)
+    leaves = [t.clone().requires_grad_(True) for t in (value, loc, aw)]
+    auto = torch.autograd.grad(deform.deform_sample_vectors_plain(leaves[0], (h, w), leaves[1], leaves[2]), leaves, gbar)
+    through = torch.autograd.grad(deform.deform_sample_vectors(leaves[0], (h, w), leaves[1], leaves[2]), leaves, gbar)
+    errs = {}
+    for mode, deterministic in (("atomic", False), ("sorted", True)):
+        got = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=deterministic)
+        torch.cuda.synchronize()
+        for name, a, b, cc in zip(("d_value", "d_loc", "d_weights"), got, plain, auto):
+            require(bool(torch.isfinite(a).all()), f"deform_vectors_bwd ({mode}) {name}: non-finite")
+            errs[f"{mode}.{name}"] = max(scaled_err(a, b), scaled_err(a, cc))
+    for name, t, b in zip(("d_value", "d_loc", "d_weights"), through, plain):
+        errs[f"function.{name}"] = scaled_err(t, b)
+    for name, e in errs.items():
+        require(e <= tol, f"deform_vectors_bwd {name}: scaled max abs err {e} > {tol}")
+    far = slice(q // 4, q // 4 + 16)  # every corner outside the map: exactly 0
+    got = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar)
+    require(float(got[1][:, far].abs().max()) == 0.0 and float(got[2][:, far].abs().max()) == 0.0,
+            "deform_vectors_bwd: gradients of points far outside the map are not 0")
+    first = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True)
+    second = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True)
+    require(all(torch.equal(x, y) for x, y in zip(first, second)), "deform_vectors_bwd sorted mode is not deterministic")
+    ms = time_ms(lambda: deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar))
+    sorted_ms = time_ms(lambda: deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True))
+    plain_ms = time_ms(lambda: deform.deform_sample_vectors_bwd_plain(value, (h, w), loc, aw, gbar), iters=5, warmup=1)
+    lib_leaves = [t.clone().requires_grad_(True) for t in (value, loc, aw)]
+    lib = _grid_sample_vectors(*lib_leaves, shape)
+    lib_grads = torch.autograd.grad(lib, lib_leaves, gbar, retain_graph=True)
+    for name, a, b in zip(("d_value", "d_loc", "d_weights"), lib_grads, plain):
+        require(scaled_err(a, b) <= 1e-4, f"grid_sample's {name} disagrees with the plain version")
+    library_ms = time_ms(lambda: torch.autograd.grad(lib, lib_leaves, gbar, retain_graph=True))
+    # The plain forward's autograd backward (advanced indexing), which the kernel took off the training step.
+    auto_out = deform.deform_sample_vectors_plain(leaves[0], (h, w), leaves[1], leaves[2])
+    autograd_ms = time_ms(lambda: torch.autograd.grad(auto_out, leaves, gbar, retain_graph=True), iters=5, warmup=1)
+    rows = vectors_rows_touched(loc, n, h, w)
+    nbytes = 4 * (rows * c + loc.numel() + aw.numel() + gbar.numel() + value.numel() + loc.numel() + aw.numel())
+    b_ms, b_by = bound(nbytes, n * q * p * 4 * (4.0 * c + 20.0))
+    rec = dict(
+        name="deform_vectors_bwd", route="cuda", source="transplat_tpu_torch/csrc/deform_vectors_bwd.cu",
+        replaces="transplat_tpu/ops/deform_pallas.py:361", launches=0,
+        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        sorted_ms=sorted_ms, plain_forward_autograd_ms=autograd_ms,
+    )
+    emit({"phase": "kernel", "tolerance": tol, "error_is": "max abs, values scaled to the gradient's largest entry",
+          "errors": errs, "shape": dict(pairs=n, q=q, c=c, p=p, h=h, w=w), "bytes": nbytes, **rec})
+    return rec
+
+
 def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> list[dict]:
     """K1 (bin_rects, bin_emit, bin_ranges) and K3 (composite) against their
     plain versions on one set of projected Gaussians."""
     from transplat_tpu_torch.ops.rasterizer import binning, composite
 
-    tol = 1e-5
     gfeat, colors = binning.sort_by_depth(proj)
     b, g, _ = gfeat.shape
     ntx, nty = binning.grid_size(image_shape, 16)
@@ -267,10 +434,10 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
     img = composite.composite_tiles(gfeat, colors, lists, bg, image_shape)
     img_p, _, evaluations = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
     torch.cuda.synchronize()
-    err = max_err(img, img_p)
-    require(err <= tol, f"{label}: composite max abs err {err} > {tol}")
+    err, share = require_composite(img, img_p, f"{label}: composite")
     sizes = dict(views=b, gaussians=g, pairs=total, h=image_shape[0], w=image_shape[1])
-    emit({"phase": "raster_check", "scene": label, "tolerance": tol, "composite_max_abs_err": err,
+    emit({"phase": "raster_check", "scene": label, "composite_max_abs_err": err, "composite_share_beyond_1e-5": share,
+          "tolerance": "1e-5; at most 1e-4 of the values up to 1e-4 (entries at the T = 1e-4 gate)",
           "binning_exact": True, "evaluations": evaluations, **sizes})
 
     # Backward: K4 and K2 with a random d out and a non-black background.
@@ -280,7 +447,8 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
     g_out = torch.randn((b, *image_shape, c), device=gfeat.device, generator=gen)
     image, t_final = composite._composite_fwd_cuda(gfeat, colors, lists, bg_b, image_shape)
     image_p, t_final_p, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg_b, image_shape)
-    require(max_err(image, image_p) <= tol and max_err(t_final, t_final_p) <= tol, f"{label}: composite / T_final != plain")
+    require_composite(image, image_p, f"{label}: composite, coloured background")
+    require_composite(t_final, t_final_p, f"{label}: T_final")
     d_pair = composite._composite_bwd_cuda(gfeat, colors, lists, bg_b, image, t_final, g_out)
     d_pair_p = composite.composite_tiles_bwd_plain(gfeat, colors, lists, bg_b, image_p, t_final_p, g_out)
     k4_errs = {
@@ -427,6 +595,123 @@ def train_slice(dev, records: list[dict]) -> None:
           "lpips": "random-init weights", "gaussians": 2 * IMAGE[0] * IMAGE[1]})
 
 
+def fit_slice(dev, records: list[dict]) -> None:
+    """Path 3 at full width on the 256x256 golden scene: evaluate, fit
+    FIT_STEPS steps through the Trainer (one sanity validation, one
+    validation and one checkpoint in the middle, one checkpoint at the end),
+    resume a fresh Trainer from the middle checkpoint, evaluate again."""
+    import itertools
+    import os
+    import shutil
+    import tempfile
+
+    from transplat_tpu_torch import kernels
+    from transplat_tpu_torch.config import load_config
+    from transplat_tpu_torch.dataset import golden_scene_batch
+    from transplat_tpu_torch.evaluation import Evaluator
+    from transplat_tpu_torch.loss import LPIPS
+    from transplat_tpu_torch.training import CheckpointManager, Trainer, create_train_state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    half = FIT_STEPS // 2
+    batch = golden_scene_batch(num_context=2, num_target=NUM_TARGET, image_shape=IMAGE)
+    lpips = LPIPS(device=dev, seed=SEED)  # random-init weights, as in train_slice
+    with tempfile.TemporaryDirectory() as tmp:
+        def config(run: str):
+            return load_config(
+                "re10k",
+                optimizer=dict(lr=4e-4, cosine_lr=True, warm_up_steps=1),  # the overfit schedule
+                trainer=dict(max_steps=FIT_STEPS, num_sanity_val_steps=1, val_check_interval=half, seed=SEED),
+                checkpointing=dict(save_dir=f"{tmp}/{run}/checkpoints", every_n_train_steps=half),
+                test=dict(output_path=f"{tmp}/{run}/test", eval_time_skip_steps=0),
+            )
+
+        cfg = config("run")
+        logs: list[str] = []
+        trainer = Trainer(cfg, log_fn=logs.append, device=dev, lpips=lpips, log_every=1)
+        # The state fit() will start from (same seed, same generator): scored before training.
+        initial = create_train_state(cfg.encoder, trainer.optimizer, lpips, device=dev, seed=cfg.trainer.seed)
+        before, _ = Evaluator(cfg, initial.encoder, lpips, device=dev).evaluate_batch(batch)
+        del initial
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state = trainer.fit(itertools.repeat(batch), max_steps=FIT_STEPS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        for name in FORWARD_KERNELS + BACKWARD_KERNELS:
+            require(launches.get(name, 0) > 0, f"kernel {name} was not launched by fit_slice")
+        require(state.step == FIT_STEPS, f"fit_slice: stopped at step {state.step}")
+        ckpt_dir = cfg.checkpointing.save_dir
+        names = sorted(os.listdir(ckpt_dir))
+        require(names == ["config.json", f"step_{half:08d}.pt", f"step_{FIT_STEPS:08d}.pt"], f"fit_slice: checkpoints {names}")
+        with open(f"{tmp}/run/metrics.jsonl") as f:
+            lines = [json.loads(line) for line in f]
+        steps = {r["step"]: r for r in lines if "loss" in r}
+        vals = [r for r in lines if "val_psnr" in r]
+        require(sorted(steps) == list(range(1, FIT_STEPS + 1)), "fit_slice: a step's metrics record is missing")
+        require(all(np.isfinite(v) for r in steps.values() for v in r.values()), "fit_slice: non-finite step metrics")
+        require([r["step"] for r in vals] == [half, FIT_STEPS] and sum("sanity validation" in m for m in logs) == 1,
+                f"fit_slice: validations {vals}, logs {logs[:2]}")
+        evaluator = Evaluator(cfg, state.encoder, lpips, device=dev)
+        after, color = evaluator.evaluate_batch(batch)
+        evaluator.scores[batch["scene"][0]] = after
+        evaluator.finalize(cfg.test.output_path)
+        require(sorted(os.listdir(cfg.test.output_path)) == ["benchmark.json", "scores_all_avg.json", "scores_per_scene.json"],
+                "fit_slice: the evaluator's files")
+        require(color.shape == (1, NUM_TARGET, *IMAGE, 3) and bool(np.isfinite(color).all()), "fit_slice: rendered colours")
+        for scores in (before, after):
+            require(all(np.isfinite(scores[k]) for k in ("psnr", "ssim", "lpips")), f"fit_slice: scores {scores}")
+            require(scores["render_overflow"] == 0, "fit_slice: render_overflow is not 0")
+        gain = after["psnr"] - before["psnr"]
+        require(gain >= FIT_MIN_PSNR_GAIN_DB, f"fit_slice: PSNR {before['psnr']:.2f} -> {after['psnr']:.2f} dB, gain under {FIT_MIN_PSNR_GAIN_DB}")
+
+        # A fresh Trainer on the middle checkpoint alone: its first step repeats step half + 1.
+        resumed_cfg = config("resumed")
+        os.makedirs(resumed_cfg.checkpointing.save_dir)
+        shutil.copy(f"{ckpt_dir}/step_{half:08d}.pt", resumed_cfg.checkpointing.save_dir)
+        size = os.path.getsize(f"{ckpt_dir}/step_{half:08d}.pt")
+        del state, evaluator
+        resumed_logs: list[str] = []
+        resumed = Trainer(resumed_cfg, log_fn=resumed_logs.append, device=dev, lpips=lpips, log_every=1)
+        state = resumed.fit(itertools.repeat(batch), max_steps=half + 1)
+        require(f"resumed from step {half}" in resumed_logs and state.step == half + 1, f"fit_slice: resume {resumed_logs[:3]}")
+        with open(f"{tmp}/resumed/metrics.jsonl") as f:
+            again = [r for r in map(json.loads, f) if "loss" in r][0]
+        first = steps[half + 1]
+        # Same parameters, BatchNorm statistics, Adam state, learning rate and
+        # dropout masks; the forward's kernels are deterministic: 1e-4 relative.
+        rel = abs(again["loss"] - first["loss"]) / abs(first["loss"])
+        require(again["step"] == half + 1 and rel <= 1e-4 and again["lr"] == first["lr"],
+                f"fit_slice: resumed step {again} vs first run {first}")
+
+        # Save and restore, timed on their own.
+        mgr = CheckpointManager(f"{tmp}/timed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(state.step, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        require(mgr.restore(state) is state, "fit_slice: restore")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    for rec in records:
+        rec["launches_fit"] = launches.get(rec["name"], 0)
+    step_ms = [1e3 * steps[i]["s_per_it"] for i in sorted(steps)]
+    emit({"phase": "fit_slice", "steps": FIT_STEPS, "fit_s": fit_s, "ms_per_step_median": float(np.median(step_ms)),
+          "peak_mem_bytes": peak, "scores_before": before, "scores_after": after, "psnr_gain_db": gain,
+          "required_gain_db": FIT_MIN_PSNR_GAIN_DB, "val_psnr": [r["val_psnr"] for r in vals],
+          "train_psnr_first_last": [steps[1]["psnr"], steps[FIT_STEPS]["psnr"]],
+          "loss_first_last": [steps[1]["loss"], steps[FIT_STEPS]["loss"]],
+          "resumed_step": half + 1, "resumed_loss": again["loss"], "first_run_loss": first["loss"], "resumed_loss_rel_err": rel,
+          "resume_tolerance": 1e-4, "checkpoint_bytes": size, "save_s": save_s, "restore_s": restore_s,
+          "launches": launches, "launches_per_step": {k: v / FIT_STEPS for k, v in launches.items()},
+          "lpips": "random-init weights", "scene": "golden_planes", "gaussians": 2 * IMAGE[0] * IMAGE[1]})
+
+
 def tiny_train_vs_cpu(dev) -> None:
     """One training step's loss and gradients (dropout off) at a tiny width:
     the kernels on the card against the plain versions on the CPU, from the
@@ -531,7 +816,8 @@ def main() -> int:
 
     # ---- every kernel against its plain version ---------------------------
     records = [check_deform(dev, 1, launches), check_deform(dev, 4, launches),
-               check_deform_bwd(dev, 1), check_deform_bwd(dev, 4)]
+               check_deform_bwd(dev, 1), check_deform_bwd(dev, 4),
+               check_deform_vectors(dev, launches), check_deform_vectors_bwd(dev)]
     tv = NUM_TARGET
     rep = lambda x: x.expand(tv, *x.shape[1:]).contiguous()  # noqa: E731
     cams = [torch.as_tensor(tgt[k][0], device=dev) for k in ("extrinsics", "intrinsics", "near")]
@@ -597,6 +883,9 @@ def main() -> int:
     # ---- the training path -------------------------------------------------
     train_slice(dev, records)
     tiny_train_vs_cpu(dev)
+
+    # ---- fit -> validate -> checkpoint -> resume -> evaluate ----------------
+    fit_slice(dev, records)
 
     print(smi, flush=True)
     emit({"kernels": records})

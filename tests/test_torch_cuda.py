@@ -127,6 +127,82 @@ def test_deform_scores_bwd(dev, q, d, p, h, w):
         assert _scaled_err(a, c) <= GRAD_RTOL["deform"], (name, "autograd", _scaled_err(a, c))
 
 
+def _vectors_case(n, q, p, h, w, c, seed, dev):
+    rng = np.random.default_rng(seed)
+    value = rng.standard_normal((n, h * w, c)).astype(np.float32)
+    loc = rng.uniform(-0.3, 1.3, (n, q, p, 2)).astype(np.float32)
+    loc[:, : q // 4] = np.round(loc[:, : q // 4] * w) / w  # exact corner boundaries
+    loc[:, q // 4 : q // 4 + 2] *= 1e7  # far outside the map
+    aw = rng.random((n, q, p)).astype(np.float32)
+    gbar = rng.standard_normal((n, q, c)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (value, loc, aw, gbar)]
+
+
+VECTOR_SHAPES = [(2, 4096, 4, 64, 64, 128), (1, 37, 3, 7, 11, 16), (3, 20, 11, 5, 9, 6), (1, 64, 1, 8, 8, 260)]
+
+
+@pytest.mark.parametrize("n,q,p,h,w,c", VECTOR_SHAPES)
+def test_deform_vectors(dev, n, q, p, h, w, c):
+    """K7 against its plain version: float4 and scalar channel paths, more than 8 points, any map."""
+    value, loc, aw, _ = _vectors_case(n, q, p, h, w, c, q + c, dev)
+    kernels.reset_launches()
+    out = deform.deform_sample_vectors(value, (h, w), loc, aw)
+    assert kernels.launches.get("deform_vectors") == 1
+    ref = deform.deform_sample_vectors_plain(value, (h, w), loc, aw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=ATOL)
+    # one pair alone (no leading dim), and a non-contiguous value map
+    single = deform.deform_sample_vectors(value[0], (h, w), loc[0], aw[0])
+    np.testing.assert_allclose(single.cpu().numpy(), ref[0].cpu().numpy(), atol=ATOL)
+    strided = value.transpose(-1, -2).contiguous().transpose(-1, -2)
+    np.testing.assert_allclose(
+        deform.deform_sample_vectors(strided, (h, w), loc, aw).cpu().numpy(), ref.cpu().numpy(), atol=ATOL
+    )
+
+
+@pytest.mark.parametrize("n,q,p,h,w,c", VECTOR_SHAPES)
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_deform_vectors_bwd(dev, n, q, p, h, w, c, deterministic):
+    """K8, atomic and sorted mode, through the Function: against its plain
+    version and against autograd of the forward's plain version."""
+    value, loc, aw, gbar = _vectors_case(n, q, p, h, w, c, q + c, dev)
+    kernels.reset_launches()
+    leaves = [t.clone().requires_grad_(True) for t in (value, loc, aw)]
+    out = deform.deform_sample_vectors(leaves[0], (h, w), leaves[1], leaves[2], deterministic=deterministic)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, gbar)
+    assert kernels.launches.get("deform_vectors_bwd") == 1
+    assert (kernels.launches.get("deform_vectors_bwd_sorted", 0) == 1) == deterministic
+    plain = deform.deform_sample_vectors_bwd_plain(value, (h, w), loc, aw, gbar)
+    leaves = [t.clone().requires_grad_(True) for t in (value, loc, aw)]
+    auto = torch.autograd.grad(deform.deform_sample_vectors_plain(leaves[0], (h, w), leaves[1], leaves[2]), leaves, gbar)
+    torch.cuda.synchronize()
+    for name, a, b, c_ in zip(("value", "loc", "weights"), got, plain, auto):
+        assert bool(torch.isfinite(a).all()), name
+        assert _scaled_err(a, b) <= GRAD_RTOL["deform"], (name, "plain", _scaled_err(a, b))
+        assert _scaled_err(a, c_) <= GRAD_RTOL["deform"], (name, "autograd", _scaled_err(a, c_))
+    far = slice(q // 4, q // 4 + 2)  # every corner outside the map: exactly 0
+    assert float(got[1][:, far].abs().max()) == 0.0 and float(got[2][:, far].abs().max()) == 0.0
+    if deterministic:
+        again = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))  # same bits on every run
+
+
+def test_deform_vectors_needs_input_grad_and_rejects_bad_input(dev):
+    value, loc, aw, gbar = _vectors_case(1, 16, 2, 4, 4, 8, 0, dev)
+    v = value.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(deform.deform_sample_vectors(v, (4, 4), loc, aw), [v], gbar)
+    assert g.shape == v.shape
+    with pytest.raises(ValueError, match="requires grad"):
+        deform._vectors_fwd_cuda(v, (4, 4), loc, aw)
+    with pytest.raises(ValueError):
+        deform.deform_sample_vectors(value.double(), (4, 4), loc, aw)
+    with pytest.raises(ValueError, match="rows"):
+        deform.deform_sample_vectors(value, (4, 5), loc, aw)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        deform.deform_sample_vectors(value, (4, 4), loc[:, :8], aw)
+
+
 def _raster_case(dev, image_shape, channels, seed=2, g=3000):
     cams, gs = scene(g, 3, dev, seed)
     opac = torch.from_numpy(np.random.default_rng(seed).uniform(0.0, 1.2, (3, g)).astype(np.float32)).to(dev)

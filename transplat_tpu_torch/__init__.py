@@ -1,24 +1,46 @@
 """transplat_tpu_torch — the PyTorch/CUDA port of transplat_tpu for NVIDIA Hopper.
 
 Same function as the JAX package (posed context images -> per-pixel 3D
-Gaussians -> rendered target views, and the training step on them), written
-for one H100:
+Gaussians -> rendered target views; the training step on them; fit ->
+checkpoint -> evaluate), written for one H100:
 
   * geometry/    camera geometry, spherical harmonics, covariance math
   * ops/         tensor ops and the hand-written CUDA kernels' wrappers
-                 (deformable score sampling, tile binning, tile compositing,
-                 forward and backward), each beside a plain PyTorch version
-                 of the same function
+                 (deformable score and value sampling, tile binning, tile
+                 compositing, forward and backward), each beside a plain
+                 PyTorch version of the same function
   * model/       nn.Modules: multi-view backbone, frozen DAv2 prior, depth
-                 predictor, Gaussian adapter, splatting decoder
+                 predictor, Gaussian adapter, splatting decoder; init.py
+                 draws initial parameters as the Flax initialisers do
   * loss/        MSE, depth smoothness, LPIPS (VGG16, float32)
-  * training/    the training step (forward, backward, clip + Adam) and the
-                 learning-rate schedule; train_demo.py takes a few steps
+  * training/    the training step (forward, backward, clip + Adam), the
+                 learning-rate schedule, CheckpointManager and Trainer;
+                 train_demo.py takes a few steps
+  * evaluation/  PSNR / SSIM and the Evaluator (scores and timing JSONs)
+  * dataset/     numpy batches: synthetic, the golden scene, DataLoader
+  * utils/       Benchmarker (synchronised stage timer)
+  * config.py    the typed configuration tree and the experiment presets
   * csrc/        CUDA C++ sources, built with nvcc for sm_90a at first use
   * inference.py the serving path (encoder -> decode_splatting -> colour)
+  * overfit_golden.py  the golden-scene convergence gate
+
+The entry points are exported here: render_novel_views, make_train_step,
+Trainer, CheckpointManager, Evaluator, compute_psnr, compute_ssim,
+load_config, golden_scene_batch, synthetic_batch.
 
 Public functions keep the JAX package's layouts (NHWC images, (b, v, ...)
 batches) so both can be held against each other on the same numpy inputs.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.3.0"
+
+from .config import load_config  # noqa: E402
+from .dataset import golden_scene_batch, synthetic_batch  # noqa: E402
+from .evaluation import Evaluator, compute_psnr, compute_ssim  # noqa: E402
+from .inference import render_novel_views  # noqa: E402
+from .training import CheckpointManager, Trainer, make_train_step  # noqa: E402
+
+__all__ = [
+    "CheckpointManager", "Evaluator", "Trainer", "compute_psnr", "compute_ssim", "golden_scene_batch", "load_config",
+    "make_train_step", "render_novel_views", "synthetic_batch",
+]

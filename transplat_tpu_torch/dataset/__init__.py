@@ -1,3 +1,3 @@
-from .loader import synthetic_batch
+from .loader import DataLoader, batch_to_device, golden_scene_batch, synthetic_batch
 
-__all__ = ["synthetic_batch"]
+__all__ = ["DataLoader", "batch_to_device", "golden_scene_batch", "synthetic_batch"]

@@ -1,9 +1,84 @@
-"""Synthetic posed batches (numpy only), a copy of `synthetic_batch` from
-transplat_tpu/dataset/loader.py so the port needs nothing of the JAX package."""
+"""Host data loading: batching with a prefetch thread, the synthetic and
+golden-scene batches (numpy only), and the move of a batch to a device.
+
+Own copies of `_stack_examples`, `DataLoader`, `synthetic_batch`,
+`_plane_texture` and `golden_scene_batch` from transplat_tpu/dataset/loader.py,
+so the port needs nothing of the JAX package; the arrays are equal bit for
+bit (tests/test_torch_fit_eval.py). `MultiWorkerLoader` waits for the chunk
+dataset's port."""
 
 from __future__ import annotations
 
+import queue
+import threading
+from typing import Iterator
+
 import numpy as np
+import torch
+
+
+# The encoder's inputs, in the order of its forward's arguments.
+CONTEXT_KEYS = ("image", "intrinsics", "extrinsics", "near", "far")
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """The context and target views of a batch (numpy arrays or tensors) as
+    float32 tensors on `device`; the view indices and scene names stay behind."""
+    return {
+        side: {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in batch[side].items() if k != "index"}
+        for side in ("context", "target")
+    }
+
+
+def _stack_examples(examples: list) -> dict:
+    def stack_views(key):
+        views = [e[key] for e in examples]
+        return {
+            k: np.stack([v[k] for v in views]) for k in views[0] if k != "index"
+        } | {"index": np.stack([np.asarray(v["index"]) for v in views])}
+
+    return {
+        "context": stack_views("context"),
+        "target": stack_views("target"),
+        "scene": [e["scene"] for e in examples],
+    }
+
+
+class DataLoader:
+    """Batches an example iterator with background prefetch."""
+
+    def __init__(self, dataset, batch_size: int, prefetch: int = 4, drop_last: bool = True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.prefetch = prefetch
+        self.drop_last = drop_last
+
+    def __iter__(self) -> Iterator[dict]:
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+
+        def worker():
+            buf = []
+            try:
+                for example in self.dataset:
+                    buf.append(example)
+                    if len(buf) == self.batch_size:
+                        q.put(_stack_examples(buf))
+                        buf = []
+                if buf and not self.drop_last:
+                    q.put(_stack_examples(buf))
+            finally:
+                q.put(sentinel)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            yield item
+
+
 
 
 def synthetic_batch(
@@ -41,4 +116,109 @@ def synthetic_batch(
         "context": views(num_context),
         "target": views(num_target),
         "scene": [f"synthetic_{i}" for i in range(batch_size)],
+    }
+
+
+def _plane_texture(k: int, x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Smooth procedural RGB texture for plane k, evaluated at world (x, y)."""
+    base = np.array(
+        [
+            [0.85, 0.35, 0.30],
+            [0.30, 0.75, 0.40],
+            [0.30, 0.45, 0.90],
+            [0.85, 0.80, 0.30],
+        ],
+        np.float32,
+    )[k % 4]
+    f = 2.0 + 1.5 * k
+    tex = (
+        0.5
+        + 0.25 * np.sin(f * x + 0.7 * k)[..., None] * np.cos((f + 1.0) * y)[..., None]
+        + 0.15 * np.sin((2.3 * f) * (x + y) + k)[..., None]
+    )
+    return np.clip(tex * base, 0.0, 1.0).astype(np.float32)
+
+
+def golden_scene_batch(
+    num_context: int = 2,
+    num_target: int = 4,
+    image_shape: tuple[int, int] = (256, 256),
+    near: float = 1.0,
+    far: float = 100.0,
+) -> dict:
+    """Deterministic parallax-consistent golden scene (batch of 1).
+
+    Textured fronto-parallel planes at mixed depths with finite extents, so
+    views see real parallax AND occlusion edges: the geometrically
+    structured stand-in for a real RE10K scene used by the overfit
+    regression gate (overfit_golden.py, tests/test_torch_fit_eval.py).
+
+    Planes (depth, x-extent, y-extent): a far backdrop plus mid/near cards.
+    Cameras: small x-baseline translations, identity rotation (matches the
+    posed-pair geometry of synthetic_batch).
+    """
+    h, w = image_shape
+    planes = [
+        (12.0, None, None),  # backdrop (infinite)
+        (6.0, (-2.2, 0.8), (-1.8, 1.8)),
+        (3.5, (-0.2, 1.6), (-1.2, 1.0)),
+        (2.2, (-1.0, 0.1), (-0.3, 0.9)),
+    ]
+
+    def render_view(extr: np.ndarray) -> np.ndarray:
+        fx = fy = 1.0 * w  # normalized intr 1.0 -> pixels
+        u = (np.arange(w, dtype=np.float32) + 0.5) / w
+        v = (np.arange(h, dtype=np.float32) + 0.5) / h
+        uu, vv = np.meshgrid(u, v, indexing="xy")
+        d = np.stack([(uu - 0.5), (vv - 0.5), np.ones_like(uu)], axis=-1)
+        rot = extr[:3, :3]
+        t = extr[:3, 3]
+        dirs = d @ rot.T
+        img = np.zeros((h, w, 3), np.float32)
+        depth_hit = np.full((h, w), np.inf, np.float32)
+        for k, (dz, xe, ye) in enumerate(planes):
+            s = (dz - t[2]) / dirs[..., 2]
+            px = t[0] + s * dirs[..., 0]
+            py = t[1] + s * dirs[..., 1]
+            hit = s > 0
+            if xe is not None:
+                hit &= (px >= xe[0]) & (px <= xe[1])
+            if ye is not None:
+                hit &= (py >= ye[0]) & (py <= ye[1])
+            hit &= s < depth_hit
+            tex = _plane_texture(k, px, py)
+            img = np.where(hit[..., None], tex, img)
+            depth_hit = np.where(hit, s, depth_hit)
+        return img
+
+    def views(offsets):
+        nv = len(offsets)
+        intr = np.tile(
+            np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]], np.float32),
+            (1, nv, 1, 1),
+        )
+        extr = np.tile(np.eye(4, dtype=np.float32), (1, nv, 1, 1))
+        images = np.zeros((1, nv, h, w, 3), np.float32)
+        for i, (ox, oy) in enumerate(offsets):
+            extr[0, i, 0, 3] = ox
+            extr[0, i, 1, 3] = oy
+            images[0, i] = render_view(extr[0, i])
+        return {
+            "image": images,
+            "intrinsics": intr,
+            "extrinsics": extr,
+            "near": np.full((1, nv), near, np.float32),
+            "far": np.full((1, nv), far, np.float32),
+            "index": np.tile(np.arange(nv), (1, 1)),
+        }
+
+    ctx_offsets = [(-0.25 + 0.5 * i / max(num_context - 1, 1), 0.0) for i in range(num_context)]
+    tgt_offsets = [
+        (-0.2 + 0.4 * i / max(num_target - 1, 1), 0.03 * ((-1) ** i))
+        for i in range(num_target)
+    ]
+    return {
+        "context": views(ctx_offsets),
+        "target": views(tgt_offsets),
+        "scene": ["golden_planes"],
     }

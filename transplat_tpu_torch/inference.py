@@ -10,34 +10,22 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .model.adapter import GaussianAdapterCfg
+from .config import re10k_config
 from .model.decoder import DecoderCfg, decode_splatting
-from .model.encoder import EncoderCfg, EncoderTranSplat, OpacityMappingCfg
+from .model.encoder import EncoderCfg, EncoderTranSplat
 
 _VIEW_KEYS = ("image", "intrinsics", "extrinsics", "near", "far")
 
 
 def re10k_encoder_cfg() -> EncoderCfg:
-    """The flagship re10k encoder (transplat_tpu/config.py `re10k_config`)."""
-    return EncoderCfg(
-        d_feature=128,
-        num_depth_candidates=128,
-        costvolume_unet_feat_dim=128,
-        costvolume_unet_channel_mult=(1, 1, 1),
-        costvolume_unet_attn_res=(4,),
-        depth_unet_feat_dim=32,
-        depth_unet_attn_res=(16,),
-        depth_unet_channel_mult=(1, 1, 1, 1, 1),
-        gaussian_adapter=GaussianAdapterCfg(0.5, 15.0, 4),
-        opacity_mapping=OpacityMappingCfg(0.0, 0.0, 1),
-        s2d_unet=True,
-    )
+    """The flagship re10k encoder (config.py `re10k_config`)."""
+    return re10k_config().encoder
 
 
 def re10k_decoder_cfg() -> DecoderCfg:
     """The re10k decoder: black background, 16x16 tiles, float32. (The JAX
     config's worklist capacity has no counterpart: the port drops nothing.)"""
-    return DecoderCfg()
+    return re10k_config().decoder
 
 
 def _views(batch: dict, keys, device) -> dict:

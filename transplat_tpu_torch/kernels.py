@@ -31,7 +31,7 @@ _CSRC = Path(__file__).parent / "csrc"
 _BUILD_ROOT = Path(__file__).parent / "_build"
 _SOURCES = (
     "deform_scores.cu", "deform_scores_bwd.cu", "binning.cu", "binning_bwd.cu",
-    "composite.cu", "composite_bwd.cu",
+    "composite.cu", "composite_bwd.cu", "deform_vectors.cu", "deform_vectors_bwd.cu",
 )
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -61,6 +61,13 @@ _SIGNATURES = {
     "tp_bin_bwd": (_P, _P, _P, _P, _LL, _I, _I, _I, _P),
     # d_pair, perm, segments, d_feat, n_gaussians, row, stream
     "tp_bin_bwd_sorted": (_P, _P, _P, _P, _LL, _I, _P),
+    # value, loc, aw, out, n_batch, q, h, w, c, p, stream
+    "tp_deform_vectors": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
+    # value, loc, aw, gbar, d_value (or null), d_loc, d_aw, keys (or null), corner_w (or null),
+    # n_batch, q, h, w, c, p, stream
+    "tp_deform_vectors_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
+    # gbar, corner_w, perm, segments, d_value, n_rows, c, corners_per_query, stream
+    "tp_deform_vectors_bwd_sorted": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
 }
 
 launches: dict[str, int] = {}

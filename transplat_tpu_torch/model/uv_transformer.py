@@ -3,8 +3,10 @@
 Counterpart of transplat_tpu/model/uv_transformer.py. The coarse and cross
 attentions reduce sampled value vectors against the query pixel's own key,
 so the channel reduction is hoisted into one matmul S = K V^T and scalars
-are bilinearly sampled from S (ops/deform.py, kernel K5). The query's
-channels double as the depth-candidate slots.
+are bilinearly sampled from S (ops/deform.py, kernels K5 / K6). The
+self-attention samples value vectors themselves (`deform_sample_vectors`,
+kernels K7 / K8 on the card). The query's channels double as the
+depth-candidate slots.
 
 Every tensor carries a leading pair dim (N, ...): the JAX package vmaps
 UVMatcher over directed view pairs; here the pair dim is written out.
@@ -52,7 +54,7 @@ class UVSelfAttention(nn.Module):
         h, w = hw
         norm = torch.tensor([w, h], dtype=q_in.dtype, device=q_in.device)
         loc = ref_2d[..., None, :] + offsets / norm
-        out = deform_sample_vectors(value, hw, loc, weights)
+        out = deform_sample_vectors(value, hw, loc, weights)  # K7; its backward is K8
         return self.dropout(self.output_proj(out), generator) + query
 
 

@@ -10,7 +10,11 @@ locations in [0, 1], grid_sample align_corners=False, zero padding.
     tensors it runs their plain versions (the gather oracle, and
     deform_sample_scores_bwd_plain).
   * deform_sample_vectors — classic deformable attention over value vectors
-    (UVSelf), plain PyTorch in float32 (the JAX default is XLA, not Pallas).
+    (UVSelf), an autograd.Function as well: for CUDA tensors K7 forward
+    (csrc/deform_vectors.cu) and K8 backward (csrc/deform_vectors_bwd.cu,
+    atomic adds into d_value, or a sorted, deterministic mode); for CPU
+    tensors deform_sample_vectors_plain (float32 gathers) and
+    deform_sample_vectors_bwd_plain.
 
 Every function takes any number of leading batch dims (the directed view
 pairs of the depth predictor).
@@ -196,13 +200,14 @@ def deform_sample_scores(
     return DeformSampleScores.apply(scores, loc01, attn_weights, tuple(spatial_shape))
 
 
-def deform_sample_vectors(
+def deform_sample_vectors_plain(
     value: torch.Tensor,  # (..., H*W, C)
     spatial_shape: tuple[int, int],
     loc01: torch.Tensor,  # (..., Q, P, 2)
     attn_weights: torch.Tensor,  # (..., Q, P)
 ) -> torch.Tensor:
-    """Weighted bilinear sampling of value vectors -> (..., Q, C), float32 gathers."""
+    """Plain PyTorch version of K7: weighted bilinear sampling of value
+    vectors -> (..., Q, C), float32 gathers."""
     h, w = spatial_shape
     hw, c = value.shape[-2:]
     flat = value.reshape(-1, hw, c)
@@ -214,3 +219,157 @@ def deform_sample_vectors(
     weight = wgt * attn_weights.reshape(n, q, p)[None]
     out = torch.einsum("knqp,knqpc->nqc", weight, sampled)
     return out.reshape(*value.shape[:-2], q, c)
+
+
+def deform_sample_vectors_bwd_plain(
+    value: torch.Tensor,  # (..., H*W, C)
+    spatial_shape: tuple[int, int],
+    loc01: torch.Tensor,  # (..., Q, P, 2)
+    attn_weights: torch.Tensor,  # (..., Q, P)
+    gbar: torch.Tensor,  # (..., Q, C) cotangent of the output
+):
+    """Plain PyTorch version of K8: (d_value, d_loc, d_attn_weights), written
+    out term by term as the kernel computes them. floor() is a constant and a
+    corner outside the map contributes 0 to every gradient."""
+    h, w = spatial_shape
+    hw, c = value.shape[-2:]
+    flat = value.reshape(-1, hw, c)
+    n = flat.shape[0]
+    q, p = attn_weights.shape[-2:]
+    idx, inside, wx, wy = _corners(loc01.reshape(n, q, p, 2), h, w)  # (4, N, Q, P), (N, Q, P)
+    at = torch.arange(n, device=value.device)[None, :, None, None] * hw + idx
+    gb = gbar.reshape(n, q, 1, c)
+    zero = torch.zeros((), dtype=value.dtype, device=value.device)
+    # s_corner = <gbar[q], V[idx_corner]>, 0 outside the map.
+    s00, s01, s10, s11 = torch.where(inside, (flat.reshape(-1, c)[at] * gb[None]).sum(dim=-1), zero)
+    w00, w01, w10, w11 = (1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy, wx * wy
+    aw = attn_weights.reshape(n, q, p)
+    d_aw = s00 * w00 + s01 * w01 + s10 * w10 + s11 * w11
+    d_loc = torch.stack(
+        [
+            aw * w * ((1 - wy) * (s01 - s00) + wy * (s11 - s10)),
+            aw * h * ((1 - wx) * (s10 - s00) + wx * (s11 - s01)),
+        ],
+        dim=-1,
+    )
+    spread = torch.where(inside, torch.stack([w00, w01, w10, w11]) * aw[None], zero)  # (4, N, Q, P)
+    d_value = torch.zeros((n * hw, c), dtype=value.dtype, device=value.device)
+    d_value.index_add_(0, at.reshape(-1), (spread[..., None] * gb[None]).reshape(-1, c))
+    return d_value.reshape(value.shape), d_loc.reshape(loc01.shape), d_aw.reshape(attn_weights.shape)
+
+
+def _check_vectors_args(value, spatial_shape, loc01, attn_weights):
+    h, w = spatial_shape
+    *lead, hw, _ = value.shape
+    q, p = attn_weights.shape[-2:]
+    if hw != h * w:
+        raise ValueError(f"value: {hw} rows != {h} * {w}")
+    if tuple(loc01.shape) != (*lead, q, p, 2) or tuple(attn_weights.shape) != (*lead, q, p):
+        raise ValueError(
+            f"shapes disagree: value {tuple(value.shape)}, loc {tuple(loc01.shape)}, "
+            f"weights {tuple(attn_weights.shape)}"
+        )
+    for name, t in (("value", value), ("loc01", loc01), ("attn_weights", attn_weights)):
+        kernels.check_cuda_tensor(name, t, torch.float32)
+
+
+def _vectors_fwd_cuda(value, spatial_shape, loc01, attn_weights):
+    """Launch K7 on contiguous float32 CUDA tensors."""
+    _check_vectors_args(value, spatial_shape, loc01, attn_weights)
+    h, w = spatial_shape
+    c = value.shape[-1]
+    q, p = attn_weights.shape[-2:]
+    out = torch.empty((*value.shape[:-2], q, c), dtype=torch.float32, device=value.device)
+    n = value.numel() // (h * w * c) if h * w * c else 0
+    kernels.call(
+        "tp_deform_vectors", "deform_vectors",
+        value.data_ptr(), loc01.data_ptr(), attn_weights.data_ptr(), out.data_ptr(), n, q, h, w, c, p,
+    )
+    return out
+
+
+def _vectors_bwd_cuda(value, spatial_shape, loc01, attn_weights, gbar, deterministic: bool = False):
+    """Launch K8 on contiguous float32 CUDA tensors. The default adds into a
+    d_value zeroed here with float atomics (the last bits change from run to
+    run); `deterministic` sorts the corners by d_value row and adds each
+    row's segment in order."""
+    _check_vectors_args(value, spatial_shape, loc01, attn_weights)
+    h, w = spatial_shape
+    hw, c = value.shape[-2:]
+    q, p = attn_weights.shape[-2:]
+    kernels.check_cuda_tensor("gbar", gbar, torch.float32)
+    if tuple(gbar.shape) != (*value.shape[:-2], q, c):
+        raise ValueError(f"gbar: shape {tuple(gbar.shape)} is not the output's {(*value.shape[:-2], q, c)}")
+    n = value.numel() // (hw * c) if hw * c else 0
+    dev = value.device
+    d_loc, d_aw = torch.empty_like(loc01), torch.empty_like(attn_weights)
+    if not deterministic:
+        d_value = torch.zeros_like(value)
+        kernels.call(
+            "tp_deform_vectors_bwd", "deform_vectors_bwd",
+            value.data_ptr(), loc01.data_ptr(), attn_weights.data_ptr(), gbar.data_ptr(),
+            d_value.data_ptr(), d_loc.data_ptr(), d_aw.data_ptr(), None, None, n, q, h, w, c, p,
+        )
+        return d_value, d_loc, d_aw
+    if n * hw + 1 >= 2**31:
+        raise ValueError("deform_sample_vectors: batch * H * W must fit in int32 in the deterministic mode")
+    entries = n * q * p * 4
+    keys = torch.empty(entries, dtype=torch.int32, device=dev)
+    corner_w = torch.empty(entries, dtype=torch.float32, device=dev)
+    d_value = torch.empty_like(value)
+    kernels.call(
+        "tp_deform_vectors_bwd", "deform_vectors_bwd",
+        value.data_ptr(), loc01.data_ptr(), attn_weights.data_ptr(), gbar.data_ptr(),
+        None, d_loc.data_ptr(), d_aw.data_ptr(), keys.data_ptr(), corner_w.data_ptr(), n, q, h, w, c, p,
+    )
+    keys_sorted, perm = torch.sort(keys, stable=True)
+    segments = torch.zeros((n * hw + 1, 2), dtype=torch.int32, device=dev)  # last row: corners outside the map
+    if entries:
+        kernels.call("tp_bin_ranges", "deform_vectors_bwd_segments", keys_sorted.data_ptr(), segments.data_ptr(), entries)
+    kernels.call(
+        "tp_deform_vectors_bwd_sorted", "deform_vectors_bwd_sorted",
+        gbar.data_ptr(), corner_w.data_ptr(), perm.data_ptr(), segments.data_ptr(), d_value.data_ptr(),
+        n * hw, c, 4 * p,
+    )
+    return d_value, d_loc, d_aw
+
+
+class DeformSampleVectors(torch.autograd.Function):
+    """deform_sample_vectors with its hand-written backward: the kernels K7 and
+    K8 for CUDA tensors, their plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, value, loc01, attn_weights, spatial_shape, deterministic):
+        value, loc01, attn_weights = (t.contiguous() for t in (value, loc01, attn_weights))
+        ctx.save_for_backward(value, loc01, attn_weights)
+        ctx.spatial_shape, ctx.deterministic = spatial_shape, deterministic
+        if value.is_cuda:
+            return _vectors_fwd_cuda(value, spatial_shape, loc01, attn_weights)
+        return deform_sample_vectors_plain(value, spatial_shape, loc01, attn_weights)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gbar):
+        value, loc01, attn_weights = ctx.saved_tensors
+        args = (value, ctx.spatial_shape, loc01, attn_weights, gbar.contiguous())
+        if value.is_cuda:
+            d_value, d_loc, d_aw = _vectors_bwd_cuda(*args, deterministic=ctx.deterministic)
+        else:
+            d_value, d_loc, d_aw = deform_sample_vectors_bwd_plain(*args)
+        need = ctx.needs_input_grad
+        return (d_value if need[0] else None, d_loc if need[1] else None, d_aw if need[2] else None, None, None)
+
+
+def deform_sample_vectors(
+    value: torch.Tensor,  # (..., H*W, C)
+    spatial_shape: tuple[int, int],
+    loc01: torch.Tensor,  # (..., Q, P, 2)
+    attn_weights: torch.Tensor,  # (..., Q, P)
+    deterministic: bool = False,
+) -> torch.Tensor:
+    """K7 / K8: value maps (..., H*W, C) sampled at (..., Q, P, 2) -> (..., Q, C).
+
+    Differentiable in values, locations and weights on both devices; on the
+    card forward and backward are the hand-written kernels. `deterministic`
+    picks K8's sorted mode (same bits on every run) over its atomic adds."""
+    return DeformSampleVectors.apply(value, loc01, attn_weights, tuple(spatial_shape), deterministic)

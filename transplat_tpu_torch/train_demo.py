@@ -19,7 +19,7 @@ import time
 
 import torch
 
-from .dataset import synthetic_batch
+from .dataset import batch_to_device, synthetic_batch
 from .inference import init_random, re10k_decoder_cfg, re10k_encoder_cfg
 from .loss import LPIPS, LossCfg
 from .model.adapter import GaussianAdapterCfg
@@ -38,14 +38,6 @@ def tiny_encoder_cfg() -> EncoderCfg:
         depth_unet_channel_mult=(1, 1, 1), dav2_encoder="vits", dav2_input_size=28,
         gaussian_adapter=GaussianAdapterCfg(sh_degree=1),
     )
-
-
-def batch_to_device(batch: dict, device) -> dict:
-    """The context and target views of a numpy batch as float32 tensors on `device`."""
-    return {
-        side: {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in batch[side].items() if k != "index"}
-        for side in ("context", "target")
-    }
 
 
 def build(encoder_cfg: EncoderCfg, image_shape, device, seed: int, num_target: int = 4):

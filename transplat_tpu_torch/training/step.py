@@ -22,9 +22,10 @@ from ..loss.losses import LossCfg, compute_losses
 from ..loss.vgg import LPIPS
 from ..model.decoder import DecoderCfg, decode_splatting
 from ..model.encoder import EncoderCfg, EncoderTranSplat
+from ..dataset.loader import CONTEXT_KEYS
+from ..evaluation.metrics import compute_psnr
+from ..model.init import init_parameters
 from ..model.layers import Dropout
-
-_CONTEXT_KEYS = ("image", "intrinsics", "extrinsics", "near", "far")
 
 
 @dataclass
@@ -94,11 +95,16 @@ def create_train_state(
     optimizer: ClipAdam,
     lpips: LPIPS | None = None,
     device: str | torch.device = "cuda",
+    seed: int | None = None,
 ) -> TrainState:
-    """A fresh state on `device`: a new EncoderTranSplat (PyTorch's default
-    initialisation; load or draw its weights afterwards, the zero Adam
-    moments do not depend on them), step 0."""
+    """A fresh state on `device`: a new EncoderTranSplat, step 0, zero Adam
+    moments. With a `seed` the parameters are drawn as the JAX package's
+    initialisers draw them (model/init.py), for training from scratch;
+    without one they keep PyTorch's default initialisation, for a caller who
+    loads or draws the weights afterwards."""
     state = TrainState(step=0, encoder=EncoderTranSplat(encoder_cfg, device=device), lpips=lpips, opt_state=AdamState())
+    if seed is not None:
+        init_parameters(state.encoder, seed)
     state.opt_state = optimizer.init(state.trainable())
     return state
 
@@ -126,7 +132,7 @@ def loss_and_grads(
     try:
         ctx, tgt = batch["context"], batch["target"]
         with record_function("train.encoder"):
-            gaussians = encoder(*(ctx[k] for k in _CONTEXT_KEYS), global_step=state.step, generator=generator)
+            gaussians = encoder(*(ctx[k] for k in CONTEXT_KEYS), global_step=state.step, generator=generator)
         with record_function("train.decoder"):
             out = decode_splatting(
                 gaussians, tgt["extrinsics"], tgt["intrinsics"], tgt["near"], tgt["far"], image_shape, cfg=decoder_cfg
@@ -141,8 +147,8 @@ def loss_and_grads(
     with torch.no_grad():
         metrics["loss"] = loss.detach()
         metrics["render_overflow"] = out.overflow.sum().to(torch.float32)
-        err = torch.clamp(out.color, 0, 1) - torch.clamp(tgt["image"], 0, 1)
-        metrics["psnr"] = -10.0 * torch.log10(torch.mean(err**2) + 1e-12)
+        # One PSNR over the whole batch (every view in one mean), as the JAX step reports it.
+        metrics["psnr"] = compute_psnr(tgt["image"].reshape(1, -1, 3), out.color.reshape(1, -1, 3))
     # A parameter the loss does not reach has gradient 0, as in JAX.
     grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), grads)}
     return metrics, grads
