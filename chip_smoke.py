@@ -15,9 +15,13 @@ evaluate paths on one NVIDIA card and check them.
    shapes of the paths (K1, K3, K4 and K2 on the Gaussians a request
    produced and on a synthetic scene of elongated splats; K5 and K6 at 2 x
    4096 queries of 64x64 maps; K7 and K8, both modes, at 2 x 4096 queries
-   of a 64x64x128 value map with self-attention-like locations), and timed
-   with CUDA events beside its bound, its plain version and, where there is
-   one, a library call (grid_sample, index_add_, searchsorted).
+   of a 64x64x128 value map with self-attention-like locations; K5 at P = 1
+   also on the encoder's own epipolar locations), and timed beside its bound,
+   its plain version and, where there is one, a library call (grid_sample,
+   index_add_, searchsorted): device time by torch.profiler (median of 20
+   calls; `device_ms` with the wrapper's fills, `kernel_ms` the kernel
+   alone, see transplat_tpu_torch/utils/device_time.py) and `wrapper_ms`,
+   one wrapper call between CUDA events.
 4. The tiled renderer is held against the naive oracle, and the serving
    slice at a tiny width against the plain versions on the CPU.
 5. Training (`train_slice`): the same full-width configuration takes one
@@ -106,6 +110,26 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def timings(fn, kernel: str, lib_fn=None) -> dict:
+    """A kernel's times: device_ms (every device event of one wrapper call,
+    its fill kernels included) and kernel_ms (the hand-written kernel alone,
+    by name) from torch.profiler, wrapper_ms (one wrapper call between CUDA
+    events: host time included, what a host-bound path pays); the same for
+    the library call where there is one. `ms` and `library_ms` are the
+    device times the kernels line compares."""
+    from transplat_tpu_torch.utils.device_time import device_time
+
+    wrapper_ms = time_ms(fn)  # before the profiler window: it costs the host time while on
+    t = device_time(fn, kernel)
+    rec = dict(ms=t["kernel_ms"], device_ms=t["device_ms"], kernel_ms=t["kernel_ms"], wrapper_ms=wrapper_ms,
+               device_launches_per_call=t["device_launches"], timing="torch.profiler device time, median of 20 calls",
+               library_ms=None, library_wrapper_ms=None)
+    if lib_fn is not None:
+        library_wrapper_ms = time_ms(lib_fn)
+        rec.update(library_ms=device_time(lib_fn)["device_ms"], library_wrapper_ms=library_wrapper_ms)
+    return rec
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -192,28 +216,67 @@ def deform_inputs(dev, p: int):
     return scores, loc, aw, gbar, (n, q, d, h, w)
 
 
-def check_deform(dev, p: int, launches: dict) -> dict:
-    """K5 at the path's shapes."""
+def epipolar_inputs(encoder, ctx, dev):
+    """The inputs of the encoder's own P = 1 score sampling (the epipolar
+    coarse correlation of the UV matcher), captured from one request:
+    scores (N, Q, HW), locations on the epipolar lines, unit weights."""
+    from transplat_tpu_torch.model import uv_transformer
+
+    seen = []
+    sample = uv_transformer.deform_sample_scores
+
+    def capture(scores, hw, loc, aw):
+        if loc.shape[-2] == 1 and not seen:
+            seen.append((scores.detach().clone(), tuple(hw), loc.detach().clone(), aw.detach().clone()))
+        return sample(scores, hw, loc, aw)
+
+    uv_transformer.deform_sample_scores = capture
+    try:
+        with torch.no_grad():
+            encoder(*(torch.as_tensor(ctx[k], device=dev) for k in ("image", "intrinsics", "extrinsics", "near", "far")))
+    finally:
+        uv_transformer.deform_sample_scores = sample
+    require(len(seen) == 1, "the encoder made no P = 1 score sampling")
+    scores, (h, w), loc, aw = seen[0]
+    n, q, d = loc.shape[0], loc.shape[-4], loc.shape[-3]
+    return scores.reshape(n, q, h * w), loc.reshape(n, q, d, 1, 2), aw.reshape(n, q, d, 1), (n, q, d, h, w)
+
+
+def check_deform(dev, p: int, launches: dict, inputs=None, label: str = "random locations") -> dict:
+    """K5 at the path's shapes (random locations, or the `inputs` given)."""
     from torch.nn import functional as F
 
     from transplat_tpu_torch.ops import deform
+    from transplat_tpu_torch.utils.device_time import device_time
 
-    scores, loc, aw, _, (n, q, d, h, w) = deform_inputs(dev, p)
+    if inputs is None:
+        scores, loc, aw, _, (n, q, d, h, w) = deform_inputs(dev, p)
+    else:
+        scores, loc, aw, (n, q, d, h, w) = inputs
     out = deform.deform_sample_scores(scores, (h, w), loc, aw)
     ref = deform.deform_sample_scores_plain(scores, (h, w), loc, aw)
     torch.cuda.synchronize()
     err = max_err(out, ref)
     tol = 1e-5
     require(err <= tol, f"deform_scores P={p}: max abs err {err} > {tol}")
-    ms = time_ms(lambda: deform.deform_sample_scores(scores, (h, w), loc, aw))
     plain_ms = time_ms(lambda: deform.deform_sample_scores_plain(scores, (h, w), loc, aw), iters=5, warmup=1)
-    library_ms = None
-    if p == 1:  # grid_sample computes the same function when P = 1 and the weights are 1
-        grid = (loc * 2.0 - 1.0).reshape(n * q, d, 1, 2)
-        img = scores.reshape(n * q, 1, h, w)
-        lib = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
-        require(max_err(lib.reshape(n, q, d), ref) <= tol, "grid_sample disagrees with the plain version")
-        library_ms = time_ms(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=False))
+    # grid_sample on (N Q, 1, H, W) at the (N Q, D, P) grid, then the weighted
+    # sum over P, computes the same function. At P = 1 the yardstick is
+    # grid_sample alone, which reads no weights (exact for unit weights).
+    grid = (loc * 2.0 - 1.0).reshape(n * q, d, p, 2)
+    img = scores.reshape(n * q, 1, h, w)
+    sampled = lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=False)  # noqa: E731
+    weighted = lambda: (sampled().reshape(n, q, d, p) * aw).sum(-1)  # noqa: E731
+    lib_fn = sampled if p == 1 else weighted
+    # grid_sample maps loc through [-1, 1] and back, so its fractions round
+    # differently: 1e-4 of the largest value, as for K7 (on random locations
+    # at P = 1 it agrees to 1e-5).
+    lib_err = max_err(lib_fn().reshape(n, q, d), ref)
+    lib_tol = tol if (p == 1 and inputs is None) else 1e-4 * max(1.0, float(ref.abs().max()))
+    require(lib_err <= lib_tol, f"grid_sample disagrees with the plain version: {lib_err} > {lib_tol}")
+    times = timings(lambda: deform.deform_sample_scores(scores, (h, w), loc, aw), "deform_scores_kernel", lib_fn)
+    if p == 1:
+        times["library_with_weights_ms"] = device_time(weighted)["device_ms"]
     samples = n * q * d * p
     sectors = touched_sectors(loc, h, w)
     nbytes = 32 * sectors + 4 * (loc.numel() + aw.numel() + out.numel())
@@ -222,9 +285,9 @@ def check_deform(dev, p: int, launches: dict) -> dict:
     rec = dict(
         name=name, route="cuda", source="transplat_tpu_torch/csrc/deform_scores.cu",
         replaces="transplat_tpu/ops/deform_pallas.py:84", launches=launches.get(name, 0),
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        max_abs_err=err, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **times,
     )
-    emit({"phase": "kernel", "tolerance": tol, "shape": dict(pairs=n, q=q, d=d, p=p, h=h, w=w),
+    emit({"phase": "kernel", "inputs": label, "tolerance": tol, "shape": dict(pairs=n, q=q, d=d, p=p, h=h, w=w),
           "score_sectors_touched": sectors, "score_sectors_total": n * q * h * w // 8, **rec})
     return rec
 
@@ -248,18 +311,20 @@ def check_deform_bwd(dev, p: int) -> dict:
     for name, a, b, c, t in zip(("d_scores", "d_loc", "d_weights"), got, plain, auto, through):
         errs[name] = max(scaled_err(a, b), scaled_err(a, c), scaled_err(t, b))
         require(errs[name] <= tol, f"deform_scores_bwd P={p} {name}: scaled max abs err {errs[name]} > {tol}")
-    ms = time_ms(lambda: deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar))
     plain_ms = time_ms(lambda: deform.deform_sample_scores_bwd_plain(scores, (h, w), loc, aw, gbar), iters=5, warmup=1)
-    library_ms = None
-    if p == 1:  # grid_sample's backward (input and grid gradients) is the same function at P = 1, unit weights
-        grid = (loc * 2.0 - 1.0).reshape(n * q, d, 1, 2).requires_grad_(True)
-        img = scores.reshape(n * q, 1, h, w).clone().requires_grad_(True)
-        lib = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
-        cot = gbar.reshape(n * q, 1, d, 1)
-        lib_img, lib_grid = torch.autograd.grad(lib, (img, grid), cot, retain_graph=True)
-        require(scaled_err(lib_img.reshape(n, q, h * w), plain[0]) <= tol, "grid_sample's d_input disagrees with the plain version")
-        require(scaled_err(lib_grid.reshape(n, q, d, 1, 2) * 2.0, plain[1]) <= tol, "grid_sample's d_grid disagrees with the plain version")
-        library_ms = time_ms(lambda: torch.autograd.grad(lib, (img, grid), cot, retain_graph=True))
+    # The library's way: autograd's backward of grid_sample + the weighted sum
+    # (input, grid and weight gradients).
+    grid = (loc * 2.0 - 1.0).reshape(n * q, d, p, 2).requires_grad_(True)
+    img = scores.reshape(n * q, 1, h, w).clone().requires_grad_(True)
+    lib_aw = aw.clone().requires_grad_(True)
+    lib = (F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=False).reshape(n, q, d, p) * lib_aw).sum(-1)
+    lib_img, lib_grid, lib_daw = torch.autograd.grad(lib, (img, grid, lib_aw), gbar, retain_graph=True)
+    lib_tol = tol if p == 1 else 1e-4  # as in check_deform
+    require(scaled_err(lib_img.reshape(n, q, h * w), plain[0]) <= lib_tol, "grid_sample's d_input disagrees with the plain version")
+    require(scaled_err(lib_grid.reshape(n, q, d, p, 2) * 2.0, plain[1]) <= lib_tol, "grid_sample's d_grid disagrees with the plain version")
+    require(scaled_err(lib_daw, plain[2]) <= lib_tol, "the weighted sum's d_weights disagrees with the plain version")
+    times = timings(lambda: deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar), "deform_scores_bwd_kernel",
+                    lambda: torch.autograd.grad(lib, (img, grid, lib_aw), gbar, retain_graph=True))
     sectors = touched_sectors(loc, h, w)
     nbytes = 32 * sectors + 4 * (loc.numel() + aw.numel() + gbar.numel()) + 4 * sum(t.numel() for t in got)
     b_ms, b_by = bound(nbytes, n * q * d * p * 60.0)
@@ -267,7 +332,7 @@ def check_deform_bwd(dev, p: int) -> dict:
     rec = dict(
         name=name, route="cuda", source="transplat_tpu_torch/csrc/deform_scores_bwd.cu",
         replaces="transplat_tpu/ops/deform_pallas.py:133", launches=0,
-        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        max_abs_err=max(errs.values()), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **times,
     )
     emit({"phase": "kernel", "tolerance": tol, "error_is": "max abs, values scaled to the gradient's largest entry",
           "errors": errs, "shape": dict(pairs=n, q=q, d=d, p=p, h=h, w=w), "bytes": nbytes, **rec})
@@ -335,16 +400,16 @@ def check_deform_vectors(dev, launches: dict) -> dict:
     require(bool(torch.isfinite(out).all()) and err <= tol, f"deform_vectors: max abs err {err} > {tol}")
     # grid_sample maps loc through [-1, 1] and back, so its fractions round differently: 1e-4.
     require(max_err(lib, ref) <= 1e-4, "grid_sample disagrees with the plain value sampler")
-    ms = time_ms(lambda: deform.deform_sample_vectors(value, (h, w), loc, aw))
     plain_ms = time_ms(lambda: deform.deform_sample_vectors_plain(value, (h, w), loc, aw), iters=5, warmup=1)
-    library_ms = time_ms(lambda: _grid_sample_vectors(value, loc, aw, shape))
+    times = timings(lambda: deform.deform_sample_vectors(value, (h, w), loc, aw), "deform_vectors_kernel",
+                    lambda: _grid_sample_vectors(value, loc, aw, shape))
     rows = vectors_rows_touched(loc, n, h, w)
     nbytes = 4 * (rows * c + loc.numel() + aw.numel() + out.numel())
     b_ms, b_by = bound(nbytes, n * q * p * 4 * (2.0 * c + 12.0))
     rec = dict(
         name="deform_vectors", route="cuda", source="transplat_tpu_torch/csrc/deform_vectors.cu",
         replaces="transplat_tpu/ops/deform_pallas.py:347", launches=launches.get("deform_vectors", 0),
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        max_abs_err=err, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **times,
     )
     emit({"phase": "kernel", "tolerance": tol, "shape": dict(pairs=n, q=q, c=c, p=p, h=h, w=w),
           "value_rows_touched": rows, "value_rows_total": n * h * w, "bytes": nbytes, **rec})
@@ -382,15 +447,16 @@ def check_deform_vectors_bwd(dev) -> dict:
     first = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True)
     second = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True)
     require(all(torch.equal(x, y) for x, y in zip(first, second)), "deform_vectors_bwd sorted mode is not deterministic")
-    ms = time_ms(lambda: deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar))
-    sorted_ms = time_ms(lambda: deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True))
+    sorted_times = timings(lambda: deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True),
+                           "deform_vectors_bwd_sorted_kernel")
     plain_ms = time_ms(lambda: deform.deform_sample_vectors_bwd_plain(value, (h, w), loc, aw, gbar), iters=5, warmup=1)
     lib_leaves = [t.clone().requires_grad_(True) for t in (value, loc, aw)]
     lib = _grid_sample_vectors(*lib_leaves, shape)
     lib_grads = torch.autograd.grad(lib, lib_leaves, gbar, retain_graph=True)
     for name, a, b in zip(("d_value", "d_loc", "d_weights"), lib_grads, plain):
         require(scaled_err(a, b) <= 1e-4, f"grid_sample's {name} disagrees with the plain version")
-    library_ms = time_ms(lambda: torch.autograd.grad(lib, lib_leaves, gbar, retain_graph=True))
+    times = timings(lambda: deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar), "deform_vectors_bwd_kernel",
+                    lambda: torch.autograd.grad(lib, lib_leaves, gbar, retain_graph=True))
     # The plain forward's autograd backward (advanced indexing), which the kernel took off the training step.
     auto_out = deform.deform_sample_vectors_plain(leaves[0], (h, w), leaves[1], leaves[2])
     autograd_ms = time_ms(lambda: torch.autograd.grad(auto_out, leaves, gbar, retain_graph=True), iters=5, warmup=1)
@@ -400,8 +466,9 @@ def check_deform_vectors_bwd(dev) -> dict:
     rec = dict(
         name="deform_vectors_bwd", route="cuda", source="transplat_tpu_torch/csrc/deform_vectors_bwd.cu",
         replaces="transplat_tpu/ops/deform_pallas.py:361", launches=0,
-        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-        sorted_ms=sorted_ms, plain_forward_autograd_ms=autograd_ms,
+        max_abs_err=max(errs.values()), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **times,
+        sorted_device_ms=sorted_times["device_ms"], sorted_kernel_ms=sorted_times["kernel_ms"],
+        sorted_wrapper_ms=sorted_times["wrapper_ms"], plain_forward_autograd_ms=autograd_ms,
     )
     emit({"phase": "kernel", "tolerance": tol, "error_is": "max abs, values scaled to the gradient's largest entry",
           "errors": errs, "shape": dict(pairs=n, q=q, c=c, p=p, h=h, w=w), "bytes": nbytes, **rec})
@@ -457,15 +524,16 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
     }
     for name, e in k4_errs.items():
         require(e <= GRAD_TOL["composite"], f"{label}: composite_bwd {name}: scaled max abs err {e} > {GRAD_TOL['composite']}")
-    require(float(d_pair[:, 5].abs().max()) == 0.0, f"{label}: the radius column of d_pair is not 0")
-    ref_g, ref_c = binning.bin_bwd_plain(d_pair, lists, b, g)
+    require(float(d_pair[:, 5].abs().max()) == 0.0 and float(d_pair[:, 7].abs().max()) == 0.0
+            and float(d_pair[:, 8 + c :].abs().sum()) == 0.0, f"{label}: a radius or pad column of d_pair is not 0")
+    ref_g, ref_c = binning.bin_bwd_plain(d_pair, lists, b, g, c)
     k2_errs = {}
     for mode, deterministic in (("atomic", False), ("sorted", True)):
-        got_g, got_c = binning.bin_bwd(d_pair, lists, b, g, deterministic=deterministic)
+        got_g, got_c = binning.bin_bwd(d_pair, lists, b, g, c, deterministic=deterministic)
         k2_errs[mode] = max(scaled_err(got_g, ref_g), scaled_err(got_c, ref_c))
         require(k2_errs[mode] <= GRAD_TOL["bin"], f"{label}: bin_bwd ({mode}): scaled max abs err {k2_errs[mode]} > {GRAD_TOL['bin']}")
-    first = binning.bin_bwd(d_pair, lists, b, g, deterministic=True)
-    second = binning.bin_bwd(d_pair, lists, b, g, deterministic=True)
+    first = binning.bin_bwd(d_pair, lists, b, g, c, deterministic=True)
+    second = binning.bin_bwd(d_pair, lists, b, g, c, deterministic=True)
     require(all(torch.equal(x, y) for x, y in zip(first, second)), f"{label}: bin_bwd sorted mode is not deterministic")
     torch.cuda.synchronize()
     emit({"phase": "raster_bwd_check", "scene": label, "tolerance": GRAD_TOL,
@@ -479,23 +547,24 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
     boundaries = torch.arange(cells + 1, dtype=keys_sorted.dtype, device=keys_sorted.device)
     pair_rows = binning._pair_rows(lists, b, g)
     recs = []
+    # name, source, TPU kernel, error, wrapper, plain version, library call, bytes, operations, kernel name
     specs = [
         ("bin_rects", srcs["bin"], k1, 0.0,
          lambda: binning.bin_rects(gfeat, ntx, nty, 16), lambda: binning.bin_rects_plain(gfeat, ntx, nty, 16), None,
-         4 * b * g * (8 + 4 + 1), b * g * 40.0),
+         4 * b * g * (8 + 4 + 1), b * g * 40.0, "bin_rects_kernel"),
         ("bin_emit", srcs["bin"], k1, 0.0,
          lambda: binning.bin_emit(rects, counts, incl, total, t_count, ntx),
          lambda: binning.bin_emit_plain(rects, counts, incl, total, t_count, ntx), None,
-         b * g * (16 + 4 + 8) + 8 * total, 4.0 * total),
+         b * g * (16 + 4 + 8) + 8 * total, 4.0 * total, "bin_emit_kernel"),
         ("bin_ranges", srcs["bin"], k1, 0.0,
          lambda: binning.bin_ranges(keys_sorted, cells), lambda: binning.bin_ranges_plain(keys_sorted, cells),
          lambda: torch.searchsorted(keys_sorted, boundaries),
-         4 * total + 8 * cells, 3.0 * total),
+         4 * total + 8 * cells, 3.0 * total, "bin_ranges_kernel"),
         ("composite", srcs["comp"], k3, err,
          lambda: composite.composite_tiles(gfeat, colors, lists, bg, image_shape),
          lambda: composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape), None,
          4 * (gfeat.numel() + colors.numel() + total + 2 * cells + bg.numel() + img.numel()),
-         evaluations * (20.0 + 2 * colors.shape[-1])),
+         evaluations * (20.0 + 2 * colors.shape[-1]), "composite_kernel"),
         # K4: the forward's evaluations, each with the gradient chain (~59 +
         # 4C operations: the forward's 20, <g, c>, d_alpha, the seven products,
         # and one add per value for the sum over pixels).
@@ -504,26 +573,28 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
          lambda: composite._composite_bwd_cuda(gfeat, colors, lists, bg_b, image, t_final, g_out),
          lambda: composite.composite_tiles_bwd_plain(gfeat, colors, lists, bg_b, image_p, t_final_p, g_out), None,
          4 * (gfeat.numel() + colors.numel() + total + 2 * cells + bg_b.numel() + 2 * image.numel()
-              + t_final.numel() + d_pair.numel()),
-         evaluations * (59.0 + 4 * c)),
-        # K2 (atomic mode, the one on the path): d_pair and idx in, (B, G, 8 + C) out.
+              + t_final.numel() + total * (8 + c)),
+         evaluations * (59.0 + 4 * c), "composite_bwd_kernel"),
+        # K2 (atomic mode, the one on the path): d_pair and idx in, (B, G, 8 + C) out
+        # (the bound counts 8 + C columns, not the padded row).
         ("bin_bwd", "transplat_tpu_torch/csrc/binning_bwd.cu",
          "transplat_tpu/ops/rasterizer/pallas_binning.py:457", k2_errs["atomic"],
-         lambda: binning.bin_bwd(d_pair, lists, b, g),
-         lambda: binning.bin_bwd_plain(d_pair, lists, b, g),
-         lambda: torch.zeros((b * g, 8 + c), device=d_pair.device).index_add_(0, pair_rows, d_pair),
-         4 * (d_pair.numel() + total + b * g * (8 + c)), float(d_pair.numel())),
+         lambda: binning.bin_bwd(d_pair, lists, b, g, c),
+         lambda: binning.bin_bwd_plain(d_pair, lists, b, g, c),
+         lambda: torch.zeros((b * g, d_pair.shape[1]), device=d_pair.device).index_add_(0, pair_rows, d_pair),
+         4 * (total * (8 + c) + total + b * g * (8 + c)), float(total * (8 + c)), "bin_bwd_atomic_kernel"),
     ]
-    for name, src, replaces, e, fn, plain_fn, lib_fn, nbytes, flops in specs:
+    for name, src, replaces, e, fn, plain_fn, lib_fn, nbytes, flops, kernel in specs:
         b_ms, b_by = bound(nbytes, flops)
         rec = dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches.get(name, 0),
-            max_abs_err=e, ms=time_ms(fn), plain_ms=time_ms(plain_fn, iters=3, warmup=1),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None if lib_fn is None else time_ms(lib_fn),
+            max_abs_err=e, plain_ms=time_ms(plain_fn, iters=3, warmup=1), bound_ms=b_ms, bound_by=b_by,
+            **timings(fn, kernel, lib_fn),
         )
         if name == "bin_bwd":  # the deterministic mode beside the atomic one (torch.sort included)
-            rec["sorted_ms"] = time_ms(lambda: binning.bin_bwd(d_pair, lists, b, g, deterministic=True))
-            rec["sorted_max_abs_err"] = k2_errs["sorted"]
+            st = timings(lambda: binning.bin_bwd(d_pair, lists, b, g, c, deterministic=True), "bin_bwd_sorted_kernel")
+            rec.update(sorted_device_ms=st["device_ms"], sorted_kernel_ms=st["kernel_ms"], sorted_wrapper_ms=st["wrapper_ms"],
+                       sorted_max_abs_err=k2_errs["sorted"])
         emit({"phase": "kernel", "scene": label, **sizes, **rec})
         recs.append(rec)
     return recs
@@ -815,6 +886,8 @@ def main() -> int:
           "launches": launches})
 
     # ---- every kernel against its plain version ---------------------------
+    # K5 at P = 1 on the encoder's own epipolar locations too (not in the kernels line).
+    check_deform(dev, 1, launches, epipolar_inputs(encoder, ctx, dev), "the encoder's epipolar locations")
     records = [check_deform(dev, 1, launches), check_deform(dev, 4, launches),
                check_deform_bwd(dev, 1), check_deform_bwd(dev, 4),
                check_deform_vectors(dev, launches), check_deform_vectors_bwd(dev)]

@@ -230,17 +230,77 @@ def test_composite_and_bin_bwd_match_plain(dev, image_shape, channels):
     for lo, hi, name in ((0, 2, "mean"), (2, 5, "conic"), (6, 7, "opacity"), (8, 8 + channels, "colour")):
         err = _scaled_err(d_pair[:, lo:hi], d_pair_p[:, lo:hi])
         assert err <= GRAD_RTOL["composite"], (name, err)
+    assert d_pair.shape == d_pair_p.shape == (lists.idx.shape[0], binning.pair_width(channels))
     assert float(d_pair[:, 5].abs().max()) == 0.0 and float(d_pair[:, 7].abs().max()) == 0.0
+    assert float(d_pair[:, 8 + channels :].abs().max()) == 0.0  # the colour pad
     again = composite._composite_bwd_cuda(gfeat, colors, lists, bg, image, t_final, g_out)
     assert torch.equal(d_pair, again)  # no atomics in K4
     b, g, _ = gfeat.shape
-    ref = binning.bin_bwd_plain(d_pair, lists, b, g)
+    ref = binning.bin_bwd_plain(d_pair, lists, b, g, channels)
     for deterministic in (True, False):
-        got = binning.bin_bwd(d_pair, lists, b, g, deterministic=deterministic)
+        got = binning.bin_bwd(d_pair, lists, b, g, channels, deterministic=deterministic)
         for a, r in zip(got, ref):
-            assert _scaled_err(a, r) <= GRAD_RTOL["bin"], (deterministic, _scaled_err(a, r))
-    first = binning.bin_bwd(d_pair, lists, b, g, deterministic=True)
-    assert all(torch.equal(a, b_) for a, b_ in zip(first, binning.bin_bwd(d_pair, lists, b, g, deterministic=True)))
+            assert a.shape == r.shape and _scaled_err(a, r) <= GRAD_RTOL["bin"], (deterministic, _scaled_err(a, r))
+    first = binning.bin_bwd(d_pair, lists, b, g, channels, deterministic=True)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, binning.bin_bwd(d_pair, lists, b, g, channels, deterministic=True)))
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_deform_scores_far_outside_and_unaligned(dev, p):
+    """K5 in both modes (P = 1 reads corners directly, P = 4 stages rows):
+    locations on exact corner boundaries, around the edge and far outside the
+    map, and a location tensor that starts 4 bytes into its storage."""
+    q, d, h, w = 300, 64, 32, 32
+    scores, loc, aw = _deform_case(q, d, p, h, w, 40 + p, dev)
+    loc[:, d - 8 :] *= 1e6  # far outside: every corner is padding
+    out = deform.deform_sample_scores(scores, (h, w), loc, aw)
+    ref = deform.deform_sample_scores_plain(scores, (h, w), loc, aw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=ATOL)
+    assert float(out[:, d - 8 :].abs().max()) == 0.0
+    storage = torch.zeros(loc.numel() + 1, device=dev)
+    shifted = storage[1:].view(loc.shape)
+    shifted.copy_(loc)
+    assert shifted.data_ptr() % 8 == 4
+    assert torch.equal(deform.deform_sample_scores(scores, (h, w), shifted, aw), out)
+
+
+@pytest.mark.parametrize("channels", [3, 5])
+def test_bin_bwd_atomic_edge_cases(dev, channels):
+    """K2 against its plain version on hand-made lists: three views, the
+    middle one without entries, empty tiles, all-zero gradient rows (entries
+    past saturation), rows of 12 and 16 floats; one view alone; no entries."""
+    rng = np.random.default_rng(channels)
+    views, g, tiles = 3, 50, 4
+    lengths = rng.integers(0, 40, (views, tiles))
+    lengths[1] = 0
+    lengths[0, 2] = 0
+    ends = np.cumsum(lengths.reshape(-1))
+    ranges = np.stack([ends - lengths.reshape(-1), ends], 1)
+    ranges[lengths.reshape(-1) == 0] = 0  # bin_ranges gives (0, 0) to an empty tile
+    n = int(ends[-1])
+    idx = rng.integers(0, g, n).astype(np.int32)
+    d_pair = np.zeros((n, binning.pair_width(channels)), np.float32)
+    d_pair[:, [0, 1, 2, 3, 4, 6]] = rng.standard_normal((n, 6))
+    d_pair[:, 8 : 8 + channels] = rng.standard_normal((n, channels))
+    d_pair[rng.random(n) < 0.3] = 0.0
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    cases = [(views, to(d_pair), binning.TileLists(to(idx), to(ranges.astype(np.int32)), 2, 2))]
+    first = int(ends[tiles - 1])
+    cases.append((1, to(d_pair[:first]), binning.TileLists(to(idx[:first]), to(ranges[:tiles].astype(np.int32)), 2, 2)))
+    empty = binning.TileLists(torch.zeros(0, dtype=torch.int32, device=dev), torch.zeros((tiles, 2), dtype=torch.int32, device=dev), 2, 2)
+    cases.append((1, torch.zeros((0, binning.pair_width(channels)), device=dev), empty))
+    for b, dp, lists in cases:
+        ref = binning.bin_bwd_plain(dp, lists, b, g, channels)
+        for deterministic in (False, True):
+            got = binning.bin_bwd(dp, lists, b, g, channels, deterministic=deterministic)
+            torch.cuda.synchronize()
+            for a, r in zip(got, ref):
+                assert a.shape == r.shape and a.shape[-1] in (8, channels)
+                if r.numel() and float(r.abs().max()) > 0:
+                    assert _scaled_err(a, r) <= GRAD_RTOL["bin"], (b, deterministic, _scaled_err(a, r))
+                else:
+                    assert float(a.abs().sum()) == 0.0
 
 
 def test_render_gradients_match_finite_differences(dev):

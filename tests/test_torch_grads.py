@@ -196,9 +196,11 @@ def test_composite_and_bin_bwd_plain_match_autograd(name, image_shape, channels)
     auto = torch.autograd.grad(image, leaves, g_out)
 
     d_pair = composite.composite_tiles_bwd_plain(gfeat, colors, lists, bg, image.detach(), t_final.detach(), g_out)
-    assert d_pair.shape == (lists.idx.shape[0], 8 + channels)
+    assert d_pair.shape == (lists.idx.shape[0], binning.pair_width(channels)) == (lists.idx.shape[0], 12)
     assert float(d_pair[:, 5].abs().max()) == 0.0  # the radius takes no gradient
-    d_gfeat, d_colors = binning.bin_bwd_plain(d_pair, lists, 2, gfeat.shape[1])
+    assert float(d_pair[:, 7].abs().max()) == 0.0 and float(d_pair[:, 8 + channels :].abs().max()) == 0.0  # pads
+    d_gfeat, d_colors = binning.bin_bwd_plain(d_pair, lists, 2, gfeat.shape[1], channels)
+    assert d_gfeat.shape == gfeat.shape and d_colors.shape == colors.shape
     leaves = [t.clone().requires_grad_(True) for t in (gfeat, colors, bg)]
     through = torch.autograd.grad(composite.composite_tiles(*leaves[:2], lists, leaves[2], image_shape), leaves, g_out)
     # The plain backward recomputes the forward's float32 values and sums them
@@ -208,6 +210,39 @@ def test_composite_and_bin_bwd_plain_match_autograd(name, image_shape, channels)
         assert scaled(a.numpy(), b.numpy()) <= 1e-5, (label, scaled(a.numpy(), b.numpy()))
         assert torch.equal(a, c), label  # the Function returns exactly these
     assert scaled(through[2].numpy(), auto[2].numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("channels,width", [(1, 12), (3, 12), (4, 12), (5, 16), (8, 16)])
+def test_padded_gradient_rows_round_trip(channels, width):
+    """K4's and K2's gradient rows are 8 geometry columns plus the colours
+    zero-padded to whole 16-byte vectors; K2's plain version on padded rows
+    gives the (B, G, 8) and (B, G, C) gradients that index_add_ gives on the
+    unpadded (8 + C) rows, and split_rows hands back exactly those columns."""
+    assert binning.pair_width(channels) == width
+    rng = np.random.default_rng(channels)
+    views, g, tiles = 2, 30, 4
+    lengths = rng.integers(0, 25, views * tiles)
+    ends = np.cumsum(lengths)
+    ranges = np.where((lengths > 0)[:, None], np.stack([ends - lengths, ends], 1), 0).astype(np.int32)
+    n = int(ends[-1])
+    lists = binning.TileLists(torch.from_numpy(rng.integers(0, g, n).astype(np.int32)), torch.from_numpy(ranges), 2, 2)
+    rows = rng.standard_normal((n, 8 + channels)).astype(np.float32)
+    rows[:, [5, 7]] = 0.0  # radius and pad take no gradient
+    d_pair = np.zeros((n, width), np.float32)
+    d_pair[:, : 8 + channels] = rows
+    view = np.repeat(np.arange(views), [int(lengths[v * tiles : (v + 1) * tiles].sum()) for v in range(views)])
+    want = np.zeros((views * g, 8 + channels), np.float32)
+    np.add.at(want, view * g + lists.idx.numpy(), rows)
+    want = want.reshape(views, g, 8 + channels)
+    for fn in (binning.bin_bwd_plain, binning.bin_bwd):  # a CPU tensor takes the plain version
+        d_gfeat, d_colors = fn(torch.from_numpy(d_pair), lists, views, g, channels)
+        assert d_gfeat.shape == (views, g, 8) and d_colors.shape == (views, g, channels)
+        np.testing.assert_allclose(d_gfeat.numpy(), want[..., :8], atol=1e-5)
+        np.testing.assert_allclose(d_colors.numpy(), want[..., 8:], atol=1e-5)
+    feat = torch.arange(views * g * width, dtype=torch.float32).reshape(views * g, width)
+    geo, col = binning.split_rows(feat, views, g, channels)
+    assert torch.equal(geo, feat.reshape(views, g, width)[..., :8])
+    assert torch.equal(col, feat.reshape(views, g, width)[..., 8 : 8 + channels])
 
 
 def test_project_gaussians_gradients_match_jax():

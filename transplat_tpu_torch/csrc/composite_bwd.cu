@@ -17,11 +17,12 @@
 //   d_conic   = d_power (-dx^2 / 2, -dx dy, -dy^2 / 2)
 //   d_mean    = d_power (a dx + b dy, c dy + b dx)      with dx = pixel - mean
 // The radius gets no gradient. 1 - alpha is clamped at 1 - 0.99 as in the TPU
-// kernel. Output: d_pair (N, 8 + C), one row per list entry in list order,
-// columns as the geometry rows (mean x, y, conic a, b, c, radius = 0, opacity,
-// pad = 0) followed by the C colours. Entries that come after their tile has
-// saturated keep the zeros the caller put there. The scatter back to
-// per-Gaussian rows is binning_bwd.cu (K2).
+// kernel. Output: d_pair (N, 8 + 4 ceil(C / 4)), one row per list entry in
+// list order, columns as the geometry rows (mean x, y, conic a, b, c,
+// radius = 0, opacity, pad = 0) followed by the C colours and zeros to a
+// whole 16-byte vector (K2 reads and adds the row as such). Entries that come
+// after their tile has saturated keep the zeros the caller put there. The
+// scatter back to per-Gaussian rows is binning_bwd.cu (K2).
 //
 // What bounds it on an H100: operations. Every (pixel, entry) evaluation that
 // the forward needed is repeated (one exp, ~60 float32 operations with the
@@ -65,7 +66,7 @@ composite_bwd_kernel(const float* __restrict__ gfeat, const float* __restrict__ 
                      const float* __restrict__ bg, const float* __restrict__ out,
                      const float* __restrict__ t_final, const float* __restrict__ gout,
                      float* __restrict__ d_pair, int g, int h, int w, int ntx, int nty) {
-  constexpr int kRow = 8 + C;   // d_pair row width
+  constexpr int kRow = 8 + 4 * ((C + 3) / 4);  // d_pair row width
   constexpr int kVals = 6 + C;  // values a pixel contributes to an entry
   __shared__ float4 s_geo0[kThreads];  // mean x, mean y, conic a, conic b
   __shared__ float4 s_geo1[kThreads];  // conic c, radius, opacity, -
@@ -182,6 +183,8 @@ composite_bwd_kernel(const float* __restrict__ gfeat, const float* __restrict__ 
           part[7] = 0.0f;  // pad
 #pragma unroll
           for (int ch = 0; ch < C; ++ch) part[8 + ch] = v[6 + ch];
+#pragma unroll
+          for (int c = 8 + C; c < kRow; ++c) part[c] = 0.0f;  // colour pad
         }
       }
       __syncthreads();
@@ -212,7 +215,7 @@ int launch(const float* gfeat, const float* colors, const int* idx, const int* r
 
 }  // namespace
 
-// d_pair (N, 8 + C) must arrive zeroed: rows past a tile's saturation are not written.
+// d_pair (N, 8 + 4 ceil(C / 4)) must arrive zeroed: rows past a tile's saturation are not written.
 extern "C" int tp_composite_bwd(const float* gfeat, const float* colors, const int* idx,
                                 const int* ranges, const float* bg, const float* out,
                                 const float* t_final, const float* gout, float* d_pair, int views,

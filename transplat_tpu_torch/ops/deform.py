@@ -134,6 +134,8 @@ def _check_scores_args(scores, spatial_shape, loc01, attn_weights):
 def _scores_fwd_cuda(scores, spatial_shape, loc01, attn_weights):
     """Launch K5 on contiguous float32 CUDA tensors."""
     _check_scores_args(scores, spatial_shape, loc01, attn_weights)
+    if loc01.data_ptr() % 8:  # K5 reads a location as one 8-byte vector
+        loc01 = loc01.clone()
     h, w = spatial_shape
     d, p = loc01.shape[-3], loc01.shape[-2]
     out = torch.empty((*scores.shape[:-1], d), dtype=torch.float32, device=scores.device)

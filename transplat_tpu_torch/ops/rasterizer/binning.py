@@ -5,7 +5,8 @@ Counterpart of transplat_tpu/ops/rasterizer/pallas_binning.py
 The port builds index lists plus per-tile [start, end) ranges instead of
 routed feature copies, with no capacity and nothing dropped (csrc/binning.cu
 says how); `bin_bwd` adds the list entries' gradients back into per-Gaussian
-rows (csrc/binning_bwd.cu).
+rows (csrc/binning_bwd.cu). Gradient rows are `pair_width(C)` wide: the 8
+geometry columns and the C colours zero-padded to whole 16-byte vectors.
 
 Each step has a wrapper that launches its CUDA kernel for CUDA tensors and
 runs its plain PyTorch version (same arithmetic, `*_plain`) for CPU tensors.
@@ -226,33 +227,45 @@ def _pair_rows(lists: TileLists, views: int, g: int) -> torch.Tensor:
     return view * g + lists.idx.to(torch.int64)
 
 
-def bin_bwd_plain(d_pair: torch.Tensor, lists: TileLists, views: int, g: int):
-    """d_pair (N, 8 + C) -> d_gfeat (B, G, 8), d_colors (B, G, C): index_add_ by Gaussian."""
-    row = d_pair.shape[1]
-    d_feat = torch.zeros((views * g, row), dtype=d_pair.dtype, device=d_pair.device)
+def pair_width(channels: int) -> int:
+    """Width of a gradient row of d_pair (one per list entry) and d_feat (one
+    per Gaussian): the 8 geometry columns, then the C colour columns
+    zero-padded to a multiple of 4, so that a row is whole 16-byte vectors
+    (K2 reads and adds it as such)."""
+    return GFEAT_WIDTH + 4 * ((channels + 3) // 4)
+
+
+def split_rows(d_feat: torch.Tensor, views: int, g: int, channels: int):
+    """(B * G, pair_width(C)) gradient rows -> d_gfeat (B, G, 8), d_colors (B, G, C)."""
+    d_feat = d_feat.reshape(views, g, d_feat.shape[-1])
+    return d_feat[..., :GFEAT_WIDTH], d_feat[..., GFEAT_WIDTH : GFEAT_WIDTH + channels]
+
+
+def bin_bwd_plain(d_pair: torch.Tensor, lists: TileLists, views: int, g: int, channels: int):
+    """d_pair (N, pair_width(C)) -> d_gfeat (B, G, 8), d_colors (B, G, C): index_add_ by Gaussian."""
+    d_feat = torch.zeros((views * g, d_pair.shape[1]), dtype=d_pair.dtype, device=d_pair.device)
     d_feat.index_add_(0, _pair_rows(lists, views, g), d_pair)
-    d_feat = d_feat.reshape(views, g, row)
-    return d_feat[..., :GFEAT_WIDTH], d_feat[..., GFEAT_WIDTH:]
+    return split_rows(d_feat, views, g, channels)
 
 
-def bin_bwd(d_pair: torch.Tensor, lists: TileLists, views: int, g: int, deterministic: bool = False):
-    """K2: the transpose of the binning's routing. d_pair (N, 8 + C), one row
-    per list entry -> d_gfeat (B, G, 8), d_colors (B, G, C).
+def bin_bwd(d_pair: torch.Tensor, lists: TileLists, views: int, g: int, channels: int, deterministic: bool = False):
+    """K2: the transpose of the binning's routing. d_pair (N, pair_width(C)),
+    one row per list entry -> d_gfeat (B, G, 8), d_colors (B, G, C).
 
-    On the card the default adds with float atomics (the last bits change
-    from run to run); `deterministic` re-sorts the entries by Gaussian and
-    adds each Gaussian's segment in order."""
+    On the card the default adds with 16-byte float atomics (the last bits
+    change from run to run); `deterministic` re-sorts the entries by Gaussian
+    and adds each Gaussian's segment in order."""
     if not d_pair.is_cuda:
-        return bin_bwd_plain(d_pair, lists, views, g)
+        return bin_bwd_plain(d_pair, lists, views, g, channels)
     kernels.check_cuda_tensor("d_pair", d_pair, torch.float32, 2)
     kernels.check_cuda_tensor("idx", lists.idx, torch.int32, 1)
     kernels.check_cuda_tensor("ranges", lists.ranges, torch.int32, 2)
     n, row = d_pair.shape
     cells = views * lists.num_tiles_x * lists.num_tiles_y
-    if lists.idx.shape[0] != n or row <= GFEAT_WIDTH or lists.ranges.shape != (cells, 2):
-        raise ValueError(f"bin_bwd: d_pair {tuple(d_pair.shape)} disagrees with the lists")
-    if views * g >= 2**31:
-        raise ValueError("bin_bwd: views * Gaussians must fit in int32")
+    if lists.idx.shape[0] != n or row != pair_width(channels) or lists.ranges.shape != (cells, 2):
+        raise ValueError(f"bin_bwd: d_pair {tuple(d_pair.shape)} disagrees with the lists or {channels} channels")
+    if views * g >= 2**31 or views > 1024:
+        raise ValueError("bin_bwd: views * Gaussians must fit in int32, and views be at most 1024")
     if deterministic:
         rows_sorted, perm = torch.sort(_pair_rows(lists, views, g), stable=True)
         segments = torch.zeros((views * g, 2), dtype=torch.int32, device=d_pair.device)
@@ -267,11 +280,13 @@ def bin_bwd(d_pair: torch.Tensor, lists: TileLists, views: int, g: int, determin
             )
     else:
         d_feat = torch.zeros((views * g, row), dtype=torch.float32, device=d_pair.device)
-        view_end = torch.cumsum(_pairs_per_view(lists, views), dim=0)
         if n:
+            # Entries are sorted by view, then tile: a view's entries end at
+            # the largest end among its tiles (the kernel takes a running max
+            # over the views, for views without entries).
+            view_max = lists.ranges[:, 1].reshape(views, -1).amax(dim=1)
             kernels.call(
                 "tp_bin_bwd", "bin_bwd",
-                d_pair.data_ptr(), lists.idx.data_ptr(), view_end.data_ptr(), d_feat.data_ptr(), n, row, views, g,
+                d_pair.data_ptr(), lists.idx.data_ptr(), view_max.data_ptr(), d_feat.data_ptr(), n, row, views, g,
             )
-    d_feat = d_feat.reshape(views, g, row)
-    return d_feat[..., :GFEAT_WIDTH], d_feat[..., GFEAT_WIDTH:]
+    return split_rows(d_feat, views, g, channels)

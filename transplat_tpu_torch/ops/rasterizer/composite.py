@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ... import kernels
-from .binning import CONIC_A, CONIC_B, CONIC_C, MEAN_X, MEAN_Y, OPACITY, RADIUS, GFEAT_WIDTH, TileLists, bin_bwd
+from .binning import CONIC_A, CONIC_B, CONIC_C, GFEAT_WIDTH, MEAN_X, MEAN_Y, OPACITY, RADIUS, TileLists, bin_bwd, pair_width
 from .projection import ALPHA_MAX, ALPHA_MIN, gaussian_alpha
 from .reference import TRANSMITTANCE_EPS
 
@@ -138,9 +138,10 @@ def composite_tiles_bwd_plain(
     tile: int = 16,
     chunk: int = 64,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K4: d_pair (N, 8 + C), the gradient of every
-    tile-list entry (mean x, y, conic a, b, c, radius = 0, opacity, pad = 0,
-    colours) summed over its tile's pixels, term by term as
+    """Plain PyTorch version of K4: d_pair (N, pair_width(C)), the gradient of
+    every tile-list entry (mean x, y, conic a, b, c, radius = 0, opacity,
+    pad = 0, colours, zeros to a multiple of 4) summed over its tile's pixels,
+    term by term as
     csrc/composite_bwd.cu computes it; the transmittance is the forward plain
     version's exclusive cumprod, so both take the same live gate."""
     c = colors.shape[-1]
@@ -156,7 +157,7 @@ def composite_tiles_bwd_plain(
     g_total = torch.sum(g * (out - tfin[..., None] * bg), dim=-1)
     t_run = torch.ones((cells, tile * tile), dtype=dt, device=dev)
     prefix = torch.zeros_like(t_run)
-    d_pair = torch.zeros((lists.idx.shape[0], GFEAT_WIDTH + c), dtype=dt, device=dev)
+    d_pair = torch.zeros((lists.idx.shape[0], pair_width(c)), dtype=dt, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
     for ch in _chunks(gfeat, colors, lists, view, start, length, chunk):
         f = ch.f[:, None]  # (cells, 1, K, 8)
@@ -187,7 +188,7 @@ def composite_tiles_bwd_plain(
             [torch.zeros_like(ch.f[..., 0]) if x is None else x.sum(dim=1) for x in per_pixel], dim=-1
         )  # (cells, K, 8)
         d_col = torch.matmul(weight.transpose(-1, -2), g)  # (cells, K, C)
-        d_pair[ch.pos[ch.mask]] = torch.cat([rows, d_col], dim=-1)[ch.mask]
+        d_pair[ch.pos[ch.mask], : rows.shape[-1] + c] = torch.cat([rows, d_col], dim=-1)[ch.mask]
         prefix = prefix + contrib.sum(dim=-1)
         t_run = t_run * torch.prod(torch.where(live, 1.0 - alpha, torch.ones_like(alpha)), dim=-1)
     return d_pair
@@ -220,7 +221,7 @@ class CompositeTiles(torch.autograd.Function):
             d_pair = _composite_bwd_cuda(gfeat, colors, lists, background, image, t_final, g_out)
         else:
             d_pair = composite_tiles_bwd_plain(gfeat, colors, lists, background, image, t_final, g_out, ctx.tile)
-        d_gfeat, d_colors = bin_bwd(d_pair, lists, b, g)
+        d_gfeat, d_colors = bin_bwd(d_pair, lists, b, g, colors.shape[-1])
         d_bg = None
         if ctx.needs_input_grad[2]:
             d_bg = torch.sum(g_out * t_final[..., None], dim=(1, 2))
@@ -262,7 +263,7 @@ def _composite_fwd_cuda(gfeat, colors, lists: TileLists, background, image_shape
 
 
 def _composite_bwd_cuda(gfeat, colors, lists: TileLists, background, image, t_final, g_out, tile: int = 16):
-    """Launch K4: d_pair (N, 8 + C), one gradient row per tile-list entry."""
+    """Launch K4: d_pair (N, pair_width(C)), one gradient row per tile-list entry."""
     _check_composite_args(gfeat, colors, lists, background, tile)
     b, g, _ = gfeat.shape
     c = colors.shape[-1]
@@ -272,7 +273,7 @@ def _composite_bwd_cuda(gfeat, colors, lists: TileLists, background, image, t_fi
     kernels.check_cuda_tensor("g_out", g_out, torch.float32, 4)
     if image.shape != (b, h, w, c) or g_out.shape != image.shape or t_final.shape != (b, h, w):
         raise ValueError("composite_bwd: image, t_final and g_out disagree in shape")
-    d_pair = torch.zeros((lists.idx.shape[0], GFEAT_WIDTH + c), dtype=torch.float32, device=gfeat.device)
+    d_pair = torch.zeros((lists.idx.shape[0], pair_width(c)), dtype=torch.float32, device=gfeat.device)
     if d_pair.shape[0]:
         kernels.call(
             "tp_composite_bwd", "composite_bwd",
