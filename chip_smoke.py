@@ -21,7 +21,10 @@ evaluate paths on one NVIDIA card and check them.
    index_add_, searchsorted): device time by torch.profiler (median of 20
    calls; `device_ms` with the wrapper's fills, `kernel_ms` the kernel
    alone, see transplat_tpu_torch/utils/device_time.py) and `wrapper_ms`,
-   one wrapper call between CUDA events.
+   one wrapper call between CUDA events. K3 and K4 also record registers,
+   shared memory, resident blocks per SM, waves and their blocks' time
+   spread (transplat_tpu_torch/raster_report.py); two K4 runs must give the
+   same bits.
 4. The tiled renderer is held against the naive oracle, and the serving
    slice at a tiny width against the plain versions on the CPU.
 5. Training (`train_slice`): the same full-width configuration takes one
@@ -122,7 +125,8 @@ def timings(fn, kernel: str, lib_fn=None) -> dict:
     wrapper_ms = time_ms(fn)  # before the profiler window: it costs the host time while on
     t = device_time(fn, kernel)
     rec = dict(ms=t["kernel_ms"], device_ms=t["device_ms"], kernel_ms=t["kernel_ms"], wrapper_ms=wrapper_ms,
-               device_launches_per_call=t["device_launches"], timing="torch.profiler device time, median of 20 calls",
+               device_launches_per_call=t["device_launches"], trace_attempts=t["attempts"],
+               timing="torch.profiler device time, median of 20 calls",
                library_ms=None, library_wrapper_ms=None)
     if lib_fn is not None:
         library_wrapper_ms = time_ms(lib_fn)
@@ -475,9 +479,19 @@ def check_deform_vectors_bwd(dev) -> dict:
     return rec
 
 
+# The operations K3 and K4 need (`needed_bound_ms`, beside `bound_ms`, which
+# charges 20 + 2C and 59 + 4C to every evaluation): the evaluation (16 of
+# those: dx, dy, power, exp, alpha and the keep test) on the (pixel, entry)
+# pairs whose warp cannot cull the entry, and what follows it on the pairs that
+# keep the entry only: K3's blend (4 + 2C), K4's blend and gradient chain
+# (43 + 4C). Counts from raster_report.needed_work on this run's lists.
+NEEDED_OPS = {"composite": (16.0, lambda c: 4.0 + 2 * c), "composite_bwd": (16.0, lambda c: 43.0 + 4 * c)}
+
+
 def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> list[dict]:
     """K1 (bin_rects, bin_emit, bin_ranges) and K3 (composite) against their
     plain versions on one set of projected Gaussians."""
+    from transplat_tpu_torch import raster_report
     from transplat_tpu_torch.ops.rasterizer import binning, composite
 
     gfeat, colors = binning.sort_by_depth(proj)
@@ -512,12 +526,16 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
     gen = torch.Generator(device=gfeat.device).manual_seed(SEED + 7)
     bg_b = torch.rand((b, c), device=gfeat.device, generator=gen)
     g_out = torch.randn((b, *image_shape, c), device=gfeat.device, generator=gen)
-    image, t_final = composite._composite_fwd_cuda(gfeat, colors, lists, bg_b, image_shape)
+    # A training step's forward and K4 take the tiles longest list first.
+    order = composite.tile_order(lists)
+    image, t_final = composite._composite_fwd_cuda(gfeat, colors, lists, bg_b, image_shape, order=order)
     image_p, t_final_p, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg_b, image_shape)
     require_composite(image, image_p, f"{label}: composite, coloured background")
     require_composite(t_final, t_final_p, f"{label}: T_final")
-    d_pair = composite._composite_bwd_cuda(gfeat, colors, lists, bg_b, image, t_final, g_out)
+    d_pair = composite._composite_bwd_cuda(gfeat, colors, lists, bg_b, image, t_final, g_out, order=order)
     d_pair_p = composite.composite_tiles_bwd_plain(gfeat, colors, lists, bg_b, image_p, t_final_p, g_out)
+    again = composite._composite_bwd_cuda(gfeat, colors, lists, bg_b, image, t_final, g_out, order=order)
+    require(torch.equal(d_pair, again), f"{label}: two composite_bwd runs differ (K4 must be deterministic)")
     k4_errs = {
         name: scaled_err(d_pair[:, lo:hi], d_pair_p[:, lo:hi])
         for name, lo, hi in (("d_mean", 0, 2), ("d_conic", 2, 5), ("d_opacity", 6, 7), ("d_colour", 8, 8 + c))
@@ -538,7 +556,7 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
     torch.cuda.synchronize()
     emit({"phase": "raster_bwd_check", "scene": label, "tolerance": GRAD_TOL,
           "error_is": "max abs, values scaled to the gradient's largest entry",
-          "composite_bwd_errors": k4_errs, "bin_bwd_errors": k2_errs, **sizes})
+          "composite_bwd_errors": k4_errs, "composite_bwd_bit_identical_runs": True, "bin_bwd_errors": k2_errs, **sizes})
     if not timed:
         return []
     srcs = dict(bin="transplat_tpu_torch/csrc/binning.cu", comp="transplat_tpu_torch/csrc/composite.cu")
@@ -570,7 +588,7 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
         # and one add per value for the sum over pixels).
         ("composite_bwd", "transplat_tpu_torch/csrc/composite_bwd.cu",
          "transplat_tpu/ops/rasterizer/pallas_composite.py:250", max(k4_errs.values()),
-         lambda: composite._composite_bwd_cuda(gfeat, colors, lists, bg_b, image, t_final, g_out),
+         lambda: composite._composite_bwd_cuda(gfeat, colors, lists, bg_b, image, t_final, g_out, order=order),
          lambda: composite.composite_tiles_bwd_plain(gfeat, colors, lists, bg_b, image_p, t_final_p, g_out), None,
          4 * (gfeat.numel() + colors.numel() + total + 2 * cells + bg_b.numel() + 2 * image.numel()
               + t_final.numel() + total * (8 + c)),
@@ -584,6 +602,16 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
          lambda: torch.zeros((b * g, d_pair.shape[1]), device=d_pair.device).index_add_(0, pair_rows, d_pair),
          4 * (total * (8 + c) + total + b * g * (8 + c)), float(total * (8 + c)), "bin_bwd_atomic_kernel"),
     ]
+    # K3 and K4: occupancy and the spread of their blocks' times (raster_report.py),
+    # K3 as a request runs it (cells in their own order), K4 as a step does.
+    lengths = (lists.ranges[:, 1] - lists.ranges[:, 0]).long()
+    work = raster_report.needed_work(gfeat, colors, lists)
+    visited = work.pop("visited")
+    spread = {
+        "composite": lambda bt: composite._composite_fwd_cuda(gfeat, colors, lists, bg, image_shape, block_times=bt),
+        "composite_bwd": lambda bt: composite._composite_bwd_cuda(gfeat, colors, lists, bg_b, image, t_final, g_out,
+                                                                  order=order, block_times=bt),
+    }
     for name, src, replaces, e, fn, plain_fn, lib_fn, nbytes, flops, kernel in specs:
         b_ms, b_by = bound(nbytes, flops)
         rec = dict(
@@ -591,6 +619,16 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
             max_abs_err=e, plain_ms=time_ms(plain_fn, iters=3, warmup=1), bound_ms=b_ms, bound_by=b_by,
             **timings(fn, kernel, lib_fn),
         )
+        if name in spread:
+            eval_ops, kept_ops = NEEDED_OPS[name]
+            needed = work["unculled"] * eval_ops + work["kept"] * kept_ops(c)
+            rec["needed_bound_ms"], rec["needed_bound_by"] = bound(nbytes, needed)
+            rec["work"] = work
+            att = raster_report.kernel_attributes(name, c, cells)
+            rec.update({k: att[k] for k in ("regs", "smem_bytes", "local_bytes", "blocks_per_sm", "waves")})
+            blocks = raster_report.block_spread(spread[name], cells, lengths, visited, gfeat.device)
+            rec.update(block_us=blocks["block_us"], block_span_us=blocks["span_us"],
+                       corr_block_time_visited=blocks["corr_time_visited_length"])
         if name == "bin_bwd":  # the deterministic mode beside the atomic one (torch.sort included)
             st = timings(lambda: binning.bin_bwd(d_pair, lists, b, g, c, deterministic=True), "bin_bwd_sorted_kernel")
             rec.update(sorted_device_ms=st["device_ms"], sorted_kernel_ms=st["kernel_ms"], sorted_wrapper_ms=st["wrapper_ms"],

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import require_composite
 from chip_smoke import synthetic_scene as scene
 from transplat_tpu_torch import kernels
 from transplat_tpu_torch.ops import deform
@@ -245,6 +246,100 @@ def test_composite_and_bin_bwd_match_plain(dev, image_shape, channels):
     assert all(torch.equal(a, b_) for a, b_ in zip(first, binning.bin_bwd(d_pair, lists, b, g, channels, deterministic=True)))
 
 
+def _handmade_case(dev, case, channels):
+    """Geometry rows made by hand (not projected) for the compositor's edge
+    cases, binned by bin_gaussians; colours random in [0, 1)."""
+    rng = np.random.default_rng(len(case) + channels)
+    views, image_shape = 1, (16, 16)
+    if case == "long_list":  # one tile, 2,000 faint wide entries: > 4 batches, T crosses 1e-4 inside batch 6
+        g = 2000
+        rows = np.zeros((views, g, 8), np.float32)
+        rows[..., :2] = rng.uniform(2.0, 13.0, (views, g, 2))
+        rows[..., 2], rows[..., 4], rows[..., 5] = 1e-4, 1e-4, 40.0
+        rows[..., 6] = rng.uniform(0.0055, 0.0065, (views, g))
+    elif case == "warp_edges":  # integer means and radii: rectangles end on 8x4 footprint edges
+        views, image_shape, g = 2, (64, 64), 1500
+        rows = np.zeros((views, g, 8), np.float32)
+        rows[..., :2] = rng.integers(0, 64, (views, g, 2)) + rng.choice([0.0, 0.5], (views, g, 1))
+        rows[..., 5] = rng.integers(1, 8, (views, g))
+        rows[..., 2] = rows[..., 4] = 0.5 / rows[..., 5] ** 2
+        rows[..., 3] = rng.uniform(-0.2, 0.2, (views, g)) * rows[..., 2]
+        rows[..., 6] = rng.uniform(0.3, 0.999, (views, g))
+    else:  # "empty": three views, the middle one without Gaussians, a corner of the others empty
+        views, image_shape, g = 3, (48, 40), 600
+        rows = np.zeros((views, g, 8), np.float32)
+        rows[..., :2] = rng.uniform(0.0, 20.0, (views, g, 2))
+        rows[..., 2] = rows[..., 4] = 0.05
+        rows[..., 5] = 4.0
+        rows[..., 6] = rng.uniform(0.1, 0.9, (views, g))
+        rows[1, :, 5] = rows[1, :, 6] = 0.0
+        rows[1, :, :2] = 1e9
+    gfeat = torch.from_numpy(rows).to(dev)
+    colors = torch.from_numpy(rng.random((views, g, channels)).astype(np.float32)).to(dev)
+    bg = torch.from_numpy(rng.random((views, channels)).astype(np.float32)).to(dev)
+    return gfeat, colors, binning.bin_gaussians(gfeat, image_shape), bg, image_shape
+
+
+def _check_k3_k4(dev, gfeat, colors, lists, bg, image_shape, label):
+    """K3 (image, T_final) within require_composite of the plain version; K4
+    within 1e-4 of the largest entry, its pad columns 0, the same bits twice;
+    both give the same bits with the tiles taken longest list first."""
+    c = colors.shape[-1]
+    image, t_final = composite._composite_fwd_cuda(gfeat, colors, lists, bg, image_shape)
+    image_p, t_final_p, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
+    torch.cuda.synchronize()
+    require_composite(image, image_p, f"{label}: image")
+    require_composite(t_final, t_final_p, f"{label}: T_final")
+    g_out = torch.from_numpy(np.random.default_rng(1).standard_normal(tuple(image.shape)).astype(np.float32)).to(dev)
+    d_pair = composite._composite_bwd_cuda(gfeat, colors, lists, bg, image, t_final, g_out)
+    d_pair_p = composite.composite_tiles_bwd_plain(gfeat, colors, lists, bg, image_p, t_final_p, g_out)
+    again = composite._composite_bwd_cuda(gfeat, colors, lists, bg, image, t_final, g_out)
+    torch.cuda.synchronize()
+    assert d_pair.shape == d_pair_p.shape == (lists.idx.shape[0], binning.pair_width(c))
+    assert bool(torch.isfinite(d_pair).all()) and torch.equal(d_pair, again), label
+    for lo, hi, name in ((0, 2, "mean"), (2, 5, "conic"), (6, 7, "opacity"), (8, 8 + c, "colour")):
+        if float(d_pair_p[:, lo:hi].abs().max()) > 0:
+            assert _scaled_err(d_pair[:, lo:hi], d_pair_p[:, lo:hi]) <= GRAD_RTOL["composite"], (label, name)
+        else:
+            assert float(d_pair[:, lo:hi].abs().max()) == 0.0, (label, name)
+    assert float(d_pair[:, 5].abs().max()) == 0.0 and float(d_pair[:, 7].abs().max()) == 0.0
+    assert float(d_pair[:, 8 + c :].abs().sum()) == 0.0
+    order = composite.tile_order(lists)
+    image_o, t_final_o = composite._composite_fwd_cuda(gfeat, colors, lists, bg, image_shape, order=order)
+    d_pair_o = composite._composite_bwd_cuda(gfeat, colors, lists, bg, image, t_final, g_out, order=order)
+    assert torch.equal(image_o, image) and torch.equal(t_final_o, t_final) and torch.equal(d_pair_o, d_pair), label
+    return image, t_final, d_pair
+
+
+@pytest.mark.parametrize("case", ["long_list", "warp_edges", "empty"])
+@pytest.mark.parametrize("channels", [1, 3, 8])
+def test_composite_edge_cases_match_plain(dev, case, channels):
+    """K3 and K4 on hand-made lists: a tile of more than 4 batches that
+    saturates in the middle of one (K4 writes zero rows for the batches it
+    skips), rectangles ending on warp-footprint edges, empty tiles and an
+    empty view."""
+    gfeat, colors, lists, bg, image_shape = _handmade_case(dev, case, channels)
+    lengths = lists.ranges[:, 1] - lists.ranges[:, 0]
+    image, t_final, d_pair = _check_k3_k4(dev, gfeat, colors, lists, bg, image_shape, f"{case} C={channels}")
+    if case == "long_list":
+        assert int(lengths.max()) > 4 * 256
+        assert float(t_final.max()) < 1e-4  # saturated ...
+        assert float(d_pair[-256:].abs().max()) == 0.0  # ... before the last batch
+    if case == "empty":
+        assert int(lengths.reshape(3, -1)[1].sum()) == 0 and int((lengths == 0).sum()) > lists.ranges.shape[0] // 3
+        assert torch.equal(image[1], bg[1].expand_as(image[1])) and float(t_final[1].min()) == 1.0
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_composite_ragged_image_every_channel_count(dev, channels):
+    """K3 and K4 on a projected scene at 190x250 (ragged tiles), C = 1 to 8."""
+    image_shape = (190, 250)
+    gfeat, colors, lists, bg = _raster_case(dev, image_shape, 3, g=4000)
+    colors = torch.from_numpy(np.random.default_rng(channels).random((*colors.shape[:2], channels)).astype(np.float32)).to(dev)
+    bg = torch.from_numpy(np.random.default_rng(channels + 9).random((3, channels)).astype(np.float32)).to(dev)
+    _check_k3_k4(dev, gfeat, colors, lists, bg, image_shape, f"190x250 C={channels}")
+
+
 @pytest.mark.parametrize("p", [1, 4])
 def test_deform_scores_far_outside_and_unaligned(dev, p):
     """K5 in both modes (P = 1 reads corners directly, P = 4 stages rows):
@@ -342,6 +437,31 @@ def test_render_gradients_match_finite_differences(dev):
             fd = float(up - loss(*args)) / (2 * eps)
             scale = float(grad.abs().max())
             assert abs(fd - float(grad.reshape(-1)[i])) <= 0.05 * scale + 1e-3, (which, int(i), fd, float(grad.reshape(-1)[i]), scale)
+
+
+def test_composite_tiles_orders_tiles_only_where_a_backward_follows(dev, monkeypatch):
+    """A forward alone takes the tiles in cell order (no sort); a recorded
+    forward sorts them once, longest list first, and its backward reuses the
+    order. Image and gradients are those of the direct launches."""
+    image_shape = (64, 80)
+    gfeat, colors, lists, bg = _raster_case(dev, image_shape, 3)
+    sorts = []
+    real = composite.tile_order
+    monkeypatch.setattr(composite, "tile_order", lambda l: sorts.append(1) or real(l))
+    with torch.no_grad():
+        alone = composite.composite_tiles(gfeat, colors, lists, bg, image_shape)
+    assert not sorts
+    leaves = [t.clone().requires_grad_(True) for t in (gfeat, colors)]
+    image = composite.composite_tiles(leaves[0], leaves[1], lists, bg, image_shape)
+    assert len(sorts) == 1 and torch.equal(image, alone)
+    g_out = torch.from_numpy(np.random.default_rng(4).standard_normal(tuple(image.shape)).astype(np.float32)).to(dev)
+    d_gfeat, d_colors = torch.autograd.grad(image, leaves, g_out)
+    assert len(sorts) == 1
+    _, t_final = composite._composite_fwd_cuda(gfeat, colors, lists, bg, image_shape)
+    d_pair = composite._composite_bwd_cuda(gfeat, colors, lists, bg, alone, t_final, g_out)
+    b, g, _ = gfeat.shape
+    ref_g, ref_c = binning.bin_bwd_plain(d_pair, lists, b, g, 3)
+    assert _scaled_err(d_gfeat, ref_g) <= GRAD_RTOL["bin"] and _scaled_err(d_colors, ref_c) <= GRAD_RTOL["bin"]
 
 
 def test_every_wrapper_keeps_the_graph(dev):

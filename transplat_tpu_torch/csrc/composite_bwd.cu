@@ -9,8 +9,8 @@
 //   g_T       = <g, background>                    (cotangent reaching T_final)
 //   total     = <g, out - T_final * background>    (= <g, acc>)
 //   prefix_k  = <g, sum_{j <= k} c_j alpha_j T_j>  (running, front to back)
-//   d_alpha   = <g, c_k> T_k - (total - prefix_k) / (1 - alpha_k)
-//               - g_T T_final / (1 - alpha_k)      on live, kept entries, else 0
+//   d_alpha   = <g, c_k> T_k - (total - prefix_k + g_T T_final) / (1 - alpha_k)
+//               on live, kept entries, else 0
 //   d_colour  = g alpha_k T_k
 //   where alpha was not capped at 0.99:
 //   d_opacity = d_alpha exp(power),  d_power = d_alpha alpha_k
@@ -20,68 +20,112 @@
 // kernel. Output: d_pair (N, 8 + 4 ceil(C / 4)), one row per list entry in
 // list order, columns as the geometry rows (mean x, y, conic a, b, c,
 // radius = 0, opacity, pad = 0) followed by the C colours and zeros to a
-// whole 16-byte vector (K2 reads and adds the row as such). Entries that come
-// after their tile has saturated keep the zeros the caller put there. The
-// scatter back to per-Gaussian rows is binning_bwd.cu (K2).
+// whole 16-byte vector (K2 reads and adds the row as such). Every row is
+// written here, zeros included (entries past their tile's saturation, and
+// those no pixel keeps). The scatter back to per-Gaussian rows is
+// binning_bwd.cu (K2).
 //
-// What bounds it on an H100: operations. Every (pixel, entry) evaluation that
-// the forward needed is repeated (one exp, ~60 float32 operations with the
-// gradient chain) and its 6 + C values are reduced over the 256 pixels; the
-// bytes are small beside that (the list features are read once per tile, the
-// 32 + 4C bytes of a d_pair row are written once).
+// What bounds it on an H100: issuing instructions. Every (pixel, entry)
+// evaluation that the forward needed is repeated (one exp and ~20 float32
+// operations), followed by the gradient chain (~25) and the sum of the row's
+// values over the warp's 32 pixels; and the grid's tail, 1,024 blocks of very
+// uneven work. The bytes are small beside that (the list features are read
+// once per tile, a d_pair row is written once).
 //
-// Design: one block per (view, 16x16 tile), one thread per pixel, batches of
-// 256 list entries staged through shared memory, exactly as the forward
-// (composite.cu). Each thread walks the batch front to back and recomputes
-// alpha and T with the forward's expressions in the forward's order (built
-// with -fmad=false like it), so the live gate (T_before >= 1e-4) and the keep
-// test flip on the same entries as in the forward. The per-pixel values of an
-// entry are summed with warp shuffles (skipped when no lane of the warp
-// touches the entry), the 8 warp sums land in shared memory, and after every
-// 32 entries the warps' sums are added in a fixed order and written once to
-// d_pair: no atomics, so the result is the same bits on every run. The block
-// stops with the forward's early exit (__syncthreads_count).
+// Design: K3's walk (composite.cu, composite.cuh): one block per (view,
+// 16x16 tile) taken longest list first through the forward's `order`, one thread per
+// pixel, a warp on an 8x4 pixel block, batches of 256 entries in shared
+// memory, each with its warp mask, and a warp walks only the entries whose
+// conservative rectangle meets its pixels. Each thread recomputes alpha and T
+// with the forward's expressions in the forward's order (composite::evaluate,
+// built with -fmad=false like K3), so the live gate (T_before >= 1e-4) and
+// the keep test flip on the same entries as in K3; fused multiply-adds and a
+// fast division appear only in the gradient chain, after the gate. The row
+// of a touched entry is summed over the warp by a reduce-scatter that leaves
+// each sum on one lane (14 shuffles for C = 3, where a shuffle tree per value
+// took 5 x (6 + C) = 45), and each warp's sums land in shared memory, zeros
+// where the warp skipped the entry. After every 32 entries the 8 warps' rows are added in
+// warp order and written once as 16-byte vectors: no atomics, so the result
+// is the same bits on every run. The block stops with the forward's early
+// exit (__syncthreads_count) and then zeroes the rows it did not reach.
 //
 // Not carried over from the TPU kernel: the log-space transmittance cumsum
 // and the carry-free contribution cumsum on the MXU, the bf16 split matmuls,
 // the paired-chunk unrolling, the fixed-capacity worklists and the quadtree
 // tile order. A thread multiplies T and adds to its prefix directly.
 
-#include <cuda_runtime.h>
+#include "composite.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kThreads = kTile * kTile;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSub = 32;  // entries between two cross-warp sums
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTransmittanceEps = 1e-4f;
+using namespace composite;
 
-template <int C>
-__global__ void __launch_bounds__(kThreads)
+// At most 64 registers a thread (4 resident blocks per SM): the row still
+// fits in them without spills (63 for C = 3, ptxas -v).
+constexpr int kMinBlocks = 4;
+
+// Entries between two cross-warp sums: one ballot's worth (warp_entries).
+constexpr int kSub = 32;
+
+// One step of the reduce-scatter: the lanes with `upper` keep (and get the
+// partner's half of) `hi`, the others `lo`.
+__device__ __forceinline__ float exchange(float lo, float hi, bool upper, int off) {
+  return (upper ? hi : lo) + __shfl_xor_sync(0xffffffffu, upper ? lo : hi, off);
+}
+
+// Sum each of x[0..N-1] (N = 8 or 16) over the warp's 32 lanes: 9 N / 8
+// shuffles. Afterwards lane l holds the sums of slots base(l) + i, i < N / 8,
+// base(l) = N/2 b4 + N/4 b3 + N/8 b2 (bits of l), in x[i]. Fixed order:
+// deterministic.
+template <int N>
+__device__ __forceinline__ void reduce_scatter(float (&x)[N], int l) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) x[i] = exchange(x[i], x[i + N / 2], (l & 16) != 0, 16);
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) x[i] = exchange(x[i], x[i + N / 4], (l & 8) != 0, 8);
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) x[i] = exchange(x[i], x[i + N / 8], (l & 4) != 0, 4);
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    x[i] += __shfl_xor_sync(0xffffffffu, x[i], 2);
+    x[i] += __shfl_xor_sync(0xffffffffu, x[i], 1);
+  }
+}
+
+// The d_pair column of value v of an entry's row (v: d mean x, y, d conic a,
+// b, c, d opacity, d colours): the radius (5) and pad (7) columns stay 0.
+__host__ __device__ constexpr int column(int v) { return v < 5 ? v : (v == 5 ? 6 : v + 2); }
+
+// kTimed: the measuring instantiation (launched only by raster_report.py)
+// also writes each block's start and end time, in ns, into block_times.
+template <int C, bool kTimed>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 composite_bwd_kernel(const float* __restrict__ gfeat, const float* __restrict__ colors,
                      const int* __restrict__ idx, const int2* __restrict__ ranges,
-                     const float* __restrict__ bg, const float* __restrict__ out,
-                     const float* __restrict__ t_final, const float* __restrict__ gout,
-                     float* __restrict__ d_pair, int g, int h, int w, int ntx, int nty) {
+                     const int* __restrict__ order, const float* __restrict__ bg,
+                     const float* __restrict__ out, const float* __restrict__ t_final,
+                     const float* __restrict__ gout, float* __restrict__ d_pair, int g, int h,
+                     int w, int ntx, int nty, long long* __restrict__ block_times) {
   constexpr int kRow = 8 + 4 * ((C + 3) / 4);  // d_pair row width
-  constexpr int kVals = 6 + C;  // values a pixel contributes to an entry
-  __shared__ float4 s_geo0[kThreads];  // mean x, mean y, conic a, conic b
-  __shared__ float4 s_geo1[kThreads];  // conic c, radius, opacity, -
-  __shared__ float s_col[kThreads * C];
-  __shared__ float s_part[kWarps][kSub][kRow];
+  constexpr int kVals = 6 + C;  // values a pixel adds to an entry's row
+  // The first kRS values go through one reduce-scatter, the rest (C = 3, 4:
+  // one or two) through a shuffle tree each: 14 shuffles for C = 3.
+  constexpr int kRS = kVals <= 10 ? 8 : 16;
+  constexpr int kTree = kVals > kRS ? kVals - kRS : 0;
+  __shared__ Batch<C> s;
+  __shared__ float4 s_part[kWarps][kSub * kRow / 4];  // each warp's row sums
+  const long long t_start = kTimed ? global_ns() : 0;
 
-  const int tile = blockIdx.x;
-  const int view = blockIdx.y;
-  const int lane = threadIdx.x;
-  const int warp = lane / 32;
-  const int pix_x = (tile % ntx) * kTile + (lane % kTile);
-  const int pix_y = (tile / ntx) * kTile + (lane / kTile);
+  const int tiles = ntx * nty;
+  const int cell = order != nullptr ? order[blockIdx.x] : (int)blockIdx.x;
+  const int view = cell / tiles, tile = cell % tiles;
+  const int lane = threadIdx.x, warp = lane / 32, l = lane % 32;
+  const int ox = (tile % ntx) * kTile, oy = (tile / ntx) * kTile;
+  const int2 local = pixel_of(lane);
+  const int pix_x = ox + local.x, pix_y = oy + local.y;
   const float px = (float)pix_x, py = (float)pix_y;
 
-  const int2 range = ranges[(long long)view * ntx * nty + tile];
+  const int2 range = ranges[cell];
   const float4* feat = reinterpret_cast<const float4*>(gfeat) + (long long)view * g * 2;
   const float* col = colors + (long long)view * g * C;
 
@@ -103,138 +147,177 @@ composite_bwd_kernel(const float* __restrict__ gfeat, const float* __restrict__ 
     }
   }
   const float gt_tfin = g_t * tfin;
+  // The value this lane writes after the reduce-scatter (lanes with l & 3 >=
+  // kRS / 8 hold copies); lane 3 + 4 t writes tree value t.
+  const int rs_value = (kRS / 2) * ((l >> 4) & 1) + (kRS / 4) * ((l >> 3) & 1) +
+                       (kRS / 8) * ((l >> 2) & 1) + (l & 3);
+  const bool rs_writer = (l & 3) < kRS / 8 && rs_value < kVals;
+  const int tree_value = (l & 3) == 3 ? l >> 2 : kTree;
 
   float t = 1.0f;
   float prefix = 0.0f;
   bool done = false;
 
-  for (int start = range.x; start < range.y; start += kThreads) {
+  int start = range.x;
+  for (; start < range.y; start += kThreads) {
     // Doubles as the barrier that protects shared memory from the last batch.
     if (__syncthreads_count(!done) == 0) break;
-    const int k = start + lane;
-    if (k < range.y) {
-      const int gi = idx[k];
-      s_geo0[lane] = feat[2 * (long long)gi];
-      s_geo1[lane] = feat[2 * (long long)gi + 1];
-#pragma unroll
-      for (int ch = 0; ch < C; ++ch) s_col[lane * C + ch] = col[(long long)gi * C + ch];
-    }
+    stage<C>(s, feat, col, idx, start + lane, range.y, lane, (float)ox, (float)oy);
     __syncthreads();
     const int n = min(kThreads, range.y - start);
     for (int sub = 0; sub < n; sub += kSub) {
-      const int m = min(kSub, n - sub);
-      for (int jj = 0; jj < m; ++jj) {
+      float* part = reinterpret_cast<float*>(s_part[warp]);
+      for (int i = l; i < kSub * kRow / 4; i += 32)
+        s_part[warp][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      __syncwarp();
+      unsigned bits = __all_sync(0xffffffffu, done) ? 0u : warp_entries<C>(s, sub, n, warp);
+      while (bits) {
+        const int jj = __ffs(bits) - 1;
+        bits &= bits - 1;
         const int j = sub + jj;
-        // v: d mean x, d mean y, d conic a, b, c, d opacity, d colours.
-        float v[kVals];
+        // x: the row's values (d mean x, y, d conic a, b, c, d opacity, d colours).
+        float x[kRS + kTree];
 #pragma unroll
-        for (int i = 0; i < kVals; ++i) v[i] = 0.0f;
+        for (int i = 0; i < kRS + kTree; ++i) x[i] = 0.0f;
         bool touches = false;
         if (!done) {
-          const float4 g0 = s_geo0[j];
-          const float4 g1 = s_geo1[j];
-          const float dx = px - g0.x;
-          const float dy = py - g0.y;
-          const float power = -0.5f * (g0.z * dx * dx + g1.x * dy * dy) - g0.w * dx * dy;
-          const float e = expf(power);
-          const float raw = g1.z * e;
-          const float alpha = fminf(kAlphaMax, raw);
-          if (power <= 0.0f && alpha >= kAlphaMin && dx * dx + dy * dy <= g1.y * g1.y) {
+          const float4 g0 = s.geo0[j];
+          const float4 g1 = s.geo1[j];
+          const Eval v = evaluate(g0, g1, px, py);
+          if (v.keep) {
             touches = true;
             float g_dot_c = 0.0f;
 #pragma unroll
-            for (int ch = 0; ch < C; ++ch) g_dot_c += go[ch] * s_col[j * C + ch];
-            const float weight = alpha * t;
-            prefix += g_dot_c * weight;
-            const float one_minus = fmaxf(1.0f - alpha, 1.0f - kAlphaMax);
+            for (int ch = 0; ch < C; ++ch) g_dot_c = __fmaf_rn(go[ch], s.col[j * C + ch], g_dot_c);
+            const float weight = v.alpha * t;
+            prefix = __fmaf_rn(g_dot_c, weight, prefix);
+            const float one_minus = fmaxf(1.0f - v.alpha, 1.0f - kAlphaMax);
             const float d_alpha =
-                g_dot_c * t - (g_total - prefix) / one_minus - gt_tfin / one_minus;
+                __fmaf_rn(g_dot_c, t, -__fdividef((g_total - prefix) + gt_tfin, one_minus));
 #pragma unroll
-            for (int ch = 0; ch < C; ++ch) v[6 + ch] = go[ch] * weight;
-            if (raw < kAlphaMax) {  // a capped alpha passes nothing on
-              const float d_power = d_alpha * alpha;
-              v[0] = d_power * (g0.z * dx + g0.w * dy);
-              v[1] = d_power * (g1.x * dy + g0.w * dx);
-              v[2] = d_power * (-0.5f * dx * dx);
-              v[3] = d_power * (-dx * dy);
-              v[4] = d_power * (-0.5f * dy * dy);
-              v[5] = d_alpha * e;
+            for (int ch = 0; ch < C; ++ch) x[6 + ch] = go[ch] * weight;
+            if (v.raw < kAlphaMax) {  // a capped alpha passes nothing on
+              const float d_power = d_alpha * v.alpha;
+              x[0] = d_power * __fmaf_rn(g0.z, v.dx, g0.w * v.dy);
+              x[1] = d_power * __fmaf_rn(g1.x, v.dy, g0.w * v.dx);
+              x[2] = (-0.5f * d_power) * (v.dx * v.dx);
+              x[3] = -d_power * (v.dx * v.dy);
+              x[4] = (-0.5f * d_power) * (v.dy * v.dy);
+              x[5] = d_alpha * v.e;
             }
-            t = t * (1.0f - alpha);
+            t = t * (1.0f - v.alpha);
             done = t < kTransmittanceEps;
           }
         }
-        float* part = s_part[warp][jj];
         if (__any_sync(0xffffffffu, touches)) {
+          reduce_scatter<kRS>(*reinterpret_cast<float(*)[kRS]>(x), l);
 #pragma unroll
-          for (int i = 0; i < kVals; ++i) {
+          for (int i = kRS; i < kRS + kTree; ++i) {
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1) v[i] += __shfl_down_sync(0xffffffffu, v[i], off);
+            for (int off = 16; off > 0; off >>= 1) x[i] += __shfl_xor_sync(0xffffffffu, x[i], off);
           }
-        }
-        if ((lane & 31) == 0) {
-          part[0] = v[0];
-          part[1] = v[1];
-          part[2] = v[2];
-          part[3] = v[3];
-          part[4] = v[4];
-          part[5] = 0.0f;  // radius
-          part[6] = v[5];
-          part[7] = 0.0f;  // pad
+          if (rs_writer)
+            part[jj * kRow + column(rs_value)] = (kRS == 16 && (l & 1)) ? x[1] : x[0];
 #pragma unroll
-          for (int ch = 0; ch < C; ++ch) part[8 + ch] = v[6 + ch];
-#pragma unroll
-          for (int c = 8 + C; c < kRow; ++c) part[c] = 0.0f;  // colour pad
+          for (int i = 0; i < kTree; ++i)
+            if (tree_value == i) part[jj * kRow + column(kRS + i)] = x[kRS + i];
         }
       }
       __syncthreads();
       // The 8 warp sums of each value, added in warp order, written once.
-      float* rows = d_pair + (long long)(start + sub) * kRow;
-      for (int i = lane; i < m * kRow; i += kThreads) {
-        const int jj = i / kRow, c = i - jj * kRow;
-        float sum = 0.0f;
+      const int m = min(kSub, n - sub);
+      float4* rows = reinterpret_cast<float4*>(d_pair + (long long)(start + sub) * kRow);
+      for (int i = lane; i < m * kRow / 4; i += kThreads) {
+        float4 sum = s_part[0][i];
 #pragma unroll
-        for (int wi = 0; wi < kWarps; ++wi) sum += s_part[wi][jj][c];
+        for (int wi = 1; wi < kWarps; ++wi) {
+          const float4 p = s_part[wi][i];
+          sum.x += p.x;
+          sum.y += p.y;
+          sum.z += p.z;
+          sum.w += p.w;
+        }
         rows[i] = sum;
       }
       __syncthreads();
+    }
+  }
+  // Rows of the batches the early exit skipped.
+  for (int k = start + lane; k < range.y; k += kThreads) {
+    float4* row = reinterpret_cast<float4*>(d_pair + (long long)k * kRow);
+#pragma unroll
+    for (int q = 0; q < kRow / 4; ++q) row[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (kTimed) {
+    __syncthreads();
+    if (lane == 0) {
+      block_times[2 * (long long)cell] = t_start;
+      block_times[2 * (long long)cell + 1] = global_ns();
     }
   }
 }
 
 template <int C>
 int launch(const float* gfeat, const float* colors, const int* idx, const int* ranges,
-           const float* bg, const float* out, const float* t_final, const float* gout,
-           float* d_pair, int views, int g, int h, int w, int ntx, int nty, cudaStream_t stream) {
-  dim3 grid(ntx * nty, views);
-  composite_bwd_kernel<C><<<grid, kThreads, 0, stream>>>(
-      gfeat, colors, idx, reinterpret_cast<const int2*>(ranges), bg, out, t_final, gout, d_pair,
-      g, h, w, ntx, nty);
+           const int* order, const float* bg, const float* out, const float* t_final,
+           const float* gout, float* d_pair, int views, int g, int h, int w, int ntx, int nty,
+           long long* block_times, cudaStream_t stream) {
+  const int cells = views * ntx * nty;
+  const int2* r = reinterpret_cast<const int2*>(ranges);
+  if (block_times != nullptr)
+    composite_bwd_kernel<C, true><<<cells, kThreads, 0, stream>>>(
+        gfeat, colors, idx, r, order, bg, out, t_final, gout, d_pair, g, h, w, ntx, nty,
+        block_times);
+  else
+    composite_bwd_kernel<C, false><<<cells, kThreads, 0, stream>>>(
+        gfeat, colors, idx, r, order, bg, out, t_final, gout, d_pair, g, h, w, ntx, nty, nullptr);
   return (int)cudaGetLastError();
+}
+
+template <int C>
+int attributes(int* info) {
+  cudaFuncAttributes a;
+  int err = (int)cudaFuncGetAttributes(&a, composite_bwd_kernel<C, false>);
+  if (err) return err;
+  info[0] = a.numRegs;
+  info[1] = (int)a.sharedSizeBytes;
+  info[2] = (int)a.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[3], composite_bwd_kernel<C, false>, kThreads, 0);
 }
 
 }  // namespace
 
-// d_pair (N, 8 + 4 ceil(C / 4)) must arrive zeroed: rows past a tile's saturation are not written.
+#define TP_CHANNELS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+
+// d_pair (N, 8 + 4 ceil(C / 4)), 16-byte aligned: every row is written.
+// order: null (the cells in their own order) or (views * ntx * nty,) int32, the cells in
+// launch order (a permutation).
+// block_times: null on the main path; else (views * ntx * nty, 2) int64 for the measuring launch.
 extern "C" int tp_composite_bwd(const float* gfeat, const float* colors, const int* idx,
-                                const int* ranges, const float* bg, const float* out,
-                                const float* t_final, const float* gout, float* d_pair, int views,
-                                int g, int c, int h, int w, int ntx, int nty, void* stream) {
+                                const int* ranges, const int* order, const float* bg,
+                                const float* out, const float* t_final, const float* gout,
+                                float* d_pair, int views, int g, int c, int h, int w, int ntx,
+                                int nty, long long* block_times, void* stream) {
   if (views == 0 || ntx * nty == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define TP_CASE(N)                                                                             \
-  case N:                                                                                      \
-    return launch<N>(gfeat, colors, idx, ranges, bg, out, t_final, gout, d_pair, views, g, h, \
-                     w, ntx, nty, s);
+#define TP_CASE(N)                                                                               \
+  case N:                                                                                        \
+    return launch<N>(gfeat, colors, idx, ranges, order, bg, out, t_final, gout, d_pair, views, \
+                     g, h, w, ntx, nty, block_times, s);
   switch (c) {
-    TP_CASE(1)
-    TP_CASE(2)
-    TP_CASE(3)
-    TP_CASE(4)
-    TP_CASE(5)
-    TP_CASE(6)
-    TP_CASE(7)
-    TP_CASE(8)
+    TP_CHANNELS(TP_CASE)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TP_CASE
+}
+
+// info: registers, static shared bytes, local bytes, resident blocks per SM.
+extern "C" int tp_composite_bwd_attributes(int c, int* info) {
+#define TP_CASE(N) \
+  case N: return attributes<N>(info);
+  switch (c) {
+    TP_CHANNELS(TP_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef TP_CASE

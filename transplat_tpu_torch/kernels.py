@@ -4,7 +4,9 @@ The CUDA C++ sources under csrc/ have a plain C interface. At first use they
 are compiled with nvcc for sm_90a (one nvcc per source, all started together)
 and linked into one shared library, which is loaded with ctypes. The build
 lands in _build/<hash of the sources>/ inside the package, so a checkout
-builds itself and a changed source rebuilds.
+builds itself and a changed source rebuilds. What ptxas says of each kernel
+(registers, spills, shared memory: `-Xptxas -v`) stays beside the library
+as <source stem>.ptxas.log.
 
 Every C entry launches on the caller's CUDA stream, allocates nothing and
 returns cudaGetLastError(); `call` raises if that is not 0.
@@ -39,6 +41,7 @@ _NVCC_FLAGS = (
     # No fused multiply-add contraction: the kernels reproduce the plain
     # PyTorch (and JAX) float32 rounding of e.g. floor(loc * W - 0.5).
     "-fmad=false",
+    "-Xptxas", "-v",
 )
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -51,12 +54,14 @@ _SIGNATURES = {
     "tp_bin_emit": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
     # keys, ranges, n_pairs, stream
     "tp_bin_ranges": (_P, _P, _LL, _P),
-    # gfeat, colors, idx, ranges, bg, out, t_final (or null), views, g, c, h, w, ntx, nty, stream
-    "tp_composite": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # gfeat, colors, idx, ranges, order (or null), bg, out, t_final (or null), views, g, c, h, w, ntx, nty,
+    # block_times (or null), stream
+    "tp_composite": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # scores, loc, aw, gbar, d_scores, d_loc, d_aw, n_queries, h, w, d, p, stream
     "tp_deform_scores_bwd": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
-    # gfeat, colors, idx, ranges, bg, out, t_final, gout, d_pair, views, g, c, h, w, ntx, nty, stream
-    "tp_composite_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # gfeat, colors, idx, ranges, order (or null), bg, out, t_final, gout, d_pair, views, g, c, h, w, ntx, nty,
+    # block_times (or null), stream
+    "tp_composite_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # d_pair, idx, view_end, d_feat, n_pairs, row, views, g, stream
     "tp_bin_bwd": (_P, _P, _P, _P, _LL, _I, _I, _I, _P),
     # d_pair, perm, segments, d_feat, n_gaussians, row, stream
@@ -69,6 +74,8 @@ _SIGNATURES = {
     # gbar, corner_w, perm, segments, d_value, n_rows, c, corners_per_query, stream
     "tp_deform_vectors_bwd_sorted": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
 }
+# Entries that launch nothing (no stream argument): c, int[4] info out.
+_QUERIES = {"tp_composite_attributes": (_I, _P), "tp_composite_bwd_attributes": (_I, _P)}
 
 launches: dict[str, int] = {}
 _lib = None
@@ -118,6 +125,7 @@ def build() -> Path:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{src}:\n{log}")
+            (out_dir / (Path(src).stem + ".ptxas.log")).write_text(log)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / lib_path.name
@@ -135,12 +143,24 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
+            for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def ptxas_log(stem: str) -> str:
+    """What ptxas printed for csrc/<stem>.cu in the current build."""
+    return (build().parent / f"{stem}.ptxas.log").read_text()
+
+
+def query(name: str, *args) -> None:
+    """Call a C entry that launches nothing (e.g. a kernel's attributes); raise on error."""
+    err = getattr(load(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
 
 
 def call(name: str, counter: str, *args) -> None:

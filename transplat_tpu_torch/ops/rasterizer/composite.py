@@ -8,6 +8,13 @@ custom_vjp) plus the background / raster-order epilogue of its api.py caller.
 kernels (csrc/composite.cu, csrc/composite_bwd.cu, then K2 of binning.py);
 for CPU tensors it runs `composite_tiles_plain` and
 `composite_tiles_bwd_plain`.
+
+A warp of either kernel skips the entries whose conservative pixel
+rectangle (`entry_rects`) misses its 8x4 pixels (`warp_masks`): the plain
+versions of what the kernels compute for that (csrc/composite.cuh). Where a
+backward follows, both take their tiles longest list first (`tile_order`):
+the sort pays for itself in K4 and K3 shares it; a forward alone takes its
+tiles in cell order.
 """
 
 from __future__ import annotations
@@ -20,6 +27,49 @@ from ... import kernels
 from .binning import CONIC_A, CONIC_B, CONIC_C, GFEAT_WIDTH, MEAN_X, MEAN_Y, OPACITY, RADIUS, TileLists, bin_bwd, pair_width
 from .projection import ALPHA_MAX, ALPHA_MIN, gaussian_alpha
 from .reference import TRANSMITTANCE_EPS
+
+
+# A warp of the kernels covers FOOTPRINT = (width, height) pixels of its tile;
+# warp w sits at column w % (16 // width), row w // (16 // width).
+FOOTPRINT = (8, 4)
+# Past this |mean| or radius the kernels cull nothing (csrc/composite.cuh).
+CULL_LIMIT = 1e6
+
+
+def tile_order(lists: TileLists) -> torch.Tensor:
+    """(cells,) int32: the (view, tile) cells by list length, longest first,
+    ties in cell order: the order in which the kernels take their tiles."""
+    lengths = lists.ranges[:, 1] - lists.ranges[:, 0]
+    return torch.sort(lengths, descending=True, stable=True).indices.to(torch.int32)
+
+
+def entry_rects(rows: torch.Tensor, origin_x: torch.Tensor, origin_y: torch.Tensor, tile: int = 16) -> torch.Tensor:
+    """(..., 4) float (x0, y0, x1, y1): the conservative pixel rectangle of each
+    geometry row (..., 8) in its tile at (origin_x, origin_y), tile-local and
+    inclusive: floor(mean - radius) - 1 .. ceil(mean + radius) + 1, clipped to
+    the tile (empty where x0 > x1 or y0 > y1). A pixel outside it fails the
+    radius test in float32; past CULL_LIMIT, or for NaN, it is the whole tile."""
+    mx, my, r = rows[..., MEAN_X], rows[..., MEAN_Y], rows[..., RADIUS].abs()
+    ok = (r < CULL_LIMIT) & (mx.abs() < CULL_LIMIT) & (my.abs() < CULL_LIMIT)
+    last = float(tile - 1)
+    x0 = torch.clamp(torch.floor(mx - r) - 1.0 - origin_x, min=0.0)
+    x1 = torch.clamp(torch.ceil(mx + r) + 1.0 - origin_x, max=last)
+    y0 = torch.clamp(torch.floor(my - r) - 1.0 - origin_y, min=0.0)
+    y1 = torch.clamp(torch.ceil(my + r) + 1.0 - origin_y, max=last)
+    rect = torch.stack([x0, y0, x1, y1], dim=-1)
+    whole = torch.tensor([0.0, 0.0, last, last], dtype=rows.dtype, device=rows.device)
+    return torch.where(ok[..., None], rect, whole)
+
+
+def warp_masks(rects: torch.Tensor, footprint: tuple[int, int] = FOOTPRINT, tile: int = 16) -> torch.Tensor:
+    """(...,) int64 bit set of the warps whose footprint meets each rectangle (entry_rects)."""
+    fw, fh = footprint
+    mask = torch.zeros(rects.shape[:-1], dtype=torch.int64, device=rects.device)
+    for w in range(tile * tile // 32):
+        fx, fy = (w % (tile // fw)) * fw, (w // (tile // fw)) * fh
+        meets = (rects[..., 0] <= fx + fw - 1) & (rects[..., 2] >= fx) & (rects[..., 1] <= fy + fh - 1) & (rects[..., 3] >= fy)
+        mask |= meets.to(torch.int64) << w
+    return mask
 
 
 def _tiles_to_image(x: torch.Tensor, b: int, ntx: int, nty: int, tile: int, image_shape) -> torch.Tensor:
@@ -200,12 +250,14 @@ class CompositeTiles(torch.autograd.Function):
     (their sum per Gaussian); for CPU tensors their plain versions run."""
 
     @staticmethod
-    def forward(ctx, gfeat, colors, background, lists, image_shape, tile):
+    def forward(ctx, gfeat, colors, background, lists, image_shape, tile, ordered):
+        order = None
         if gfeat.is_cuda:
-            image, t_final = _composite_fwd_cuda(gfeat, colors, lists, background, image_shape, tile)
+            order = tile_order(lists) if ordered else None
+            image, t_final = _composite_fwd_cuda(gfeat, colors, lists, background, image_shape, tile, order=order)
         else:
             image, t_final, _ = composite_tiles_plain(gfeat, colors, lists, background, image_shape, tile)
-        ctx.save_for_backward(gfeat, colors, background, lists.idx, lists.ranges, image, t_final)
+        ctx.save_for_backward(gfeat, colors, background, lists.idx, lists.ranges, image, t_final, order)
         ctx.grid = (lists.num_tiles_x, lists.num_tiles_y)
         ctx.tile = tile
         return image
@@ -213,19 +265,19 @@ class CompositeTiles(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_out):
-        gfeat, colors, background, idx, ranges, image, t_final = ctx.saved_tensors
+        gfeat, colors, background, idx, ranges, image, t_final, order = ctx.saved_tensors
         lists = TileLists(idx, ranges, *ctx.grid)
         b, g, _ = gfeat.shape
         g_out = g_out.contiguous()
         if gfeat.is_cuda:
-            d_pair = _composite_bwd_cuda(gfeat, colors, lists, background, image, t_final, g_out)
+            d_pair = _composite_bwd_cuda(gfeat, colors, lists, background, image, t_final, g_out, order=order)
         else:
             d_pair = composite_tiles_bwd_plain(gfeat, colors, lists, background, image, t_final, g_out, ctx.tile)
         d_gfeat, d_colors = bin_bwd(d_pair, lists, b, g, colors.shape[-1])
         d_bg = None
         if ctx.needs_input_grad[2]:
             d_bg = torch.sum(g_out * t_final[..., None], dim=(1, 2))
-        return d_gfeat, d_colors, d_bg, None, None, None
+        return d_gfeat, d_colors, d_bg, None, None, None, None
 
 
 def _check_composite_args(gfeat, colors, lists: TileLists, background, tile: int):
@@ -245,25 +297,59 @@ def _check_composite_args(gfeat, colors, lists: TileLists, background, tile: int
         raise ValueError("composite: ranges or background disagree with the views")
 
 
-def _composite_fwd_cuda(gfeat, colors, lists: TileLists, background, image_shape, tile: int = 16):
-    """Launch K3: (image (B, h, w, C), final transmittance (B, h, w))."""
+def _block_times_arg(block_times, cells: int, device) -> int:
+    """Pointer for a kernel's `block_times`: 0 (the main path) or a (cells, 2) int64 CUDA tensor."""
+    if block_times is None:
+        return 0
+    kernels.check_cuda_tensor("block_times", block_times, torch.int64, 2)
+    if block_times.shape != (cells, 2) or block_times.device != device:
+        raise ValueError(f"block_times: expected ({cells}, 2) on {device}, got {tuple(block_times.shape)}")
+    return block_times.data_ptr()
+
+
+def _order_arg(order, lists: TileLists) -> int:
+    """Pointer for the kernels' `order`: 0 (cells in their own order) or a (cells,) int32 CUDA tensor."""
+    if order is None:
+        return 0
+    kernels.check_cuda_tensor("order", order, torch.int32, 1)
+    if order.shape[0] != lists.ranges.shape[0]:
+        raise ValueError(f"order: expected {lists.ranges.shape[0]} cells, got {order.shape[0]}")
+    return order.data_ptr()
+
+
+def _composite_fwd_cuda(gfeat, colors, lists: TileLists, background, image_shape, tile: int = 16, order=None,
+                        block_times=None):
+    """Launch K3: (image (B, h, w, C), final transmittance (B, h, w)).
+
+    `order` is the tiles' launch order (tile_order(lists)); without it the
+    blocks take the cells in their own order.
+    `block_times`, a (cells, 2) int64 tensor, selects the measuring
+    instantiation, which also writes each block's start and end (ns); it is
+    counted as `composite_timed`, never as `composite`."""
     _check_composite_args(gfeat, colors, lists, background, tile)
     b, g, _ = gfeat.shape
     c = colors.shape[-1]
     h, w = image_shape
     out = torch.empty((b, h, w, c), dtype=torch.float32, device=gfeat.device)
     t_final = torch.empty((b, h, w), dtype=torch.float32, device=gfeat.device)
+    order = _order_arg(order, lists)
+    timer = _block_times_arg(block_times, lists.ranges.shape[0], gfeat.device)
     kernels.call(
-        "tp_composite", "composite",
-        gfeat.data_ptr(), colors.data_ptr(), lists.idx.data_ptr(), lists.ranges.data_ptr(),
+        "tp_composite", "composite_timed" if timer else "composite",
+        gfeat.data_ptr(), colors.data_ptr(), lists.idx.data_ptr(), lists.ranges.data_ptr(), order,
         background.data_ptr(), out.data_ptr(), t_final.data_ptr(), b, g, c, h, w,
-        lists.num_tiles_x, lists.num_tiles_y,
+        lists.num_tiles_x, lists.num_tiles_y, timer,
     )
     return out, t_final
 
 
-def _composite_bwd_cuda(gfeat, colors, lists: TileLists, background, image, t_final, g_out, tile: int = 16):
-    """Launch K4: d_pair (N, pair_width(C)), one gradient row per tile-list entry."""
+def _composite_bwd_cuda(gfeat, colors, lists: TileLists, background, image, t_final, g_out, tile: int = 16,
+                        order=None, block_times=None):
+    """Launch K4: d_pair (N, pair_width(C)), one gradient row per tile-list
+    entry; the kernel writes every row (the lists' ranges cover the entries).
+
+    `order` and `block_times` as for _composite_fwd_cuda (counted as
+    `composite_bwd_timed`)."""
     _check_composite_args(gfeat, colors, lists, background, tile)
     b, g, _ = gfeat.shape
     c = colors.shape[-1]
@@ -273,13 +359,15 @@ def _composite_bwd_cuda(gfeat, colors, lists: TileLists, background, image, t_fi
     kernels.check_cuda_tensor("g_out", g_out, torch.float32, 4)
     if image.shape != (b, h, w, c) or g_out.shape != image.shape or t_final.shape != (b, h, w):
         raise ValueError("composite_bwd: image, t_final and g_out disagree in shape")
-    d_pair = torch.zeros((lists.idx.shape[0], pair_width(c)), dtype=torch.float32, device=gfeat.device)
+    d_pair = torch.empty((lists.idx.shape[0], pair_width(c)), dtype=torch.float32, device=gfeat.device)
+    order = _order_arg(order, lists)
+    timer = _block_times_arg(block_times, lists.ranges.shape[0], gfeat.device)
     if d_pair.shape[0]:
         kernels.call(
-            "tp_composite_bwd", "composite_bwd",
-            gfeat.data_ptr(), colors.data_ptr(), lists.idx.data_ptr(), lists.ranges.data_ptr(),
+            "tp_composite_bwd", "composite_bwd_timed" if timer else "composite_bwd",
+            gfeat.data_ptr(), colors.data_ptr(), lists.idx.data_ptr(), lists.ranges.data_ptr(), order,
             background.data_ptr(), image.data_ptr(), t_final.data_ptr(), g_out.data_ptr(), d_pair.data_ptr(),
-            b, g, c, h, w, lists.num_tiles_x, lists.num_tiles_y,
+            b, g, c, h, w, lists.num_tiles_x, lists.num_tiles_y, timer,
         )
     return d_pair
 
@@ -296,4 +384,5 @@ def composite_tiles(
 
     Differentiable in gfeat, colors and background on both devices (the lists
     are constants)."""
-    return CompositeTiles.apply(gfeat, colors, background, lists, tuple(image_shape), tile)
+    ordered = torch.is_grad_enabled() and any(t.requires_grad for t in (gfeat, colors, background))
+    return CompositeTiles.apply(gfeat, colors, background, lists, tuple(image_shape), tile, ordered)

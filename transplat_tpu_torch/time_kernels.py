@@ -1,6 +1,6 @@
 """Device time of the hand-written kernels of this tree at the paths' shapes, in repeated readings.
 
-    python -m transplat_tpu_torch.time_kernels [--readings 5] [--label NAME]
+    python -m transplat_tpu_torch.time_kernels [--readings 5] [--label NAME] [--items composite ...]
 
 Run from the repository's root (it takes its inputs from chip_smoke.py).
 Builds the Gaussians of one full-width serving request (chip_smoke.py's
@@ -11,15 +11,23 @@ random locations), then takes `--readings` readings in turns of:
 - `deform_scores_p1` / `_p4`: K5 at P = 1 and 4 through
   `deform_sample_scores`, and `grid_sample` on the same inputs (at P = 4
   followed by the weighted sum over the points: the same function);
+- `composite`: one forward of `composite_tiles` (K3) without autograd, as a
+  request runs it; `composite_train`: one forward that autograd records, as
+  a training step runs it (the tiles longest list first, where the tree
+  orders them);
 - `composite_bwd` and `bin_bwd`: one backward of `composite_tiles` (K4, then
   K2 in its atomic mode), through autograd; each kernel by its name;
 - `index_add_`: the library's way to K2's function on the same rows.
 
 Each reading is the median device time over 20 calls (utils/device_time.py).
-Prints one JSON line with every reading and each item's median, min and
-max. It uses only entry points whose signatures earlier trees share, so the
-file can be copied into a parent tree (with utils/device_time.py) to compare
-two trees in one call: parent, change, change, parent.
+`--items` keeps the items whose name starts with one of the given prefixes:
+a design trial, a patched copy of the tree, reads the kernels it changed
+beside the tree it came from in one call. Prints one JSON line with every
+reading, each item's median, min and max, and the profiler traces each
+reading took (`attempts`; more than 1 where a trace came back short). It
+uses only entry points whose signatures earlier trees share, so the file can
+be copied into a parent tree (with utils/device_time.py) to compare two
+trees in one call: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--readings", type=int, default=5)
     ap.add_argument("--label", default="")
+    ap.add_argument("--items", nargs="*", default=None, help="prefixes of the items to read (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA card")
@@ -99,22 +108,32 @@ def main(argv=None) -> int:
     width = 8 + 4 * ((colors.shape[-1] + 3) // 4)  # K2's padded gradient row
     d_pair = torch.randn((lists.idx.shape[0], width), device=dev, generator=gen)
 
+    def forward():
+        with torch.no_grad():
+            return composite.composite_tiles(gfeat, colors, lists, bg, IMAGE)
+
     items = {
         **sampler_items(1),
         **sampler_items(4),
+        "composite.kernel_ms": (forward, "composite_kernel"),
+        "composite_train.kernel_ms": (lambda: composite.composite_tiles(*leaves, lists, bg, IMAGE), "composite_kernel"),
         "composite_bwd.kernel_ms": (backward, "composite_bwd_kernel"),
         "bin_bwd.kernel_ms": (backward, "bin_bwd_atomic_kernel"),
         "index_add_.device_ms": (lambda: torch.zeros((b * g, d_pair.shape[1]), device=dev).index_add_(0, rows, d_pair), None),
     }
+    if args.items is not None:
+        items = {k: v for k, v in items.items() if k.startswith(tuple(args.items))}
     readings: dict[str, list[float]] = {k: [] for k in items}
+    attempts: dict[str, list[int]] = {k: [] for k in items}
     for _ in range(args.readings):
         for key, (fn, kernel) in items.items():
             t = device_time(fn, kernel)
             readings[key].append(t["kernel_ms"] if kernel else t["device_ms"])
+            attempts[key].append(t["attempts"])
     summary = {k: {"median": float(np.median(v)), "min": min(v), "max": max(v)} for k, v in readings.items()}
     print(json.dumps({
         "label": args.label, "device": torch.cuda.get_device_name(0), "pairs": int(lists.idx.shape[0]),
-        "readings": readings, "summary": summary,
+        "readings": readings, "attempts": attempts, "summary": summary,
     }), flush=True)
     return 0
 

@@ -14,8 +14,9 @@ split into CALLS equal groups, one per call; every group must hold the same
 sequence of kernel names (a function that launches the same work each call),
 or it raises. The trace's device clock is not trusted to line up with the
 host's (a kernel can read as starting outside the host range of the call that
-launched it). The durations are summed per call, and the median over calls
-is returned:
+launched it); a trace whose events do not split evenly is taken again (up
+to ATTEMPTS times, and `attempts` says how many it took). The durations are
+summed per call, and the median over calls is returned:
 
 - `device_ms`: all device events of a call, the wrapper's fill and zero
   kernels (`torch.zeros`) included;
@@ -39,6 +40,10 @@ import torch
 
 CALLS = 20
 WARMUP = 3
+# The profiler now and then returns fewer device events than the calls
+# launched (8 for 20 calls, once in some 40 readings on an H100): a trace
+# that does not split evenly into the calls is taken again.
+ATTEMPTS = 3
 
 
 def device_time(fn, kernel: str | None = None) -> dict:
@@ -48,16 +53,19 @@ def device_time(fn, kernel: str | None = None) -> dict:
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(CALLS):
-            fn()
-            torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    device = sorted(  # device work only: not the ranges that annotate it (autograd's, for one)
-        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-        if e.device_type == cuda and not getattr(e, "is_user_annotation", False)
-    )
-    if not device or len(device) % CALLS:
+    for attempt in range(1, ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(CALLS):
+                fn()
+                torch.cuda.synchronize()
+        device = sorted(  # device work only: not the ranges that annotate it (autograd's, for one)
+            (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+            if e.device_type == cuda and not getattr(e, "is_user_annotation", False)
+        )
+        if device and len(device) % CALLS == 0:
+            break
+    else:
         raise RuntimeError(f"device_time: {len(device)} device events do not split into {CALLS} calls")
     per = len(device) // CALLS
     groups = [device[i * per : (i + 1) * per] for i in range(CALLS)]
@@ -75,6 +83,7 @@ def device_time(fn, kernel: str | None = None) -> dict:
         "device_ms": median_ms(lambda name: True),
         "kernel_ms": None if kernel is None else median_ms(lambda name: kernel in name),
         "device_launches": len(groups[0]),
+        "attempts": attempt,
     }
 
 
