@@ -16,15 +16,18 @@ evaluate paths on one NVIDIA card and check them.
    produced and on a synthetic scene of elongated splats; K5 and K6 at 2 x
    4096 queries of 64x64 maps; K7 and K8, both modes, at 2 x 4096 queries
    of a 64x64x128 value map with self-attention-like locations; K5 at P = 1
-   also on the encoder's own epipolar locations), and timed beside its bound,
-   its plain version and, where there is one, a library call (grid_sample,
-   index_add_, searchsorted): device time by torch.profiler (median of 20
-   calls; `device_ms` with the wrapper's fills, `kernel_ms` the kernel
-   alone, see transplat_tpu_torch/utils/device_time.py) and `wrapper_ms`,
-   one wrapper call between CUDA events. K3 and K4 also record registers,
-   shared memory, resident blocks per SM, waves and their blocks' time
-   spread (transplat_tpu_torch/raster_report.py); two K4 runs must give the
-   same bits.
+   also on the encoder's own epipolar locations, K6 at P = 4 on the
+   encoder's own cross-attention locations, K6 at a shape that takes its
+   general path), and timed beside its bound, its plain version and, where
+   there is one, a library call (grid_sample, index_add_, searchsorted):
+   device time by torch.profiler (median of 20 calls; `device_ms` with the
+   wrapper's fills, `kernel_ms` the kernel alone, see
+   transplat_tpu_torch/utils/device_time.py; `kernel_cold_ms` /
+   `device_cold_ms` the same with the L2 flushed before each call) and
+   `wrapper_ms`, one wrapper call between CUDA events. K3 and K4 also record
+   registers, shared memory, resident blocks per SM, waves and their blocks'
+   time spread (transplat_tpu_torch/raster_report.py); two runs of K4, K6
+   and of the sorted modes of K2 and K8 must give the same bits.
 4. The tiled renderer is held against the naive oracle, and the serving
    slice at a tiny width against the plain versions on the CPU.
 5. Training (`train_slice`): the same full-width configuration takes one
@@ -32,7 +35,13 @@ evaluate paths on one NVIDIA card and check them.
    LPIPS, backward, clip 0.5 + Adam, dropout on). Launch counts are reset
    just before the timed steps; every forward and backward kernel must have
    launched, every trainable parameter must have moved, DAv2 must not, and
-   the loss on the fixed batch (dropout off) must be lower afterwards.
+   the loss on the fixed batch (dropout off) must be lower afterwards. K2
+   and K8 must have launched their atomic modes, not their sorted ones.
+   `train_deterministic`: with trainer.deterministic_kernels on, two steps
+   from one state must give the same loss, gradients and parameters bit for
+   bit, through the sorted modes of K2 and K8 and no atomic mode; the
+   warnings of torch.use_deterministic_algorithms during such a step are
+   recorded.
 6. `tiny_train_vs_cpu`: one training step's loss and gradients at a tiny
    width, kernels on the card against plain versions on the CPU.
 7. Fit (`fit_slice`): the same configuration on the 256x256 golden scene.
@@ -43,7 +52,9 @@ evaluate paths on one NVIDIA card and check them.
    checkpoint, whose first step must log the first run's loss; evaluate_batch
    again. Launch counts are reset just before fit() and read just after: all
    twelve kernels must have launched, and the PSNR must have risen by
-   FIT_MIN_PSNR_GAIN_DB.
+   FIT_MIN_PSNR_GAIN_DB. `fit_resume_deterministic`: the same with
+   trainer.deterministic_kernels on for FIT_DET_STEPS steps; the resumed
+   run's losses and final parameters must equal the first run's exactly.
 
 Prints JSON records, then the card's name and power limit as nvidia-smi
 gives them, a `kernels` record, and as the last line
@@ -70,6 +81,7 @@ NUM_TARGET = 4
 REQUESTS = 5
 TRAIN_STEPS = 3
 FIT_STEPS = 50
+FIT_DET_STEPS = 4
 # PSNR of evaluate_batch on the golden scene must rise by this much over
 # FIT_STEPS steps. Measured on an H100 80GB HBM3: 11.0 -> 26.1 dB, a gain of
 # 15 dB (runs differ by a few tenths: the backward's atomics); an optimizer
@@ -79,9 +91,12 @@ FORWARD_KERNELS = (
     "deform_scores_p1", "deform_scores_p4", "deform_vectors", "bin_rects", "bin_emit", "bin_ranges", "composite",
 )
 BACKWARD_KERNELS = ("deform_scores_bwd_p1", "deform_scores_bwd_p4", "deform_vectors_bwd", "composite_bwd", "bin_bwd")
+# What trainer.deterministic_kernels puts in place of K8's and K2's atomic modes.
+SORTED_MODES = {"deform_vectors_bwd": "deform_vectors_bwd_sorted", "bin_bwd": "bin_bwd_sorted"}
+L2_BYTES = 50e6  # H100 L2: a function whose bytes fit reads them from there when called back to back
 # Gradients are compared on values scaled to the gradient's largest entry.
-# K6 and K2 repeat their plain versions' float32 sums in another order
-# (atomics): 1e-5. K4 sums an entry's 256 pixels in another order than the
+# K6 (fixed-point sums), K8 and K2 repeat their plain versions' float32 sums
+# in another order: 1e-5. K4 sums an entry's 256 pixels in another order than the
 # plain version's chunked cumsum, 1 / (1 - alpha) reaches 100, and where T
 # crosses 1e-4 the two forwards (sequential product vs cumprod) can gate an
 # entry differently: 1e-4.
@@ -116,15 +131,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def timings(fn, kernel: str, lib_fn=None) -> dict:
     """A kernel's times: device_ms (every device event of one wrapper call,
     its fill kernels included) and kernel_ms (the hand-written kernel alone,
-    by name) from torch.profiler, wrapper_ms (one wrapper call between CUDA
-    events: host time included, what a host-bound path pays); the same for
-    the library call where there is one. `ms` and `library_ms` are the
-    device times the kernels line compares."""
+    by name) from torch.profiler, with the inputs warm as on the path and,
+    as `device_cold_ms` / `kernel_cold_ms`, with the L2 flushed before each
+    call (what a bound from the device-memory rate holds); wrapper_ms (one
+    wrapper call between CUDA events: host time included, what a host-bound
+    path pays); the device and wrapper times of the library call where there
+    is one. `ms` and `library_ms` are the device times the kernels line
+    compares."""
     from transplat_tpu_torch.utils.device_time import device_time
 
     wrapper_ms = time_ms(fn)  # before the profiler window: it costs the host time while on
     t = device_time(fn, kernel)
+    cold = device_time(fn, kernel, cold=True)
     rec = dict(ms=t["kernel_ms"], device_ms=t["device_ms"], kernel_ms=t["kernel_ms"], wrapper_ms=wrapper_ms,
+               device_cold_ms=cold["device_ms"], kernel_cold_ms=cold["kernel_ms"],
                device_launches_per_call=t["device_launches"], trace_attempts=t["attempts"],
                timing="torch.profiler device time, median of 20 calls",
                library_ms=None, library_wrapper_ms=None)
@@ -220,19 +240,21 @@ def deform_inputs(dev, p: int):
     return scores, loc, aw, gbar, (n, q, d, h, w)
 
 
-def epipolar_inputs(encoder, ctx, dev):
-    """The inputs of the encoder's own P = 1 score sampling (the epipolar
-    coarse correlation of the UV matcher), captured from one request:
-    scores (N, Q, HW), locations on the epipolar lines, unit weights."""
+def encoder_score_inputs(encoder, ctx, dev, p: int):
+    """The inputs of the encoder's first score sampling with P = p, captured
+    from one request: at P = 1 the epipolar coarse correlation of the UV
+    matcher (locations on the epipolar lines, unit weights), at P = 4 its
+    first cross-attention (learned offsets around them). Scores (N, Q, HW),
+    locations (N, Q, D, P, 2), weights (N, Q, D, P)."""
     from transplat_tpu_torch.model import uv_transformer
 
     seen = []
     sample = uv_transformer.deform_sample_scores
 
-    def capture(scores, hw, loc, aw):
-        if loc.shape[-2] == 1 and not seen:
+    def capture(scores, hw, loc, aw, *args, **kw):
+        if loc.shape[-2] == p and not seen:
             seen.append((scores.detach().clone(), tuple(hw), loc.detach().clone(), aw.detach().clone()))
-        return sample(scores, hw, loc, aw)
+        return sample(scores, hw, loc, aw, *args, **kw)
 
     uv_transformer.deform_sample_scores = capture
     try:
@@ -240,10 +262,10 @@ def epipolar_inputs(encoder, ctx, dev):
             encoder(*(torch.as_tensor(ctx[k], device=dev) for k in ("image", "intrinsics", "extrinsics", "near", "far")))
     finally:
         uv_transformer.deform_sample_scores = sample
-    require(len(seen) == 1, "the encoder made no P = 1 score sampling")
+    require(len(seen) == 1, f"the encoder made no P = {p} score sampling")
     scores, (h, w), loc, aw = seen[0]
     n, q, d = loc.shape[0], loc.shape[-4], loc.shape[-3]
-    return scores.reshape(n, q, h * w), loc.reshape(n, q, d, 1, 2), aw.reshape(n, q, d, 1), (n, q, d, h, w)
+    return scores.reshape(n, q, h * w), loc.reshape(n, q, d, p, 2), aw.reshape(n, q, d, p), (n, q, d, h, w)
 
 
 def check_deform(dev, p: int, launches: dict, inputs=None, label: str = "random locations") -> dict:
@@ -296,16 +318,24 @@ def check_deform(dev, p: int, launches: dict, inputs=None, label: str = "random 
     return rec
 
 
-def check_deform_bwd(dev, p: int) -> dict:
-    """K6 at the path's shapes, against its plain version and against
-    autograd of the forward's plain version."""
+def check_deform_bwd(dev, p: int, inputs=None, label: str = "random locations") -> dict:
+    """K6 at the path's shapes (random locations, or the `inputs` given),
+    against its plain version and against autograd of the forward's plain
+    version; two runs, and a run that asks for determinism, give the same
+    bits."""
     from torch.nn import functional as F
 
     from transplat_tpu_torch.ops import deform
 
-    scores, loc, aw, gbar, (n, q, d, h, w) = deform_inputs(dev, p)
+    if inputs is None:
+        scores, loc, aw, gbar, (n, q, d, h, w) = deform_inputs(dev, p)
+    else:
+        scores, loc, aw, (n, q, d, h, w) = inputs
+        gbar = torch.randn((n, q, d), device=dev, generator=torch.Generator(device=dev).manual_seed(SEED + 5))
     tol = GRAD_TOL["deform"]
     got = deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar)
+    again = deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar, deterministic=True)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)), f"deform_scores_bwd P={p}: two runs differ")
     plain = deform.deform_sample_scores_bwd_plain(scores, (h, w), loc, aw, gbar)
     leaves = [t.clone().requires_grad_(True) for t in (scores, loc, aw)]
     auto = torch.autograd.grad(deform.deform_sample_scores_plain(leaves[0], (h, w), leaves[1], leaves[2]), leaves, gbar)
@@ -323,7 +353,7 @@ def check_deform_bwd(dev, p: int) -> dict:
     lib_aw = aw.clone().requires_grad_(True)
     lib = (F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=False).reshape(n, q, d, p) * lib_aw).sum(-1)
     lib_img, lib_grid, lib_daw = torch.autograd.grad(lib, (img, grid, lib_aw), gbar, retain_graph=True)
-    lib_tol = tol if p == 1 else 1e-4  # as in check_deform
+    lib_tol = tol if (p == 1 and inputs is None) else 1e-4  # as in check_deform
     require(scaled_err(lib_img.reshape(n, q, h * w), plain[0]) <= lib_tol, "grid_sample's d_input disagrees with the plain version")
     require(scaled_err(lib_grid.reshape(n, q, d, p, 2) * 2.0, plain[1]) <= lib_tol, "grid_sample's d_grid disagrees with the plain version")
     require(scaled_err(lib_daw, plain[2]) <= lib_tol, "the weighted sum's d_weights disagrees with the plain version")
@@ -338,9 +368,39 @@ def check_deform_bwd(dev, p: int) -> dict:
         replaces="transplat_tpu/ops/deform_pallas.py:133", launches=0,
         max_abs_err=max(errs.values()), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **times,
     )
-    emit({"phase": "kernel", "tolerance": tol, "error_is": "max abs, values scaled to the gradient's largest entry",
-          "errors": errs, "shape": dict(pairs=n, q=q, d=d, p=p, h=h, w=w), "bytes": nbytes, **rec})
+    emit({"phase": "kernel", "inputs": label, "tolerance": tol,
+          "error_is": "max abs, values scaled to the gradient's largest entry", "errors": errs,
+          "bit_identical_runs": True, "path": deform.scores_bwd_plan(h, w, d, p),
+          "shape": dict(pairs=n, q=q, d=d, p=p, h=h, w=w), "bytes": nbytes, **rec})
     return rec
+
+
+def check_deform_bwd_general(dev) -> None:
+    """K6 at a shape whose gradient row does not fit in shared memory (its
+    general path, device-memory atomics): against its plain version; asking
+    for determinism there raises."""
+    from transplat_tpu_torch.ops import deform
+
+    n, q, d, p, h, w = 1, 8, 4, 2, 256, 256
+    require(deform.scores_bwd_plan(h, w, d, p) == "general", "the general-path shape fits in shared memory")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    scores = torch.randn((n, q, h * w), device=dev, generator=gen)
+    loc = torch.rand((n, q, d, p, 2), device=dev, generator=gen) * 1.2 - 0.1
+    aw = torch.rand((n, q, d, p), device=dev, generator=gen)
+    gbar = torch.randn((n, q, d), device=dev, generator=gen)
+    got = deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar)
+    plain = deform.deform_sample_scores_bwd_plain(scores, (h, w), loc, aw, gbar)
+    torch.cuda.synchronize()
+    errs = {name: scaled_err(a, b) for name, a, b in zip(("d_scores", "d_loc", "d_weights"), got, plain)}
+    require(max(errs.values()) <= GRAD_TOL["deform"], f"deform_scores_bwd general path: {errs}")
+    try:
+        deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar, deterministic=True)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "deform_scores_bwd: the general path ran where determinism was asked for")
+    emit({"phase": "deform_scores_bwd_general", "shape": dict(pairs=n, q=q, d=d, p=p, h=h, w=w), "errors": errs,
+          "tolerance": GRAD_TOL["deform"], "deterministic_refused": True})
 
 
 def vectors_inputs(dev):
@@ -420,10 +480,29 @@ def check_deform_vectors(dev, launches: dict) -> dict:
     return rec
 
 
-def check_deform_vectors_bwd(dev) -> dict:
+def window_share(loc: torch.Tensor, h: int, w: int) -> float:
+    """Share of the in-map corners of `loc` (N, Q = H W, P, 2) that fall in
+    their query's K8 window (the 8x8 pixel tile plus 4 cells on each side),
+    which K8's atomic mode adds in shared memory."""
+    px = torch.floor(loc[..., 0] * w - 0.5).clamp(-2.0, w + 1.0).long()
+    py = torch.floor(loc[..., 1] * h - 0.5).clamp(-2.0, h + 1.0).long()
+    qi = torch.arange(h * w, device=loc.device).reshape(1, -1, 1)
+    x0, y0 = (qi % w) // 8 * 8 - 4, (qi // w) // 8 * 8 - 4
+    inside = window = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            ix, iy = px + dx, py + dy
+            in_map = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+            in_win = in_map & (ix >= x0) & (ix < x0 + 16) & (iy >= y0) & (iy < y0 + 16)
+            inside += int(in_map.sum())
+            window += int(in_win.sum())
+    return window / max(inside, 1)
+
+
+def check_deform_vectors_bwd(dev) -> list[dict]:
     """K8 (atomic and sorted mode) at the path's shape, against its plain
     version, against autograd of the forward's plain version, and through the
-    Function; the sorted mode twice for identical bits."""
+    Function; the sorted mode twice for identical bits. One record per mode."""
     from transplat_tpu_torch.ops import deform
 
     value, loc, aw, gbar, shape = vectors_inputs(dev)
@@ -432,51 +511,58 @@ def check_deform_vectors_bwd(dev) -> dict:
     plain = deform.deform_sample_vectors_bwd_plain(value, (h, w), loc, aw, gbar)
     leaves = [t.clone().requires_grad_(True) for t in (value, loc, aw)]
     auto = torch.autograd.grad(deform.deform_sample_vectors_plain(leaves[0], (h, w), leaves[1], leaves[2]), leaves, gbar)
-    through = torch.autograd.grad(deform.deform_sample_vectors(leaves[0], (h, w), leaves[1], leaves[2]), leaves, gbar)
     errs = {}
     for mode, deterministic in (("atomic", False), ("sorted", True)):
+        through = torch.autograd.grad(
+            deform.deform_sample_vectors(leaves[0], (h, w), leaves[1], leaves[2], deterministic=deterministic), leaves, gbar
+        )
         got = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=deterministic)
         torch.cuda.synchronize()
-        for name, a, b, cc in zip(("d_value", "d_loc", "d_weights"), got, plain, auto):
+        for name, a, b, cc, t in zip(("d_value", "d_loc", "d_weights"), got, plain, auto, through):
             require(bool(torch.isfinite(a).all()), f"deform_vectors_bwd ({mode}) {name}: non-finite")
-            errs[f"{mode}.{name}"] = max(scaled_err(a, b), scaled_err(a, cc))
-    for name, t, b in zip(("d_value", "d_loc", "d_weights"), through, plain):
-        errs[f"function.{name}"] = scaled_err(t, b)
+            errs[f"{mode}.{name}"] = max(scaled_err(a, b), scaled_err(a, cc), scaled_err(t, b))
+        far = slice(q // 4, q // 4 + 16)  # every corner outside the map: exactly 0
+        require(float(got[1][:, far].abs().max()) == 0.0 and float(got[2][:, far].abs().max()) == 0.0,
+                f"deform_vectors_bwd ({mode}): gradients of points far outside the map are not 0")
     for name, e in errs.items():
         require(e <= tol, f"deform_vectors_bwd {name}: scaled max abs err {e} > {tol}")
-    far = slice(q // 4, q // 4 + 16)  # every corner outside the map: exactly 0
-    got = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar)
-    require(float(got[1][:, far].abs().max()) == 0.0 and float(got[2][:, far].abs().max()) == 0.0,
-            "deform_vectors_bwd: gradients of points far outside the map are not 0")
     first = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True)
     second = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True)
     require(all(torch.equal(x, y) for x, y in zip(first, second)), "deform_vectors_bwd sorted mode is not deterministic")
-    sorted_times = timings(lambda: deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True),
-                           "deform_vectors_bwd_sorted_kernel")
     plain_ms = time_ms(lambda: deform.deform_sample_vectors_bwd_plain(value, (h, w), loc, aw, gbar), iters=5, warmup=1)
     lib_leaves = [t.clone().requires_grad_(True) for t in (value, loc, aw)]
     lib = _grid_sample_vectors(*lib_leaves, shape)
     lib_grads = torch.autograd.grad(lib, lib_leaves, gbar, retain_graph=True)
     for name, a, b in zip(("d_value", "d_loc", "d_weights"), lib_grads, plain):
         require(scaled_err(a, b) <= 1e-4, f"grid_sample's {name} disagrees with the plain version")
-    times = timings(lambda: deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar), "deform_vectors_bwd_kernel",
-                    lambda: torch.autograd.grad(lib, lib_leaves, gbar, retain_graph=True))
+    lib_fn = lambda: torch.autograd.grad(lib, lib_leaves, gbar, retain_graph=True)  # noqa: E731
     # The plain forward's autograd backward (advanced indexing), which the kernel took off the training step.
     auto_out = deform.deform_sample_vectors_plain(leaves[0], (h, w), leaves[1], leaves[2])
     autograd_ms = time_ms(lambda: torch.autograd.grad(auto_out, leaves, gbar, retain_graph=True), iters=5, warmup=1)
     rows = vectors_rows_touched(loc, n, h, w)
     nbytes = 4 * (rows * c + loc.numel() + aw.numel() + gbar.numel() + value.numel() + loc.numel() + aw.numel())
     b_ms, b_by = bound(nbytes, n * q * p * 4 * (4.0 * c + 20.0))
-    rec = dict(
-        name="deform_vectors_bwd", route="cuda", source="transplat_tpu_torch/csrc/deform_vectors_bwd.cu",
-        replaces="transplat_tpu/ops/deform_pallas.py:361", launches=0,
-        max_abs_err=max(errs.values()), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **times,
-        sorted_device_ms=sorted_times["device_ms"], sorted_kernel_ms=sorted_times["kernel_ms"],
-        sorted_wrapper_ms=sorted_times["wrapper_ms"], plain_forward_autograd_ms=autograd_ms,
-    )
-    emit({"phase": "kernel", "tolerance": tol, "error_is": "max abs, values scaled to the gradient's largest entry",
-          "errors": errs, "shape": dict(pairs=n, q=q, c=c, p=p, h=h, w=w), "bytes": nbytes, **rec})
-    return rec
+    records = []
+    for name, deterministic, kernel in (("deform_vectors_bwd", False, "deform_vectors_bwd_kernel"),
+                                        ("deform_vectors_bwd_sorted", True, "deform_vectors_bwd")):
+        mode = "sorted" if deterministic else "atomic"
+        rec = dict(
+            name=name, route="cuda", source="transplat_tpu_torch/csrc/deform_vectors_bwd.cu",
+            replaces="transplat_tpu/ops/deform_pallas.py:361", launches=0,
+            max_abs_err=max(e for k, e in errs.items() if k.startswith(mode)), plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by,
+            **timings(lambda: deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=deterministic),
+                      kernel, lib_fn),
+            plain_forward_autograd_ms=autograd_ms,
+        )
+        if deterministic:
+            rec["kernel_is"] = "both hand-written kernels (corner keys, then the row sums); device_ms adds torch.sort"
+        emit({"phase": "kernel", "mode": mode, "tolerance": tol,
+              "error_is": "max abs, values scaled to the gradient's largest entry", "errors": errs,
+              "corners_in_window_share": window_share(loc, h, w), "sorted_bit_identical_runs": True,
+              "shape": dict(pairs=n, q=q, c=c, p=p, h=h, w=w), "bytes": nbytes, **rec})
+        records.append(rec)
+    return records
 
 
 # The operations K3 and K4 need (`needed_bound_ms`, beside `bound_ms`, which
@@ -601,6 +687,13 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
          lambda: binning.bin_bwd_plain(d_pair, lists, b, g, c),
          lambda: torch.zeros((b * g, d_pair.shape[1]), device=d_pair.device).index_add_(0, pair_rows, d_pair),
          4 * (total * (8 + c) + total + b * g * (8 + c)), float(total * (8 + c)), "bin_bwd_atomic_kernel"),
+        # K2's sorted, deterministic mode (torch.sort in its device time; its kernel is the segment sums).
+        ("bin_bwd_sorted", "transplat_tpu_torch/csrc/binning_bwd.cu",
+         "transplat_tpu/ops/rasterizer/pallas_binning.py:457", k2_errs["sorted"],
+         lambda: binning.bin_bwd(d_pair, lists, b, g, c, deterministic=True),
+         lambda: binning.bin_bwd_plain(d_pair, lists, b, g, c),
+         lambda: torch.zeros((b * g, d_pair.shape[1]), device=d_pair.device).index_add_(0, pair_rows, d_pair),
+         4 * (total * (8 + c) + total + b * g * (8 + c)), float(total * (8 + c)), "bin_bwd_sorted_kernel"),
     ]
     # K3 and K4: occupancy and the spread of their blocks' times (raster_report.py),
     # K3 as a request runs it (cells in their own order), K4 as a step does.
@@ -629,10 +722,6 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
             blocks = raster_report.block_spread(spread[name], cells, lengths, visited, gfeat.device)
             rec.update(block_us=blocks["block_us"], block_span_us=blocks["span_us"],
                        corr_block_time_visited=blocks["corr_time_visited_length"])
-        if name == "bin_bwd":  # the deterministic mode beside the atomic one (torch.sort included)
-            st = timings(lambda: binning.bin_bwd(d_pair, lists, b, g, c, deterministic=True), "bin_bwd_sorted_kernel")
-            rec.update(sorted_device_ms=st["device_ms"], sorted_kernel_ms=st["kernel_ms"], sorted_wrapper_ms=st["wrapper_ms"],
-                       sorted_max_abs_err=k2_errs["sorted"])
         emit({"phase": "kernel", "scene": label, **sizes, **rec})
         recs.append(rec)
     return recs
@@ -681,6 +770,8 @@ def train_slice(dev, records: list[dict]) -> None:
     peak = torch.cuda.max_memory_allocated()
     for name in FORWARD_KERNELS + BACKWARD_KERNELS:
         require(launches.get(name, 0) > 0, f"kernel {name} was not launched by the training steps")
+    for name in SORTED_MODES.values():
+        require(launches.get(name, 0) == 0, f"train_slice: {name} launched with deterministic_kernels off")
     for m in metrics_all:
         require(all(np.isfinite(v) for v in m.values()), f"train_slice: non-finite metrics {m}")
         require(m["grad_norm"] > 0.0, "train_slice: grad_norm is 0")
@@ -702,6 +793,75 @@ def train_slice(dev, records: list[dict]) -> None:
           "loss_fixed_batch_before": loss_before, "loss_fixed_batch_after": loss_after,
           "trainable_parameters": len(state.trainable()), "metrics": metrics_all, "dropout": True,
           "lpips": "random-init weights", "gaussians": 2 * IMAGE[0] * IMAGE[1]})
+
+
+def train_deterministic(dev, records: list[dict]) -> None:
+    """trainer.deterministic_kernels at full width: from one state, two
+    forward-backward passes give the same loss and gradients, and two
+    training steps the same metrics, parameters, BatchNorm statistics and
+    Adam moments, bit for bit. Launch counts are reset just before the first
+    step and read just after: the sorted modes of K2 and K8 must have run and
+    their atomic modes not. The warnings of
+    torch.use_deterministic_algorithms (warn_only) during that step name the
+    operations that have no deterministic version."""
+    import copy
+    import warnings
+
+    from transplat_tpu_torch import kernels
+    from transplat_tpu_torch.inference import re10k_decoder_cfg, re10k_encoder_cfg
+    from transplat_tpu_torch.loss import LossCfg
+    from transplat_tpu_torch.train_demo import build
+    from transplat_tpu_torch.training.step import loss_and_grads
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, step, batch, gen = build(re10k_encoder_cfg(), IMAGE, dev, SEED, num_target=NUM_TARGET,
+                                    deterministic_kernels=True)
+    with warnings.catch_warnings(record=True) as caught:  # a warning may come once, at the first step
+        warnings.simplefilter("always")
+        state, _ = step(state, batch, gen.manual_seed(SEED))  # warm-up, and a state past step 0
+    warned = {str(w.message).splitlines()[0] for w in caught}
+    passes = []
+    for _ in range(2):
+        metrics, grads = loss_and_grads(copy.deepcopy(state), batch, LossCfg(), re10k_decoder_cfg(), IMAGE,
+                                        gen.manual_seed(SEED + 1), deterministic_kernels=True)
+        passes.append((float(metrics["loss"]), grads))
+    require(passes[0][0] == passes[1][0], f"train_deterministic: losses {passes[0][0]} vs {passes[1][0]}")
+    differ = [k for k, g in passes[0][1].items() if not torch.equal(g, passes[1][1][k])]
+    require(not differ, f"train_deterministic: {len(differ)} gradients differ, e.g. {differ[:5]}")
+    del passes
+    runs = []
+    for i in range(2):
+        s = copy.deepcopy(state)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            s, metrics = step(s, batch, gen.manual_seed(SEED + 2))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        runs.append((s, {k: float(v) for k, v in metrics.items()}, dict(kernels.launches), ms,
+                     sorted({str(w.message).splitlines()[0] for w in caught})))
+    (s0, m0, launches, _, warned_step), (s1, m1, _, _, _) = runs
+    warned = sorted(warned | set(warned_step))
+    require(m0 == m1, f"train_deterministic: step metrics differ: {m0} vs {m1}")
+    sd0, sd1 = s0.encoder.state_dict(), s1.encoder.state_dict()
+    differ = [k for k in sd0 if not torch.equal(sd0[k], sd1[k])]
+    differ += [k for k in s0.opt_state.mu if not (torch.equal(s0.opt_state.mu[k], s1.opt_state.mu[k])
+                                                   and torch.equal(s0.opt_state.nu[k], s1.opt_state.nu[k]))]
+    require(not differ, f"train_deterministic: {len(differ)} parameters, statistics or moments differ, e.g. {differ[:5]}")
+    for atomic, sorted_mode in SORTED_MODES.items():
+        require(launches.get(sorted_mode, 0) > 0 and launches.get(atomic, 0) == 0,
+                f"train_deterministic: {sorted_mode} / {atomic} launched {launches.get(sorted_mode, 0)} / {launches.get(atomic, 0)}")
+    for name in FORWARD_KERNELS + ("deform_scores_bwd_p1", "deform_scores_bwd_p4", "composite_bwd"):
+        require(launches.get(name, 0) > 0, f"train_deterministic: kernel {name} was not launched")
+    for rec in records:
+        if rec["name"] in SORTED_MODES.values():
+            rec["launches"] = rec["launches_train"] = launches.get(rec["name"], 0)
+    emit({"phase": "train_deterministic", "steps": 2, "from_one_state": True, "bit_identical": True,
+          "loss": m0["loss"], "ms_per_step": [r[3] for r in runs], "launches": launches,
+          "warnings_use_deterministic_algorithms": warned, "dropout": True})
 
 
 def fit_slice(dev, records: list[dict]) -> None:
@@ -821,6 +981,79 @@ def fit_slice(dev, records: list[dict]) -> None:
           "lpips": "random-init weights", "scene": "golden_planes", "gaussians": 2 * IMAGE[0] * IMAGE[1]})
 
 
+def fit_resume_deterministic(dev, records: list[dict]) -> None:
+    """Path 3 with trainer.deterministic_kernels on, at full width on the
+    golden scene: Trainer.fit for FIT_DET_STEPS steps with a checkpoint in the
+    middle, then a fresh Trainer resumed from it. The resumed steps' metrics
+    and the final parameters, BatchNorm statistics and Adam moments must
+    equal the first run's exactly (tolerance 0)."""
+    import itertools
+    import os
+    import shutil
+    import tempfile
+
+    from transplat_tpu_torch import kernels
+    from transplat_tpu_torch.config import load_config
+    from transplat_tpu_torch.dataset import golden_scene_batch
+    from transplat_tpu_torch.loss import LPIPS
+    from transplat_tpu_torch.training import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    half = FIT_DET_STEPS // 2
+    batch = golden_scene_batch(num_context=2, num_target=NUM_TARGET, image_shape=IMAGE)
+    lpips = LPIPS(device=dev, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        def config(run: str):
+            return load_config(
+                "re10k",
+                optimizer=dict(lr=4e-4, cosine_lr=True, warm_up_steps=1),
+                trainer=dict(max_steps=FIT_DET_STEPS, num_sanity_val_steps=0, val_check_interval=FIT_DET_STEPS,
+                             seed=SEED, deterministic_kernels=True),
+                checkpointing=dict(save_dir=f"{tmp}/{run}/checkpoints", every_n_train_steps=half),
+            )
+
+        kernels.reset_launches()
+        first = Trainer(config("run"), log_fn=lambda m: None, device=dev, lpips=lpips, log_every=1)
+        state = first.fit(itertools.repeat(batch), max_steps=FIT_DET_STEPS)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        for atomic, sorted_mode in SORTED_MODES.items():
+            require(launches.get(sorted_mode, 0) > 0 and launches.get(atomic, 0) == 0,
+                    f"fit_resume_deterministic: {sorted_mode} / {atomic} launched")
+        want = {k: v.clone() for k, v in state.encoder.state_dict().items()}
+        moments = {k: (state.opt_state.mu[k].clone(), state.opt_state.nu[k].clone()) for k in state.opt_state.mu}
+        del state
+        resumed_cfg = config("resumed")
+        os.makedirs(resumed_cfg.checkpointing.save_dir)
+        shutil.copy(f"{tmp}/run/checkpoints/step_{half:08d}.pt", resumed_cfg.checkpointing.save_dir)
+        logs: list[str] = []
+        resumed = Trainer(resumed_cfg, log_fn=logs.append, device=dev, lpips=lpips, log_every=1)
+        state = resumed.fit(itertools.repeat(batch), max_steps=FIT_DET_STEPS)
+        require(f"resumed from step {half}" in logs and state.step == FIT_DET_STEPS, f"fit_resume_deterministic: {logs[:3]}")
+        records_of = {}
+        for run in ("run", "resumed"):
+            with open(f"{tmp}/{run}/metrics.jsonl") as f:
+                lines = [json.loads(line) for line in f]
+            records_of[run] = {r["step"]: {k: v for k, v in r.items() if k != "s_per_it"} for r in lines if "loss" in r}
+        resumed_steps = list(range(half + 1, FIT_DET_STEPS + 1))
+        require(sorted(records_of["resumed"]) == resumed_steps, f"fit_resume_deterministic: steps {sorted(records_of['resumed'])}")
+        for i in resumed_steps:
+            require(records_of["resumed"][i] == records_of["run"][i],
+                    f"fit_resume_deterministic: step {i}: {records_of['resumed'][i]} vs {records_of['run'][i]}")
+        have = state.encoder.state_dict()
+        differ = [k for k in want if not torch.equal(want[k], have[k])]
+        differ += [k for k, (mu, nu) in moments.items()
+                   if not (torch.equal(mu, state.opt_state.mu[k]) and torch.equal(nu, state.opt_state.nu[k]))]
+        require(not differ, f"fit_resume_deterministic: {len(differ)} tensors differ after the resume, e.g. {differ[:5]}")
+    for rec in records:
+        rec["launches_fit_deterministic"] = launches.get(rec["name"], 0)
+    emit({"phase": "fit_resume_deterministic", "steps": FIT_DET_STEPS, "resumed_from": half,
+          "resumed_losses": [records_of["resumed"][i]["loss"] for i in resumed_steps],
+          "first_run_losses": [records_of["run"][i]["loss"] for i in resumed_steps], "resume_tolerance": 0.0,
+          "parameters_bit_identical": True, "launches": launches})
+
+
 def tiny_train_vs_cpu(dev) -> None:
     """One training step's loss and gradients (dropout off) at a tiny width:
     the kernels on the card against the plain versions on the CPU, from the
@@ -925,10 +1158,13 @@ def main() -> int:
 
     # ---- every kernel against its plain version ---------------------------
     # K5 at P = 1 on the encoder's own epipolar locations too (not in the kernels line).
-    check_deform(dev, 1, launches, epipolar_inputs(encoder, ctx, dev), "the encoder's epipolar locations")
+    check_deform(dev, 1, launches, encoder_score_inputs(encoder, ctx, dev, 1), "the encoder's epipolar locations")
+    # K6 at P = 4 on the encoder's own cross-attention locations, and at a shape of its general path (not in the line).
+    check_deform_bwd(dev, 4, encoder_score_inputs(encoder, ctx, dev, 4), "the encoder's cross-attention locations")
+    check_deform_bwd_general(dev)
     records = [check_deform(dev, 1, launches), check_deform(dev, 4, launches),
                check_deform_bwd(dev, 1), check_deform_bwd(dev, 4),
-               check_deform_vectors(dev, launches), check_deform_vectors_bwd(dev)]
+               check_deform_vectors(dev, launches), *check_deform_vectors_bwd(dev)]
     tv = NUM_TARGET
     rep = lambda x: x.expand(tv, *x.shape[1:]).contiguous()  # noqa: E731
     cams = [torch.as_tensor(tgt[k][0], device=dev) for k in ("extrinsics", "intrinsics", "near")]
@@ -993,10 +1229,12 @@ def main() -> int:
 
     # ---- the training path -------------------------------------------------
     train_slice(dev, records)
+    train_deterministic(dev, records)
     tiny_train_vs_cpu(dev)
 
     # ---- fit -> validate -> checkpoint -> resume -> evaluate ----------------
     fit_slice(dev, records)
+    fit_resume_deterministic(dev, records)
 
     print(smi, flush=True)
     emit({"kernels": records})

@@ -172,8 +172,10 @@ def test_deform_vectors_bwd(dev, n, q, p, h, w, c, deterministic):
     out = deform.deform_sample_vectors(leaves[0], (h, w), leaves[1], leaves[2], deterministic=deterministic)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, leaves, gbar)
-    assert kernels.launches.get("deform_vectors_bwd") == 1
-    assert (kernels.launches.get("deform_vectors_bwd_sorted", 0) == 1) == deterministic
+    # The atomic mode, or the sorted mode's three launches (keys, segments, sums).
+    assert kernels.launches.get("deform_vectors_bwd", 0) == (0 if deterministic else 1)
+    for name in ("deform_vectors_bwd_keys", "deform_vectors_bwd_segments", "deform_vectors_bwd_sorted"):
+        assert kernels.launches.get(name, 0) == (1 if deterministic else 0), name
     plain = deform.deform_sample_vectors_bwd_plain(value, (h, w), loc, aw, gbar)
     leaves = [t.clone().requires_grad_(True) for t in (value, loc, aw)]
     auto = torch.autograd.grad(deform.deform_sample_vectors_plain(leaves[0], (h, w), leaves[1], leaves[2]), leaves, gbar)
@@ -545,3 +547,94 @@ def test_tiny_encoder_card_matches_cpu(dev):
     # 1/255 alpha floor; see test_torch_encoder.py): 98% within 1e-4.
     diff = np.abs(out_gpu.cpu().numpy() - out_cpu.numpy())
     assert np.mean(diff > 1e-4) < 0.02 and diff.max() < 0.05, (np.mean(diff > 1e-4), diff.max())
+
+
+# Repeatable training steps (trainer.deterministic_kernels) and the K6 / K8
+# designs that serve them.
+
+
+@pytest.mark.parametrize(
+    "q,d,p,h,w,path",
+    [(4096, 128, 4, 64, 64, "staged"), (4096, 128, 1, 64, 64, "direct"), (37, 5, 3, 7, 11, "direct"),
+     (4, 4, 2, 256, 256, "general")],
+)
+def test_deform_scores_bwd_paths_repeat_their_bits(dev, q, d, p, h, w, path):
+    """K6 on each of its paths against its plain version; the staged and
+    direct paths give the same bits twice and under `deterministic`; the
+    general path (a row over the shared-memory budget) refuses
+    `deterministic` rather than add with atomics whose order varies."""
+    scores, loc, aw = _deform_case(q, d, p, h, w, q + d + 1, dev)
+    gbar = torch.from_numpy(np.random.default_rng(q + 1).standard_normal((q, d)).astype(np.float32)).to(dev)
+    assert deform.scores_bwd_plan(h, w, d, p) == path
+    got = deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar)
+    plain = deform.deform_sample_scores_bwd_plain(scores, (h, w), loc, aw, gbar)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("scores", "loc", "weights"), got, plain):
+        assert _scaled_err(a, b) <= GRAD_RTOL["deform"], (name, _scaled_err(a, b))
+    if path == "general":
+        with pytest.raises(ValueError, match="deterministic"):
+            deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar, deterministic=True)
+    else:
+        again = deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar, deterministic=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_deform_scores_bwd_non_finite_query_gives_nan_row(dev):
+    """A query whose d out is not finite gets a NaN gradient row; the others are unharmed."""
+    q, d, p, h, w = 6, 32, 4, 16, 16
+    scores, loc, aw = _deform_case(q, d, p, h, w, 5, dev)
+    gbar = torch.randn((q, d), device=dev)
+    gbar[2, 3] = float("inf")
+    got = deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar)
+    plain = deform.deform_sample_scores_bwd_plain(scores, (h, w), loc, aw, gbar)
+    assert bool(torch.isnan(got[0][2]).all())
+    keep = [0, 1, 3, 4, 5]
+    assert _scaled_err(got[0][keep], plain[0][keep]) <= GRAD_RTOL["deform"]
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 128, 4), (1, 20, 24, 12, 3), (2, 9, 17, 8, 1)])
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_deform_vectors_bwd_tiles_and_halo(dev, shape, deterministic):
+    """K8 with self-attention-like locations (the queries are the map's
+    pixels, so its atomic mode takes 8x8 tiles and their windows): corners
+    inside a tile's window, outside it and far outside the map; float4 and
+    scalar channels, ragged tiles. Against the plain version; far-outside
+    points give exactly 0; the sorted mode repeats its bits."""
+    n, h, w, c, p = shape
+    rng = np.random.default_rng(h * w + c)
+    q = h * w
+    ys, xs = np.divmod(np.arange(q), w)
+    centres = np.stack([(xs + 0.5) / w, (ys + 0.5) / h], -1)[None, :, None]
+    loc = centres + rng.standard_normal((n, q, p, 2)) * (1.5 / w)
+    loc[:, : q // 8] = rng.uniform(-0.1, 1.1, (n, q // 8, p, 2))
+    loc[:, q // 8 : q // 8 + 3] *= 1e6
+    value, aw, gbar = (rng.standard_normal((n, q, c)), rng.random((n, q, p)), rng.standard_normal((n, q, c)))
+    value, loc, aw, gbar = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (value, loc, aw, gbar))
+    got = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=deterministic)
+    plain = deform.deform_sample_vectors_bwd_plain(value, (h, w), loc, aw, gbar)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("value", "loc", "weights"), got, plain):
+        assert _scaled_err(a, b) <= GRAD_RTOL["deform"], (name, _scaled_err(a, b))
+    far = slice(q // 8, q // 8 + 3)
+    assert float(got[1][:, far].abs().max()) == 0.0 and float(got[2][:, far].abs().max()) == 0.0
+    if deterministic:
+        again = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_two_full_width_steps_with_the_switch_repeat_their_bits(dev):
+    """chip_smoke.py's train_deterministic: from one state, two full-width
+    re10k training steps with trainer.deterministic_kernels give the same
+    loss, gradients, parameters and Adam moments bit for bit, through the
+    sorted modes of K2 and K8."""
+    from chip_smoke import train_deterministic
+
+    train_deterministic(dev, [])
+
+
+def test_fit_resume_with_the_switch_is_exact(dev):
+    """chip_smoke.py's fit_resume_deterministic: a Trainer resumed from the
+    middle checkpoint repeats the first run's losses and parameters exactly."""
+    from chip_smoke import fit_resume_deterministic
+
+    fit_resume_deterministic(dev, [])

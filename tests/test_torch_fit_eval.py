@@ -187,8 +187,12 @@ def test_load_config_matches_jax_field_by_field(experiment):
     assert len(seen) > 80
     port_names = lambda c: {f.name for f in dataclasses.fields(c)}  # noqa: E731
     assert port_names(ref.encoder) - port_names(port.encoder) == {"compute_dtype", "remat_unet", "remat_matching"}
-    for section in ("dataset", "view_sampler", "loss", "optimizer", "trainer", "checkpointing", "test"):
+    for section in ("dataset", "view_sampler", "loss", "optimizer", "checkpointing", "test"):
         assert port_names(getattr(ref, section)) == port_names(getattr(port, section)), section
+    # The port's one field of its own: training steps that repeat their bits
+    # on the card (the JAX package's do by construction).
+    assert port_names(port.trainer) - port_names(ref.trainer) == {"deterministic_kernels"}
+    assert port_names(ref.trainer) <= port_names(port.trainer) and port.trainer.deterministic_kernels is False
     assert not hasattr(port.decoder.rasterize, "capacity")  # the port's tile lists drop nothing
 
 

@@ -5,7 +5,9 @@ overrides (yaml is imported only when a YAML path is given). Fields the JAX
 package has for the TPU and the port has no use for are left out
 (`RasterizeConfig.capacity`: the port's tile lists drop nothing;
 `EncoderCfg.compute_dtype`, `remat_*`), or accepted and ignored
-(`EncoderCfg.s2d_unet`, see model/encoder.py). `DatasetCfg` and `BoundedCfg`
+(`EncoderCfg.s2d_unet`, see model/encoder.py). One field is the port's own:
+`TrainerCfg.deterministic_kernels`, which the JAX package needs no switch
+for (a Pallas grid runs in order, so its steps repeat their bits). `DatasetCfg` and `BoundedCfg`
 carry the JAX fields and defaults; their readers (the chunk dataset and the
 view samplers) are not ported yet.
 """
@@ -71,6 +73,10 @@ class TrainerCfg:
     batch_size: int = 2  # per device
     num_workers: int = 4  # data-loading worker processes (the chunk dataset's port will read it)
     seed: int = 111123
+    # Port only: training steps on the card repeat their bits (K2 and K8 in
+    # their sorted modes, deterministic cuDNN; training/step.py). Not the
+    # dropout switch `deterministic` of make_train_step.
+    deterministic_kernels: bool = False
 
 
 @dataclass

@@ -17,19 +17,32 @@
 //
 // What bounds it on an H100: device-memory bytes. V, gbar, loc and aw are read
 // once, d_value (the size of V), d_loc and d_aw are written once; 4 * 4P * C
-// flops per query are negligible. What it costs in practice is the 4P * C
-// atomic adds per query into d_value: self-attention offsets are small, so
-// the corners of neighbouring queries fall on the same few rows and their
-// adds collide in L2.
+// flops per query are negligible. The first design (one warp per query, a
+// 16-byte atomic per corner and lane) made 4P * C atomic adds per query into
+// d_value: 4.2 M vector atomics, 67 MB, into a 4.2 MB d_value at the path's
+// shape, and read a V row from L2 for every corner.
 //
-// Design: one warp per query, four queries per block, the forward's layout
-// (deform_vectors.cu). Lane l computes point l / 4, corner l % 4 of a pass of
-// 8 points. For each corner inside the map the lanes walk the channels (a
-// float4 each where C % 4 == 0): they add aw * w_corner * gbar to the
-// corner's d_value row with atomics (one 16-byte vector atomic per lane on
-// sm_90) and take the partial dot product <gbar, V[idx]>, which a shuffle
-// tree sums over the warp in a fixed order. The four lanes of a point then
-// exchange their corner sums and lane `corner 0` writes d_aw and d_loc.
+// Design: a block of 32 warps takes 64 queries (fewer where P > 16).
+//   * Where the queries are the map's own pixels (Q = H W, the
+//     self-attention) and their corners fit (P <= 16), the 64 queries are an
+//     8x8 tile of the map, and the block stages in shared memory, with
+//     cp.async, the V rows of the tile plus a 4-cell halo (a 16x16 window)
+//     and the tile's gbar rows, 128 channels at a time (128 + 32 KB). The
+//     copies run while the block works out every corner: its map index,
+//     aw * w_corner, and its bucket (its window cell, or "outside").
+//   * The corners are then grouped by bucket (counts, a scan, a placement,
+//     all with integer atomics in shared memory), and a warp sums each
+//     window cell's corners over its lanes' channels and adds the sum to
+//     d_value with one 16-byte atomic per lane: a row of d_value takes an add
+//     from each of the (at most four) windows that cover it instead of one
+//     per corner. Corners outside the window (far offsets, points outside
+//     the map's edge region) add to d_value one by one, so any offset is
+//     right. Elsewhere (Q != H W, or P > 16) every corner takes that route.
+//   * The dot products <gbar, V[idx]> read the staged rows (V from device
+//     memory for a corner outside the window); a warp takes a point, its
+//     lanes 4 channels each, and reduces the four corners' products in one
+//     butterfly of five shuffles, not four trees of five. The sums collect
+//     in shared memory over the channel slices, then d_aw and d_loc.
 // Two modes:
 //   * atomic (default): d_value must arrive zeroed; the order of the adds,
 //     and so the last bits of d_value, change from run to run.
@@ -38,8 +51,9 @@
 //     aw * w_corner; the caller sorts the keys stably (torch.sort), gets each
 //     row's [start, end) in that order (the bin_ranges kernel), and
 //     `tp_deform_vectors_bwd_sorted` adds each row's segment in order, one
-//     thread per (row, channel), writing every value once. Same bits on
-//     every run. d_loc and d_aw are deterministic in both modes.
+//     warp per row with its lanes over the channels, writing every value
+//     once. Same bits on every run. d_loc and d_aw are deterministic in both
+//     modes.
 //
 // Not carried over from the TPU kernel: the dense one-hot (query block, H W)
 // matrix A, dA = gbar V^T as a full matmul with masked lane reductions, and
@@ -54,11 +68,20 @@
 namespace {
 
 using deform_vectors::Corner;
-using deform_vectors::kPointsPerPass;
 using deform_vectors::kWarp;
 using deform_vectors::make_corner;
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kTile = 8;                    // tile mode: 8x8 queries a block
+constexpr int kHalo = 4;                    // window cells on each side of the tile
+constexpr int kWin = kTile + 2 * kHalo;     // 16x16 window
+constexpr int kWinCells = kWin * kWin;
+constexpr int kOutside = kWinCells;         // bucket of the in-map corners outside the window
+constexpr int kBuckets = kWinCells + 1;
+constexpr int kSlice = 4 * kWarp;           // channels a block holds at once: 4 a lane
+constexpr int kPerLane = kSlice / kWarp;
+constexpr int kWarpsPerBlock = 32;
+constexpr int kThreads = kWarpsPerBlock * kWarp;
+constexpr int kMaxEntries = 4096;           // corner entries (queries x 4P) a block keeps
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void atomic_add4(float* dst, float4 v) {
@@ -72,134 +95,366 @@ __device__ __forceinline__ void atomic_add4(float* dst, float4 v) {
 #endif
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
+// Channels ch..ch + 3 of a row (0 past c). kVec: one 16-byte load.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* row, int ch, int c) {
+  if (kVec) return ch < c ? __ldg(reinterpret_cast<const float4*>(row + ch)) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float v[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) v[t] = ch + t < c ? __ldg(row + ch + t) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// kVec: channels are walked as float4. d_value == nullptr selects the sorted
-// mode's first pass (keys and corner weights out, no adds).
+// row[ch..ch + 3] += v (channels past c left alone), with device-memory atomics.
 template <bool kVec>
-__global__ void deform_vectors_bwd_kernel(const float* __restrict__ value,
-                                          const float* __restrict__ loc,
-                                          const float* __restrict__ aw,
-                                          const float* __restrict__ gbar, float* d_value,
-                                          float* __restrict__ d_loc, float* __restrict__ d_aw,
-                                          int* __restrict__ keys, float* __restrict__ corner_w,
-                                          long long n_queries, long long n_batch, int q, int h,
-                                          int w, int c, int p) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const long long nq = blockIdx.x * (long long)kWarpsPerBlock + (threadIdx.x >> 5);
-  if (nq >= n_queries) return;  // whole warps leave together
-  const long long n = nq / q;
-  const long long hw = (long long)h * w;
-  const float* v_map = value + n * hw * c;
-  float* dv_map = d_value ? d_value + n * hw * c : nullptr;
-  const float* q_g = gbar + nq * (long long)c;
-  const int step = kVec ? 4 * kWarp : kWarp;
-  for (int p0 = 0; p0 < p; p0 += kPointsPerPass) {
-    const int pi = p0 + (lane >> 2);
-    const long long point = nq * (long long)p + pi;
-    Corner k = {0.0f, 0.0f, 0.0f, -1};
-    float a = 0.0f;
-    if (pi < p) {
-      k = make_corner(loc[2 * point], loc[2 * point + 1], lane & 3, h, w);
-      a = aw[point];
-      if (keys) {
-        keys[4 * point + (lane & 3)] = (int)(k.index < 0 ? n_batch * hw : n * hw + k.index);
-        corner_w[4 * point + (lane & 3)] = k.weight * a;
-      }
-    }
-    const float cw = k.weight * a;
-    float s = 0.0f;  // this lane's corner: <gbar, V[idx]>, 0 outside the map
-    const int corners = 4 * min(kPointsPerPass, p - p0);
-    for (int j = 0; j < corners; ++j) {
-      const int ij = __shfl_sync(kFull, k.index, j);
-      if (ij < 0) continue;  // uniform over the warp
-      const float wj = __shfl_sync(kFull, cw, j);
-      float dot = 0.0f;
-      for (int c0 = 0; c0 < c; c0 += step) {
-        const int ch = c0 + (kVec ? 4 * lane : lane);
-        if (ch >= c) continue;
-        const long long at = (long long)ij * c + ch;
-        if (kVec) {
-          const float4 g = __ldg(reinterpret_cast<const float4*>(q_g + ch));
-          const float4 v = __ldg(reinterpret_cast<const float4*>(v_map + at));
-          dot += g.x * v.x + g.y * v.y + g.z * v.z + g.w * v.w;
-          if (dv_map) atomic_add4(dv_map + at, make_float4(wj * g.x, wj * g.y, wj * g.z, wj * g.w));
-        } else {
-          const float g = __ldg(q_g + ch);
-          dot += g * __ldg(v_map + at);
-          if (dv_map) atomicAdd(dv_map + at, wj * g);
-        }
-      }
-      dot = warp_sum(dot);
-      if (lane == j) s = dot;
-    }
-    // The four lanes of a point hold s00, s01, s10, s11.
-    const int first = lane & ~3;
-    const float s00 = __shfl_sync(kFull, s, first);
-    const float s01 = __shfl_sync(kFull, s, first + 1);
-    const float s10 = __shfl_sync(kFull, s, first + 2);
-    const float s11 = __shfl_sync(kFull, s, first + 3);
-    if (pi < p && (lane & 3) == 0) {
-      const float wx = k.wx, wy = k.wy;
-      const float w00 = (1.0f - wx) * (1.0f - wy), w01 = wx * (1.0f - wy);
-      const float w10 = (1.0f - wx) * wy, w11 = wx * wy;
-      d_aw[point] = s00 * w00 + s01 * w01 + s10 * w10 + s11 * w11;
-      d_loc[2 * point] = a * (float)w * ((1.0f - wy) * (s01 - s00) + wy * (s11 - s10));
-      d_loc[2 * point + 1] = a * (float)h * ((1.0f - wx) * (s10 - s00) + wx * (s11 - s01));
-    }
+__device__ __forceinline__ void add4(float* row, int ch, int c, float4 v) {
+  if (kVec) {
+    if (ch < c) atomic_add4(row + ch, v);
+    return;
+  }
+  const float vals[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    if (ch + t < c) atomicAdd(row + ch + t, vals[t]);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+// dst = channels ch..ch + 3 of a row, or 0 where `valid` is false: a 16-byte
+// copy that does not wait (kVec), else loads and a store.
+template <bool kVec>
+__device__ __forceinline__ void stage4(float4* dst, const float* row, int ch, int c, bool valid) {
+  if (kVec && valid && ch < c) {
+    cp_async16(dst, row + ch);
+  } else {
+    *dst = valid ? load4<kVec>(row, ch, c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 
-// One thread per (row of d_value, channel): the row's corners in sorted
-// order, each worth corner_w * gbar[its query, channel].
+__device__ __forceinline__ float dot4(float4 a, float4 b) { return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w; }
+
+__device__ __forceinline__ void fma4(float4& acc, float s, float4 g) {
+  acc.x += s * g.x;
+  acc.y += s * g.y;
+  acc.z += s * g.z;
+  acc.w += s * g.w;
+}
+
+// Sum x0..x3 over the warp at once; lane l returns the sum of x[(l >> 3) & 3]
+// (lanes 0, 8, 16, 24 hold corners 0, 1, 2, 3). The order is fixed.
+__device__ __forceinline__ float warp_sum4(float x0, float x1, float x2, float x3, int lane) {
+  const bool hi16 = lane & 16;
+  float a0 = hi16 ? x2 : x0, a1 = hi16 ? x3 : x1;
+  const float b0 = hi16 ? x0 : x2, b1 = hi16 ? x1 : x3;
+  a0 += __shfl_xor_sync(kFull, b0, 16);
+  a1 += __shfl_xor_sync(kFull, b1, 16);
+  const bool hi8 = lane & 8;
+  float s = hi8 ? a1 : a0;
+  s += __shfl_xor_sync(kFull, hi8 ? a0 : a1, 8);
+  s += __shfl_xor_sync(kFull, s, 4);
+  s += __shfl_xor_sync(kFull, s, 2);
+  s += __shfl_xor_sync(kFull, s, 1);
+  return s;
+}
+
+// The queries of one block: an 8x8 tile of the map (tile mode, Q = H W) or
+// `group` consecutive queries (list mode, no window).
+struct Block {
+  long long n;
+  int x0, y0, first, group;
+  bool tiles;
+  __device__ long long query(int i, int q, int h, int w) const {
+    if (tiles) {
+      const int x = x0 + (i & (kTile - 1)), y = y0 + i / kTile;
+      return (x < w && y < h) ? n * q + (long long)y * w + x : -1;
+    }
+    const int qi = first + i;
+    return qi < q ? n * q + qi : -1;
+  }
+  // The window cell of map index idx, or -1.
+  __device__ int window_cell(int idx, int w) const {
+    if (!tiles) return -1;
+    const int wx = idx % w - (x0 - kHalo), wy = idx / w - (y0 - kHalo);
+    return (wx >= 0 && wx < kWin && wy >= 0 && wy < kWin) ? wy * kWin + wx : -1;
+  }
+};
+
+// kAtomic: add into d_value; otherwise write the sorted mode's keys and
+// corner weights. kVec: channels as float4 (C % 4 == 0, value, gbar and
+// d_value 16-byte aligned).
+template <bool kAtomic, bool kVec>
+__global__ void __launch_bounds__(kThreads) deform_vectors_bwd_kernel(
+    const float* __restrict__ value, const float2* __restrict__ loc, const float* __restrict__ aw,
+    const float* __restrict__ gbar, float* d_value, float2* __restrict__ d_loc, float* __restrict__ d_aw,
+    int* __restrict__ keys, float* __restrict__ corner_w, long long n_batch, int q, int h, int w, int c, int p,
+    int tiles, int group) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x >> 5;
+  const long long hw = (long long)h * w;
+  Block blk;
+  blk.tiles = tiles != 0;
+  if (blk.tiles) {
+    const int tx = (w + kTile - 1) / kTile, ty = (h + kTile - 1) / kTile;
+    blk.n = blockIdx.x / (tx * ty);
+    const int t = blockIdx.x % (tx * ty);
+    blk.x0 = (t % tx) * kTile;
+    blk.y0 = (t / tx) * kTile;
+    blk.first = 0;
+    blk.group = kTile * kTile;
+  } else {
+    const int groups = (q + group - 1) / group;
+    blk.n = blockIdx.x / groups;
+    blk.first = (blockIdx.x % groups) * group;
+    blk.group = group;
+    blk.x0 = blk.y0 = 0;
+  }
+  const int corners = 4 * p;
+  const int entries = blk.group * corners;  // entry e: query e / 4P, point (e % 4P) / 4, corner e % 4
+  float4* gwin = reinterpret_cast<float4*>(smem);  // the block's gbar rows, group x kSlice
+  float4* vwin = gwin + blk.group * kWarp;          // tile mode: the window's V, kWinCells x kSlice
+  int* e_idx = reinterpret_cast<int*>(smem + blk.group * kSlice + (blk.tiles ? kWinCells * kSlice : 0));
+  float* e_cw = reinterpret_cast<float*>(e_idx + entries);
+  int* e_bucket = reinterpret_cast<int*>(e_cw + entries);
+  float* s_dot = reinterpret_cast<float*>(e_bucket + entries);
+  int* list = reinterpret_cast<int*>(s_dot + entries);
+  int* start = list + entries;  // kBuckets + 1
+  int* cursor = start + kBuckets + 1;
+  const float* v_map = value + blk.n * hw * c;
+  float* dv_map = kAtomic ? d_value + blk.n * hw * c : nullptr;
+  const int wx0 = blk.x0 - kHalo, wy0 = blk.y0 - kHalo;
+  // The block's gbar rows and (tile mode) the window's V, one channel slice:
+  // copies that run while the corners are worked out.
+  auto stage_slice = [&](int c0) {
+    for (int i = threadIdx.x; i < blk.group * kWarp; i += kThreads) {
+      const long long gq = blk.query(i / kWarp, q, h, w);
+      stage4<kVec>(gwin + i, gbar + (gq < 0 ? 0 : gq) * c, c0 + 4 * (i % kWarp), c, gq >= 0);
+    }
+    if (blk.tiles) {
+      for (int i = threadIdx.x; i < kWinCells * kWarp; i += kThreads) {
+        const int cell = i / kWarp;
+        const int x = wx0 + cell % kWin, y = wy0 + cell / kWin;
+        const bool inside = x >= 0 && x < w && y >= 0 && y < h;
+        stage4<kVec>(vwin + i, v_map + (inside ? (long long)y * w + x : 0) * c, c0 + 4 * (i % kWarp), c, inside);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  stage_slice(0);
+
+  // Every corner entry: map index, aw * bilinear weight, bucket (window cell,
+  // kOutside, or -1 outside the map); counts per bucket.
+  for (int b = threadIdx.x; b <= kBuckets; b += kThreads) start[b] = 0;
+  __syncthreads();
+  for (int e = threadIdx.x; e < entries; e += kThreads) {
+    const int i = e / corners, pi = (e - i * corners) >> 2, cr = e & 3;
+    const long long gq = blk.query(i, q, h, w);
+    int idx = -1, bucket = -1;
+    float cw = 0.0f;
+    if (gq >= 0) {
+      const long long point = gq * p + pi;
+      const float2 l = __ldg(loc + point);
+      const Corner k = make_corner(l.x, l.y, cr, h, w);
+      idx = k.index;
+      cw = k.weight * __ldg(aw + point);
+      if (!kAtomic) {
+        keys[4 * point + cr] = (int)(idx < 0 ? n_batch * hw : blk.n * hw + idx);
+        corner_w[4 * point + cr] = cw;
+      }
+      if (idx >= 0) {
+        const int cell = blk.window_cell(idx, w);
+        bucket = cell >= 0 ? cell : kOutside;
+        if (kAtomic) atomicAdd(start + bucket, 1);
+      }
+    }
+    e_idx[e] = idx;
+    e_cw[e] = cw;
+    e_bucket[e] = bucket;
+    s_dot[e] = 0.0f;
+  }
+  __syncthreads();
+  if (kAtomic) {
+    // Counts -> each bucket's start (exclusive scan by warp 0), then the entries by bucket.
+    if (warp == 0) {
+      constexpr int kPer = (kBuckets + kWarp - 1) / kWarp;
+      int sum = 0;
+#pragma unroll
+      for (int t = 0; t < kPer; ++t) {
+        const int b = lane * kPer + t;
+        sum += b < kBuckets ? start[b] : 0;
+      }
+      int incl = sum;
+      for (int off = 1; off < kWarp; off <<= 1) {
+        const int up = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += up;
+      }
+      int run = incl - sum;
+#pragma unroll
+      for (int t = 0; t < kPer; ++t) {
+        const int b = lane * kPer + t;
+        if (b < kBuckets) {
+          const int v = start[b];
+          start[b] = cursor[b] = run;
+          run += v;
+        }
+      }
+      if (lane == kWarp - 1) start[kBuckets] = incl;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < entries; e += kThreads)
+      if (e_bucket[e] >= 0) list[atomicAdd(cursor + e_bucket[e], 1)] = e;
+  }
+
+  for (int c0 = 0; c0 < c; c0 += kSlice) {
+    const int ch = c0 + 4 * lane;
+    if (c0 > 0) stage_slice(c0);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    // <gbar, V[idx]> of every corner: a warp per point, lanes over the channels.
+    for (int pt = warp; pt < blk.group * p; pt += kWarpsPerBlock) {
+      const long long gq = blk.query(pt / p, q, h, w);
+      if (gq < 0) continue;  // uniform over the warp
+      const float4 g = gwin[(pt / p) * kWarp + lane];
+      float dot[4];
+#pragma unroll
+      for (int cr = 0; cr < 4; ++cr) {
+        const int idx = e_idx[4 * pt + cr], b = e_bucket[4 * pt + cr];
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (idx >= 0) v = b < kWinCells ? vwin[b * kWarp + lane] : load4<kVec>(v_map + (long long)idx * c, ch, c);
+        dot[cr] = dot4(g, v);
+      }
+      const float sum = warp_sum4(dot[0], dot[1], dot[2], dot[3], lane);
+      if ((lane & 7) == 0) s_dot[4 * pt + (lane >> 3)] += sum;
+    }
+    if (kAtomic) {
+      // Each window cell's corners summed here, one add per cell to d_value.
+      for (int b = warp; b < kWinCells; b += kWarpsPerBlock) {
+        const int s0 = start[b], s1 = start[b + 1];
+        if (s0 == s1) continue;
+        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int j = s0; j < s1; ++j) {
+          const int e = list[j];
+          fma4(acc, e_cw[e], gwin[(e / corners) * kWarp + lane]);
+        }
+        const int x = wx0 + b % kWin, y = wy0 + b / kWin;
+        add4<kVec>(dv_map + ((long long)y * w + x) * c, ch, c, acc);
+      }
+      // Corners outside the window: one add each.
+      for (int j = start[kOutside] + warp; j < start[kBuckets]; j += kWarpsPerBlock) {
+        const int e = list[j];
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        fma4(v, e_cw[e], gwin[(e / corners) * kWarp + lane]);
+        add4<kVec>(dv_map + (long long)e_idx[e] * c, ch, c, v);
+      }
+    }
+    __syncthreads();
+  }
+
+  // d_aw and d_loc of every (query, point) of the block.
+  for (int pt = threadIdx.x; pt < blk.group * p; pt += kThreads) {
+    const long long gq = blk.query(pt / p, q, h, w);
+    if (gq < 0) continue;
+    const long long point = gq * p + pt % p;
+    const float2 l = __ldg(loc + point);
+    const float a = __ldg(aw + point);
+    const Corner k = make_corner(l.x, l.y, 0, h, w);
+    const float* s = s_dot + 4 * pt;
+    const float s00 = s[0], s01 = s[1], s10 = s[2], s11 = s[3];
+    const float wx = k.wx, wy = k.wy;
+    const float w00 = (1.0f - wx) * (1.0f - wy), w01 = wx * (1.0f - wy);
+    const float w10 = (1.0f - wx) * wy, w11 = wx * wy;
+    d_aw[point] = s00 * w00 + s01 * w01 + s10 * w10 + s11 * w11;
+    d_loc[point] = make_float2(a * (float)w * ((1.0f - wy) * (s01 - s00) + wy * (s11 - s10)),
+                               a * (float)h * ((1.0f - wx) * (s10 - s00) + wx * (s11 - s01)));
+  }
+}
+
+// One warp per row of d_value: the row's corners in sorted order, each worth
+// corner_w * gbar[its query, :], lanes over the channels (32 apart).
 __global__ void deform_vectors_bwd_sorted_kernel(const float* __restrict__ gbar,
                                                  const float* __restrict__ corner_w,
                                                  const long long* __restrict__ perm,
                                                  const int2* __restrict__ segments,
-                                                 float* __restrict__ d_value, long long n_out,
-                                                 int c, int corners_per_query) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n_out) return;
-  const long long row = i / c;
-  const int ch = (int)(i - row * c);
+                                                 float* __restrict__ d_value, long long n_rows, int c,
+                                                 int corners_per_query) {
+  const long long row = (blockIdx.x * (long long)blockDim.x + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x & (kWarp - 1);
+  if (row >= n_rows) return;  // whole warps leave together
   const int2 seg = segments[row];
-  float sum = 0.0f;
-  for (int j = seg.x; j < seg.y; ++j) {
-    const long long e = perm[j];
-    sum += corner_w[e] * gbar[(e / corners_per_query) * c + ch];
+  float* out = d_value + row * c;
+  for (int c0 = 0; c0 < c; c0 += kSlice) {
+    float acc[kPerLane] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int j = seg.x; j < seg.y; ++j) {
+      const long long e = __ldg(perm + j);
+      const float cw = __ldg(corner_w + e);
+      const float* g = gbar + (e / corners_per_query) * c;
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const int ch = c0 + lane + k * kWarp;
+        if (ch < c) acc[k] += cw * __ldg(g + ch);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int ch = c0 + lane + k * kWarp;
+      if (ch < c) out[ch] = acc[k];
+    }
   }
-  d_value[i] = sum;
+}
+
+template <bool kAtomic, bool kVec>
+int launch(size_t smem, unsigned blocks, cudaStream_t s, const float* value, const float* loc, const float* aw,
+           const float* gbar, float* d_value, float* d_loc, float* d_aw, int* keys, float* corner_w,
+           long long n_batch, int q, int h, int w, int c, int p, int tiles, int group) {
+  auto kernel = deform_vectors_bwd_kernel<kAtomic, kVec>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, kThreads, smem, s>>>(value, reinterpret_cast<const float2*>(loc), aw, gbar, d_value,
+                                        reinterpret_cast<float2*>(d_loc), d_aw, keys, corner_w, n_batch, q, h, w,
+                                        c, p, tiles, group);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// value (n_batch, h * w, c), loc (n_batch, q, p, 2), aw (n_batch, q, p),
-// gbar (n_batch, q, c), float32 and contiguous. Every value of d_loc and d_aw
-// is written. Atomic mode: d_value (zeroed by the caller) takes the adds and
-// keys, corner_w are null. Sorted mode: d_value is null, and keys (int32) and
-// corner_w (n_batch * q * p * 4 each) are written.
+// value (n_batch, h * w, c), loc (n_batch, q, p, 2) 8-byte aligned, aw
+// (n_batch, q, p), gbar (n_batch, q, c), float32 and contiguous; 4 p <= 4096.
+// Every value of d_loc and d_aw is written. Atomic mode: d_value (zeroed by
+// the caller) takes the adds and keys, corner_w are null. Sorted mode:
+// d_value is null, and keys (int32) and corner_w (n_batch * q * p * 4 each)
+// are written.
 extern "C" int tp_deform_vectors_bwd(const float* value, const float* loc, const float* aw,
                                      const float* gbar, float* d_value, float* d_loc, float* d_aw,
                                      int* keys, float* corner_w, long long n_batch, int q, int h,
                                      int w, int c, int p, void* stream) {
-  const long long n_queries = n_batch * q;
-  if (n_queries == 0 || p == 0) return 0;
-  const unsigned blocks = (unsigned)((n_queries + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const int threads = kWarpsPerBlock * kWarp;
+  if (n_batch * q == 0 || p == 0) return 0;
+  if (4 * p > kMaxEntries) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  // Tile mode where the queries are the map's pixels and a tile's entries fit.
+  const int tile_queries = kTile * kTile;
+  const bool tiles = (long long)q == (long long)h * w && tile_queries * 4 * p <= kMaxEntries;
+  const int group = tile_queries * 4 * p <= kMaxEntries ? tile_queries : kMaxEntries / (4 * p);
+  const long long per_batch = tiles ? (long long)((w + kTile - 1) / kTile) * ((h + kTile - 1) / kTile)
+                                    : (q + group - 1) / group;
+  const unsigned blocks = (unsigned)(n_batch * per_batch);
+  const size_t smem = ((size_t)group + (tiles ? kWinCells : 0)) * kSlice * sizeof(float) +
+                      (size_t)5 * group * 4 * p * sizeof(int) + (size_t)(2 * kBuckets + 1) * sizeof(int);
+  const bool atomic = d_value != nullptr;
   const bool vec = (c % 4 == 0) && ((uintptr_t)value % 16 == 0) && ((uintptr_t)gbar % 16 == 0) &&
                    ((uintptr_t)d_value % 16 == 0);
-  if (vec) {
-    deform_vectors_bwd_kernel<true><<<blocks, threads, 0, s>>>(
-        value, loc, aw, gbar, d_value, d_loc, d_aw, keys, corner_w, n_queries, n_batch, q, h, w, c, p);
-  } else {
-    deform_vectors_bwd_kernel<false><<<blocks, threads, 0, s>>>(
-        value, loc, aw, gbar, d_value, d_loc, d_aw, keys, corner_w, n_queries, n_batch, q, h, w, c, p);
-  }
-  return (int)cudaGetLastError();
+  if (atomic && vec)
+    return launch<true, true>(smem, blocks, s, value, loc, aw, gbar, d_value, d_loc, d_aw, keys, corner_w, n_batch,
+                              q, h, w, c, p, tiles, group);
+  if (atomic)
+    return launch<true, false>(smem, blocks, s, value, loc, aw, gbar, d_value, d_loc, d_aw, keys, corner_w, n_batch,
+                               q, h, w, c, p, tiles, group);
+  if (vec)
+    return launch<false, true>(smem, blocks, s, value, loc, aw, gbar, d_value, d_loc, d_aw, keys, corner_w, n_batch,
+                               q, h, w, c, p, tiles, group);
+  return launch<false, false>(smem, blocks, s, value, loc, aw, gbar, d_value, d_loc, d_aw, keys, corner_w, n_batch,
+                              q, h, w, c, p, tiles, group);
 }
 
 // perm (entries,) int64 sorts the corner keys; segments (n_rows, 2) holds each
@@ -209,12 +464,11 @@ extern "C" int tp_deform_vectors_bwd_sorted(const float* gbar, const float* corn
                                             const long long* perm, const int* segments,
                                             float* d_value, long long n_rows, int c,
                                             int corners_per_query, void* stream) {
-  const long long n_out = n_rows * c;
-  if (n_out == 0) return 0;
+  if (n_rows * c == 0) return 0;
   const int threads = 256;
-  const unsigned blocks = (unsigned)((n_out + threads - 1) / threads);
+  const long long warps_per_block = threads / kWarp;
+  const unsigned blocks = (unsigned)((n_rows + warps_per_block - 1) / warps_per_block);
   deform_vectors_bwd_sorted_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      gbar, corner_w, perm, reinterpret_cast<const int2*>(segments), d_value, n_out, c,
-      corners_per_query);
+      gbar, corner_w, perm, reinterpret_cast<const int2*>(segments), d_value, n_rows, c, corners_per_query);
   return (int)cudaGetLastError();
 }

@@ -57,8 +57,8 @@ _SIGNATURES = {
     # gfeat, colors, idx, ranges, order (or null), bg, out, t_final (or null), views, g, c, h, w, ntx, nty,
     # block_times (or null), stream
     "tp_composite": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
-    # scores, loc, aw, gbar, d_scores, d_loc, d_aw, n_queries, h, w, d, p, stream
-    "tp_deform_scores_bwd": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    # scores, loc, aw, gbar, d_scores, d_loc, d_aw, n_queries, h, w, d, p, path, stream
+    "tp_deform_scores_bwd": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
     # gfeat, colors, idx, ranges, order (or null), bg, out, t_final, gout, d_pair, views, g, c, h, w, ntx, nty,
     # block_times (or null), stream
     "tp_composite_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),

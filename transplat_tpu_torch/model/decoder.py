@@ -38,7 +38,10 @@ def decode_splatting(
     image_shape: tuple[int, int],
     cfg: DecoderCfg = DecoderCfg(),
     depth_mode: str | None = None,
+    deterministic_kernels: bool = False,
 ) -> DecoderOutput:
+    """Render the Gaussians into every target camera; `deterministic_kernels`
+    makes the colour's backward repeat its bits (K2's sorted mode)."""
     b, tv = extrinsics.shape[:2]
     g = gaussians.means.shape[1]
 
@@ -52,7 +55,7 @@ def decode_splatting(
     out = render(
         flatten_cam(extrinsics), flatten_cam(intrinsics), flatten_cam(near), flatten_cam(far), image_shape, bg,
         repeat_g(gaussians.means), repeat_g(gaussians.covariances), repeat_g(gaussians.harmonics),
-        repeat_g(gaussians.opacities), cfg=cfg.rasterize,
+        repeat_g(gaussians.opacities), cfg=cfg.rasterize, deterministic=deterministic_kernels,
     )
     depth = None
     if depth_mode is not None:

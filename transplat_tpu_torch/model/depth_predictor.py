@@ -115,9 +115,11 @@ class DepthPredictor(nn.Module):
             "disp_candidates": disp_candidates,
         }
 
-    def matching(self, prep, hw: tuple[int, int], generator=None):
+    def matching(self, prep, hw: tuple[int, int], generator=None, deterministic_kernels: bool = False):
         """Directed-pair UV matching -> per-view correlation (b, v, Q, C) (encoder_4b)."""
-        corr = self.uv_matcher(prep["key"], prep["value"], prep["pos"], prep["grid"], prep["ref2d"], hw, generator)
+        corr = self.uv_matcher(
+            prep["key"], prep["value"], prep["pos"], prep["grid"], prep["ref2d"], hw, generator, deterministic_kernels
+        )
         v = self.num_views
         b = corr.shape[0] // (v * (v - 1))
         return corr.reshape(b, v, v - 1, hw[0] * hw[1], corr.shape[-1]).mean(dim=2)
@@ -187,15 +189,17 @@ class DepthPredictor(nn.Module):
     def forward(
         self, features, cnn_features, images, intrinsics, extrinsics, near, far, da_depth, dino_feature,
         generator=None,
+        deterministic_kernels: bool = False,
     ):
         """features/cnn_features (b, v, hf, wf, C); images (b, v, H, W, 3);
         da_depth (b, v, H, W, 1); dino_feature (b, v, hd, wd, cd); generator:
-        the dropout masks' source in training mode.
+        the dropout masks' source in training mode; deterministic_kernels:
+        the samplers' backward kernels repeat their bits.
         Returns depths, densities (b, v, H*W, 1, gpp), raw_gaussians (b, v, H*W, raw), aux."""
         b, v, hf, wf, _ = features.shape
         big_h, big_w = images.shape[2:4]
         prep = self.prep(features, intrinsics, extrinsics, near, far, dino_feature)
-        corr = self.matching(prep, (hf, wf), generator)
+        corr = self.matching(prep, (hf, wf), generator, deterministic_kernels)
         raw_corr = self.cost_unet(corr, features)
         coarse = self.coarse_depth(raw_corr, prep["disp_candidates"], (big_h, big_w))
         refine_out, proj_feat_fullres = self.refine(features, cnn_features, images, da_depth, coarse)

@@ -101,6 +101,7 @@ class EncoderTranSplat(nn.Module):
         far: torch.Tensor,  # (b, v)
         global_step: int = 0,  # position in the opacity warm-up
         generator: torch.Generator | None = None,  # dropout masks (training mode)
+        deterministic_kernels: bool = False,  # the samplers' backward kernels repeat their bits
     ) -> Gaussians:
         cfg = self.cfg
         b, v, h, w, _ = images.shape
@@ -126,7 +127,7 @@ class EncoderTranSplat(nn.Module):
         # 3. Depth predictor.
         depths, densities, raw_gaussians, _ = self.depth_predictor(
             trans_features, cnn_features, images, intrinsics, extrinsics, near, far, da_depth, dino_feature,
-            generator=generator,
+            generator=generator, deterministic_kernels=deterministic_kernels,
         )
 
         # 4. Gaussian adapter: rays + depths -> world Gaussians.

@@ -11,7 +11,9 @@ depth-candidate slots.
 Every tensor carries a leading pair dim (N, ...): the JAX package vmaps
 UVMatcher over directed view pairs; here the pair dim is written out.
 Dropout (rate 0.1) sits where the Flax modules have it: on the outputs of
-the self- and cross-attention and twice in the FFN.
+the self- and cross-attention and twice in the FFN. `deterministic_kernels`
+makes the samplers' backward kernels repeat their bits from run to run (K8's
+sorted mode; K6 refuses a shape it cannot sum in a fixed order).
 """
 
 from __future__ import annotations
@@ -23,13 +25,13 @@ from ..ops.deform import deform_sample_scores, deform_sample_vectors
 from .layers import FFN, Dropout, layer_norm
 
 
-def coarse_correlation(key_feat, value_feat, grid, hw: tuple[int, int]) -> torch.Tensor:
+def coarse_correlation(key_feat, value_feat, grid, hw: tuple[int, int], deterministic_kernels: bool = False):
     """key_feat (N, Q, C), value_feat (N, HW, C), grid (N, Q, D, 2) -> (N, Q, D):
     sum_c V[loc]_c K_c / sqrt(C) (plane-sweep correlation)."""
     c = key_feat.shape[-1]
     scores = torch.matmul(key_feat, value_feat.transpose(-1, -2)) / (c**0.5)
     weights = torch.ones(grid.shape[:-1] + (1,), dtype=key_feat.dtype, device=key_feat.device)
-    return deform_sample_scores(scores, hw, grid[..., None, :], weights)
+    return deform_sample_scores(scores, hw, grid[..., None, :], weights, deterministic=deterministic_kernels)
 
 
 class UVSelfAttention(nn.Module):
@@ -44,7 +46,7 @@ class UVSelfAttention(nn.Module):
         self.value_proj = nn.Linear(embed_dims, embed_dims)
         self.output_proj = nn.Linear(embed_dims, embed_dims)
 
-    def forward(self, query, query_pos, ref_2d, hw, generator=None):
+    def forward(self, query, query_pos, ref_2d, hw, generator=None, deterministic_kernels=False):
         """query (N, Q, C); query_pos (N, Q, C) or None; ref_2d (N, Q, 2) in [0, 1]."""
         q_in = query if query_pos is None else query + query_pos
         p = self.num_points
@@ -54,7 +56,7 @@ class UVSelfAttention(nn.Module):
         h, w = hw
         norm = torch.tensor([w, h], dtype=q_in.dtype, device=q_in.device)
         loc = ref_2d[..., None, :] + offsets / norm
-        out = deform_sample_vectors(value, hw, loc, weights)  # K7; its backward is K8
+        out = deform_sample_vectors(value, hw, loc, weights, deterministic=deterministic_kernels)  # K7; backward K8
         return self.dropout(self.output_proj(out), generator) + query
 
 
@@ -70,7 +72,7 @@ class UVCrossAttention(nn.Module):
         self.value_proj = nn.Linear(embed_dims, embed_dims)
         self.output_proj = nn.Linear(num_depth, embed_dims)
 
-    def forward(self, query, key_feat, value_feat, grid, hw, generator=None):
+    def forward(self, query, key_feat, value_feat, grid, hw, generator=None, deterministic_kernels=False):
         """query/key_feat (N, Q, C); value_feat (N, HW, C); grid (N, Q, D, 2)."""
         d, p, c = self.num_depth, self.num_points, self.embed_dims
         offsets = self.sampling_offsets(query).reshape(*query.shape[:-1], d, p, 2)
@@ -80,7 +82,7 @@ class UVCrossAttention(nn.Module):
         h, w = hw
         norm = torch.tensor([w, h], dtype=query.dtype, device=query.device)
         loc = grid[..., None, :] + offsets / norm
-        corr = deform_sample_scores(scores, hw, loc, weights)  # (N, Q, D)
+        corr = deform_sample_scores(scores, hw, loc, weights, deterministic=deterministic_kernels)  # (N, Q, D)
         return self.dropout(self.output_proj(corr), generator) + query
 
 
@@ -96,9 +98,9 @@ class UVFineLayer(nn.Module):
         self.ffn = FFN(embed_dims, 256)
         self.norm2 = layer_norm(embed_dims)
 
-    def forward(self, query, bev_pos, key_feat, value_feat, grid, ref_2d, hw, generator=None):
-        query = self.norm0(self.self_attn(query, bev_pos, ref_2d, hw, generator))
-        query = self.norm1(self.cross_attn(query, key_feat, value_feat, grid, hw, generator))
+    def forward(self, query, bev_pos, key_feat, value_feat, grid, ref_2d, hw, generator=None, deterministic_kernels=False):
+        query = self.norm0(self.self_attn(query, bev_pos, ref_2d, hw, generator, deterministic_kernels))
+        query = self.norm1(self.cross_attn(query, key_feat, value_feat, grid, hw, generator, deterministic_kernels))
         return self.norm2(self.ffn(query, generator))
 
 
@@ -113,11 +115,14 @@ class UVMatcher(nn.Module):
         for i in range(num_fine_layers):
             self.add_module(f"fine_{i}", UVFineLayer(embed_dims, num_depth))
 
-    def forward(self, key_feat, value_feat, bev_pos, grid, ref_2d, hw, generator=None):
+    def forward(self, key_feat, value_feat, bev_pos, grid, ref_2d, hw, generator=None, deterministic_kernels=False):
         """key_feat (N, Q, C); value_feat (N, HW, C); bev_pos (N, Q, C);
         grid (N, Q, D, 2); ref_2d (N, Q, 2); generator: the dropout masks'
-        source in training mode. Returns (N, Q, C)."""
-        query = coarse_correlation(key_feat, value_feat, grid, hw)
+        source in training mode; deterministic_kernels: backward kernels that
+        repeat their bits. Returns (N, Q, C)."""
+        query = coarse_correlation(key_feat, value_feat, grid, hw, deterministic_kernels)
         for i in range(self.num_fine_layers):
-            query = getattr(self, f"fine_{i}")(query, bev_pos, key_feat, value_feat, grid, ref_2d, hw, generator)
+            query = getattr(self, f"fine_{i}")(
+                query, bev_pos, key_feat, value_feat, grid, ref_2d, hw, generator, deterministic_kernels
+            )
         return query

@@ -6,9 +6,10 @@ locations in [0, 1], grid_sample align_corners=False, zero padding.
   * deform_sample_scores — sums of attention-weighted bilinear samples of a
     per-query score map S = K V^T (UVCoarse / UVCross), an autograd.Function.
     For CUDA tensors it launches the hand-written kernels (K5 forward,
-    csrc/deform_scores.cu; K6 backward, csrc/deform_scores_bwd.cu); for CPU
-    tensors it runs their plain versions (the gather oracle, and
-    deform_sample_scores_bwd_plain).
+    csrc/deform_scores.cu; K6 backward, csrc/deform_scores_bwd.cu, which sums
+    each gradient row in a fixed order wherever the row fits in shared
+    memory); for CPU tensors it runs their plain versions (the gather
+    oracle, and deform_sample_scores_bwd_plain).
   * deform_sample_vectors — classic deformable attention over value vectors
     (UVSelf), an autograd.Function as well: for CUDA tensors K7 forward
     (csrc/deform_vectors.cu) and K8 backward (csrc/deform_vectors_bwd.cu,
@@ -148,20 +149,60 @@ def _scores_fwd_cuda(scores, spatial_shape, loc01, attn_weights):
     return out
 
 
-def _scores_bwd_cuda(scores, spatial_shape, loc01, attn_weights, gbar):
-    """Launch K6 on contiguous float32 CUDA tensors."""
+# Dynamic shared memory a K6 block may take (csrc/deform_scores_bwd.cu).
+SCORES_BWD_SMEM = 227 * 1024 - 1024
+SCORES_BWD_PATHS = {"general": 0, "direct": 1, "staged": 2}
+SCORES_BWD_MAX_SAMPLES = 4096  # D P of a query for the fixed-point rows
+
+
+def scores_bwd_plan(h: int, w: int, d: int, p: int, scores_aligned: bool = True) -> str:
+    """K6's path for one shape: "staged", "direct" or "general".
+
+    A K6 block sums a query's gradient row as fixed-point integers in shared
+    memory (two 32-bit words, 8 bytes a cell; up to 4096 samples a query).
+    "staged" also keeps two score rows there (4 bytes a cell each), filled
+    by bulk copies, where the samples touch most of the row (16 D P >= H W,
+    as K5 decides) and the row can be copied in 16-byte units; "direct"
+    reads the corners from device memory. Both give the same bits on every
+    run. Other shapes take "general": device-memory float atomics, whose
+    last bits vary."""
+    hw = h * w
+    cells = -(-hw // 4) * 4
+    if d * p > SCORES_BWD_MAX_SAMPLES:
+        return "general"
+    staged = 16 * d * p >= hw and hw % 4 == 0 and scores_aligned
+    if staged and 16 * cells <= SCORES_BWD_SMEM:
+        return "staged"
+    if 8 * cells <= SCORES_BWD_SMEM:
+        return "direct"
+    return "general"
+
+
+def _scores_bwd_cuda(scores, spatial_shape, loc01, attn_weights, gbar, deterministic: bool = False):
+    """Launch K6 on contiguous float32 CUDA tensors. Where the gradient row
+    fits in shared memory (every shape of the paths) the result has the same
+    bits on every run; otherwise `deterministic` raises rather than take the
+    general path's atomics."""
     _check_scores_args(scores, spatial_shape, loc01, attn_weights)
+    if loc01.data_ptr() % 8:  # K6 reads and writes a location as one 8-byte vector
+        loc01 = loc01.clone()
     h, w = spatial_shape
     d, p = loc01.shape[-3], loc01.shape[-2]
     kernels.check_cuda_tensor("gbar", gbar, torch.float32)
     if tuple(gbar.shape) != (*scores.shape[:-1], d):
         raise ValueError(f"gbar: shape {tuple(gbar.shape)} is not the output's {(*scores.shape[:-1], d)}")
+    path = scores_bwd_plan(h, w, d, p, scores.data_ptr() % 16 == 0)
+    if path == "general" and deterministic:
+        raise ValueError(
+            f"deform_sample_scores: a {h}x{w} gradient row does not fit in shared memory, so K6 would add "
+            "with atomics whose order varies; no deterministic backward for this shape"
+        )
     d_scores, d_loc, d_aw = torch.empty_like(scores), torch.empty_like(loc01), torch.empty_like(attn_weights)
     n = gbar.numel() // d if d else 0
     kernels.call(
         "tp_deform_scores_bwd", f"deform_scores_bwd_p{p}",
         scores.data_ptr(), loc01.data_ptr(), attn_weights.data_ptr(), gbar.data_ptr(),
-        d_scores.data_ptr(), d_loc.data_ptr(), d_aw.data_ptr(), n, h, w, d, p,
+        d_scores.data_ptr(), d_loc.data_ptr(), d_aw.data_ptr(), n, h, w, d, p, SCORES_BWD_PATHS[path],
     )
     return d_scores, d_loc, d_aw
 
@@ -171,10 +212,10 @@ class DeformSampleScores(torch.autograd.Function):
     K6 for CUDA tensors, their plain versions for CPU tensors."""
 
     @staticmethod
-    def forward(ctx, scores, loc01, attn_weights, spatial_shape):
+    def forward(ctx, scores, loc01, attn_weights, spatial_shape, deterministic):
         scores, loc01, attn_weights = (t.contiguous() for t in (scores, loc01, attn_weights))
         ctx.save_for_backward(scores, loc01, attn_weights)
-        ctx.spatial_shape = spatial_shape
+        ctx.spatial_shape, ctx.deterministic = spatial_shape, deterministic
         if scores.is_cuda:
             return _scores_fwd_cuda(scores, spatial_shape, loc01, attn_weights)
         return deform_sample_scores_plain(scores, spatial_shape, loc01, attn_weights)
@@ -183,10 +224,13 @@ class DeformSampleScores(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, gbar):
         scores, loc01, attn_weights = ctx.saved_tensors
-        bwd = _scores_bwd_cuda if scores.is_cuda else deform_sample_scores_bwd_plain
-        d_scores, d_loc, d_aw = bwd(scores, ctx.spatial_shape, loc01, attn_weights, gbar.contiguous())
+        args = (scores, ctx.spatial_shape, loc01, attn_weights, gbar.contiguous())
+        if scores.is_cuda:
+            d_scores, d_loc, d_aw = _scores_bwd_cuda(*args, deterministic=ctx.deterministic)
+        else:
+            d_scores, d_loc, d_aw = deform_sample_scores_bwd_plain(*args)
         need = ctx.needs_input_grad
-        return (d_scores if need[0] else None, d_loc if need[1] else None, d_aw if need[2] else None, None)
+        return (d_scores if need[0] else None, d_loc if need[1] else None, d_aw if need[2] else None, None, None)
 
 
 def deform_sample_scores(
@@ -194,12 +238,15 @@ def deform_sample_scores(
     spatial_shape: tuple[int, int],
     loc01: torch.Tensor,
     attn_weights: torch.Tensor,
+    deterministic: bool = False,
 ) -> torch.Tensor:
     """K5 / K6: (..., Q, H*W) score maps sampled at (..., Q, D, P, 2) -> (..., Q, D).
 
     Differentiable in scores, locations and weights on both devices; on the
-    card forward and backward are the hand-written kernels."""
-    return DeformSampleScores.apply(scores, loc01, attn_weights, tuple(spatial_shape))
+    card forward and backward are the hand-written kernels. K6 gives the same
+    bits on every run wherever its gradient row fits in shared memory;
+    `deterministic` makes the backward raise for a shape where it does not."""
+    return DeformSampleScores.apply(scores, loc01, attn_weights, tuple(spatial_shape), deterministic)
 
 
 def deform_sample_vectors_plain(
@@ -290,6 +337,10 @@ def _vectors_fwd_cuda(value, spatial_shape, loc01, attn_weights):
     return out
 
 
+# A K8 block keeps at least one query's 4 P corner entries in shared memory (4096 at most).
+VECTORS_BWD_MAX_POINTS = 1024
+
+
 def _vectors_bwd_cuda(value, spatial_shape, loc01, attn_weights, gbar, deterministic: bool = False):
     """Launch K8 on contiguous float32 CUDA tensors. The default adds into a
     d_value zeroed here with float atomics (the last bits change from run to
@@ -302,6 +353,10 @@ def _vectors_bwd_cuda(value, spatial_shape, loc01, attn_weights, gbar, determini
     kernels.check_cuda_tensor("gbar", gbar, torch.float32)
     if tuple(gbar.shape) != (*value.shape[:-2], q, c):
         raise ValueError(f"gbar: shape {tuple(gbar.shape)} is not the output's {(*value.shape[:-2], q, c)}")
+    if p > VECTORS_BWD_MAX_POINTS:
+        raise ValueError(f"deform_sample_vectors: K8 takes at most {VECTORS_BWD_MAX_POINTS} points, got {p}")
+    if loc01.data_ptr() % 8:  # K8 reads and writes a location as one 8-byte vector
+        loc01 = loc01.clone()
     n = value.numel() // (hw * c) if hw * c else 0
     dev = value.device
     d_loc, d_aw = torch.empty_like(loc01), torch.empty_like(attn_weights)
@@ -320,7 +375,7 @@ def _vectors_bwd_cuda(value, spatial_shape, loc01, attn_weights, gbar, determini
     corner_w = torch.empty(entries, dtype=torch.float32, device=dev)
     d_value = torch.empty_like(value)
     kernels.call(
-        "tp_deform_vectors_bwd", "deform_vectors_bwd",
+        "tp_deform_vectors_bwd", "deform_vectors_bwd_keys",
         value.data_ptr(), loc01.data_ptr(), attn_weights.data_ptr(), gbar.data_ptr(),
         None, d_loc.data_ptr(), d_aw.data_ptr(), keys.data_ptr(), corner_w.data_ptr(), n, q, h, w, c, p,
     )

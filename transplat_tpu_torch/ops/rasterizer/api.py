@@ -71,8 +71,10 @@ def rasterize(
     background: torch.Tensor,  # (B, C)
     feature: torch.Tensor | None = None,  # (B, G, C) colour override
     cfg: "RasterizeConfig" = RasterizeConfig(),
+    deterministic: bool = False,
 ) -> torch.Tensor:
-    """Composite projected Gaussians into (B, h, w, C) images."""
+    """Composite projected Gaussians into (B, h, w, C) images; `deterministic`
+    makes the backward repeat its bits (K2's sorted mode)."""
     if cfg.precision != "f32":
         raise NotImplementedError(f"precision={cfg.precision!r}: only 'f32' is ported")
     if cfg.mode not in MODES:
@@ -91,7 +93,7 @@ def rasterize(
     with torch.no_grad():  # the lists are integers: constants of the gradient
         lists = bin_gaussians(gfeat, image_shape, cfg.tile_size)
     background = background.to(colors.dtype).contiguous()
-    return composite_tiles(gfeat, colors, lists, background, image_shape, cfg.tile_size)
+    return composite_tiles(gfeat, colors, lists, background, image_shape, cfg.tile_size, deterministic)
 
 
 def render(
@@ -108,13 +110,14 @@ def render(
     scale_invariant: bool = True,
     cfg: RasterizeConfig = RasterizeConfig(),
     feature: torch.Tensor | None = None,  # (B, G, C<=8) color override
+    deterministic: bool = False,  # a backward that repeats its bits (K2's sorted mode)
 ) -> RenderOutput:
     """Render B views of B Gaussian sets. Returns colours (B, h, w, C)."""
     proj = project_views(
         extrinsics, intrinsics, near, means, covariances, sh, opacities,
         image_shape, scale_invariant,
     )
-    color = rasterize(proj, image_shape, background, feature, cfg)
+    color = rasterize(proj, image_shape, background, feature, cfg, deterministic)
     radii = torch.where(proj.valid, proj.radius, torch.zeros_like(proj.radius))
     overflow = torch.zeros(means.shape[0], dtype=torch.int32, device=means.device)
     return RenderOutput(color=color, radii=radii, overflow=overflow)

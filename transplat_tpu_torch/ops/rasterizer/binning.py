@@ -275,7 +275,7 @@ def bin_bwd(d_pair: torch.Tensor, lists: TileLists, views: int, g: int, channels
             kernels.call("tp_bin_ranges", "bin_bwd_segments", rows_sorted.data_ptr(), segments.data_ptr(), n)
         if views * g:
             kernels.call(
-                "tp_bin_bwd_sorted", "bin_bwd",
+                "tp_bin_bwd_sorted", "bin_bwd_sorted",
                 d_pair.data_ptr(), perm.data_ptr(), segments.data_ptr(), d_feat.data_ptr(), views * g, row,
             )
     else:

@@ -250,7 +250,7 @@ class CompositeTiles(torch.autograd.Function):
     (their sum per Gaussian); for CPU tensors their plain versions run."""
 
     @staticmethod
-    def forward(ctx, gfeat, colors, background, lists, image_shape, tile, ordered):
+    def forward(ctx, gfeat, colors, background, lists, image_shape, tile, ordered, deterministic):
         order = None
         if gfeat.is_cuda:
             order = tile_order(lists) if ordered else None
@@ -259,7 +259,7 @@ class CompositeTiles(torch.autograd.Function):
             image, t_final, _ = composite_tiles_plain(gfeat, colors, lists, background, image_shape, tile)
         ctx.save_for_backward(gfeat, colors, background, lists.idx, lists.ranges, image, t_final, order)
         ctx.grid = (lists.num_tiles_x, lists.num_tiles_y)
-        ctx.tile = tile
+        ctx.tile, ctx.deterministic = tile, deterministic
         return image
 
     @staticmethod
@@ -273,11 +273,11 @@ class CompositeTiles(torch.autograd.Function):
             d_pair = _composite_bwd_cuda(gfeat, colors, lists, background, image, t_final, g_out, order=order)
         else:
             d_pair = composite_tiles_bwd_plain(gfeat, colors, lists, background, image, t_final, g_out, ctx.tile)
-        d_gfeat, d_colors = bin_bwd(d_pair, lists, b, g, colors.shape[-1])
+        d_gfeat, d_colors = bin_bwd(d_pair, lists, b, g, colors.shape[-1], deterministic=ctx.deterministic)
         d_bg = None
         if ctx.needs_input_grad[2]:
             d_bg = torch.sum(g_out * t_final[..., None], dim=(1, 2))
-        return d_gfeat, d_colors, d_bg, None, None, None, None
+        return d_gfeat, d_colors, d_bg, None, None, None, None, None
 
 
 def _check_composite_args(gfeat, colors, lists: TileLists, background, tile: int):
@@ -379,10 +379,12 @@ def composite_tiles(
     background: torch.Tensor,
     image_shape: tuple[int, int],
     tile: int = 16,
+    deterministic: bool = False,
 ) -> torch.Tensor:
     """(B, h, w, C) composite of the tile lists over `background` (B, C).
 
     Differentiable in gfeat, colors and background on both devices (the lists
-    are constants)."""
+    are constants). K4 repeats its bits; `deterministic` makes K2 do so too
+    (its sorted mode instead of its atomics)."""
     ordered = torch.is_grad_enabled() and any(t.requires_grad for t in (gfeat, colors, background))
-    return CompositeTiles.apply(gfeat, colors, background, lists, tuple(image_shape), tile, ordered)
+    return CompositeTiles.apply(gfeat, colors, background, lists, tuple(image_shape), tile, ordered, deterministic)

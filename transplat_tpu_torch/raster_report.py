@@ -208,7 +208,7 @@ def composite_inputs(dev):
     """The request's lists and K4's inputs (coloured background, random cotangent), as time_kernels.py takes them."""
     from .time_kernels import IMAGE, SEED, request_lists
 
-    gfeat, colors, lists = request_lists(dev)
+    gfeat, colors, lists, _ = request_lists(dev)
     b, _, _ = gfeat.shape
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     bg = torch.rand((b, colors.shape[-1]), device=dev, generator=gen)

@@ -17,7 +17,17 @@ random locations), then takes `--readings` readings in turns of:
   orders them);
 - `composite_bwd` and `bin_bwd`: one backward of `composite_tiles` (K4, then
   K2 in its atomic mode), through autograd; each kernel by its name;
-- `index_add_`: the library's way to K2's function on the same rows.
+- `index_add_`: the library's way to K2's function on the same rows;
+- `deform_scores_bwd_p1` / `_p4`: K6 on K5's inputs with a random d out, and
+  `deform_scores_bwd_p4_encoder` on the locations and scores of the
+  encoder's own cross-attention (captured from the request);
+- `deform_vectors_bwd`: K8's atomic mode, `deform_vectors_bwd_sorted` its
+  sorted, deterministic mode (device time, the sort included), on
+  chip_smoke.py's self-attention-like value-sampler inputs;
+- `bin_rects`, `bin_emit`, `bin_ranges` (K1), `deform_vectors` (K7),
+  `deform_vectors_bwd` and `bin_bwd` (K2's atomic mode, called directly) with
+  the L2 flushed before each call (`.kernel_cold_ms`): their bytes fit in the
+  50 MB L2, where back-to-back calls find them.
 
 Each reading is the median device time over 20 calls (utils/device_time.py).
 `--items` keeps the items whose name starts with one of the given prefixes:
@@ -46,9 +56,12 @@ SEED = 0
 
 
 def request_lists(dev):
-    """Projected, depth-sorted Gaussians of chip_smoke.py's request and their tile lists."""
+    """Projected, depth-sorted Gaussians of chip_smoke.py's request and their
+    tile lists, and the inputs of the request's first P = 4 score sampling
+    (the cross-attention): scores, locations, weights, map shape."""
     from .dataset import synthetic_batch
     from .inference import init_random, re10k_encoder_cfg
+    from .model import uv_transformer
     from .model.encoder import EncoderTranSplat
     from .ops.rasterizer import api, binning
 
@@ -56,15 +69,28 @@ def request_lists(dev):
     init_random(encoder, SEED)
     batch = synthetic_batch(SEED, batch_size=1, num_context=2, num_target=4, image_shape=IMAGE)
     ctx, tgt = batch["context"], batch["target"]
+    seen = []
+    sample = uv_transformer.deform_sample_scores
+
+    def capture(scores, hw, loc, aw, *args, **kw):
+        if loc.shape[-2] == 4 and not seen:
+            seen.append((scores.detach().clone(), loc.detach().clone(), aw.detach().clone(), tuple(hw)))
+        return sample(scores, hw, loc, aw, *args, **kw)
+
+    uv_transformer.deform_sample_scores = capture
+    try:
+        with torch.no_grad():
+            gaussians = encoder(*(torch.as_tensor(ctx[k], device=dev) for k in ("image", "intrinsics", "extrinsics", "near", "far")))
+    finally:
+        uv_transformer.deform_sample_scores = sample
     with torch.no_grad():
-        gaussians = encoder(*(torch.as_tensor(ctx[k], device=dev) for k in ("image", "intrinsics", "extrinsics", "near", "far")))
         views = tgt["extrinsics"].shape[1]
         rep = lambda x: x.expand(views, *x.shape[1:]).contiguous()  # noqa: E731
         cams = [torch.as_tensor(tgt[k][0], device=dev) for k in ("extrinsics", "intrinsics", "near")]
         proj = api.project_views(*cams, *(rep(x) for x in gaussians), IMAGE)
         gfeat, colors = binning.sort_by_depth(proj)
         lists = binning.bin_gaussians(gfeat, IMAGE)
-    return gfeat, colors, lists
+    return gfeat, colors, lists, seen[0]
 
 
 def main(argv=None) -> int:
@@ -75,7 +101,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA card")
-    from chip_smoke import deform_inputs
+    from chip_smoke import deform_inputs, vectors_inputs
 
     from .ops import deform
     from .ops.rasterizer import binning, composite
@@ -90,11 +116,13 @@ def main(argv=None) -> int:
         img = scores.reshape(n * q, 1, h, w)
         sampled = lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=False)  # noqa: E731
         return {
-            f"deform_scores_p{p}.kernel_ms": (lambda: deform.deform_sample_scores(scores, (h, w), loc, aw), "deform_scores_kernel"),
-            f"grid_sample_p{p}.device_ms": (sampled if p == 1 else lambda: (sampled().reshape(n, q, d, p) * aw).sum(-1), None),
+            f"deform_scores_p{p}.kernel_ms":
+                (lambda: deform.deform_sample_scores(scores, (h, w), loc, aw), "deform_scores_kernel", False),
+            f"grid_sample_p{p}.device_ms":
+                (sampled if p == 1 else lambda: (sampled().reshape(n, q, d, p) * aw).sum(-1), None, False),
         }
 
-    gfeat, colors, lists = request_lists(dev)
+    gfeat, colors, lists, cross = request_lists(dev)
     b, g, _ = gfeat.shape
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     bg = torch.rand((b, colors.shape[-1]), device=dev, generator=gen)
@@ -112,22 +140,56 @@ def main(argv=None) -> int:
         with torch.no_grad():
             return composite.composite_tiles(gfeat, colors, lists, bg, IMAGE)
 
+    def scores_bwd_items(p: int, inputs=None, suffix: str = "") -> dict:
+        if inputs is None:
+            scores, loc, aw, gbar, (_, _, _, h, w) = deform_inputs(dev, p)
+        else:
+            scores, loc, aw, (h, w) = inputs
+            gbar = torch.randn(loc.shape[:-2], device=dev, generator=torch.Generator(device=dev).manual_seed(SEED + 5))
+        return {f"deform_scores_bwd_p{p}{suffix}.kernel_ms":
+                (lambda: deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar), "deform_scores_bwd", False)}
+
+    value, vloc, vaw, vgbar, (_, _, vh, vw, _, _) = vectors_inputs(dev)
+    ntx, nty = lists.num_tiles_x, lists.num_tiles_y
+    with torch.no_grad():
+        rects, rcounts = binning.bin_rects(gfeat, ntx, nty, 16)
+        incl = torch.cumsum(rcounts.reshape(-1), 0, dtype=torch.int64)
+        total = int(incl[-1])
+        keys, _ = binning.bin_emit(rects, rcounts, incl, total, ntx * nty, ntx)
+        keys_sorted, _ = torch.sort(keys, stable=True)
+    # name -> (function, kernel name or None for the device time, L2 flushed before each call)
     items = {
         **sampler_items(1),
         **sampler_items(4),
-        "composite.kernel_ms": (forward, "composite_kernel"),
-        "composite_train.kernel_ms": (lambda: composite.composite_tiles(*leaves, lists, bg, IMAGE), "composite_kernel"),
-        "composite_bwd.kernel_ms": (backward, "composite_bwd_kernel"),
-        "bin_bwd.kernel_ms": (backward, "bin_bwd_atomic_kernel"),
-        "index_add_.device_ms": (lambda: torch.zeros((b * g, d_pair.shape[1]), device=dev).index_add_(0, rows, d_pair), None),
+        "composite.kernel_ms": (forward, "composite_kernel", False),
+        "composite_train.kernel_ms": (lambda: composite.composite_tiles(*leaves, lists, bg, IMAGE), "composite_kernel", False),
+        "composite_bwd.kernel_ms": (backward, "composite_bwd_kernel", False),
+        "bin_bwd.kernel_ms": (backward, "bin_bwd_atomic_kernel", False),
+        "index_add_.device_ms": (lambda: torch.zeros((b * g, d_pair.shape[1]), device=dev).index_add_(0, rows, d_pair), None, False),
+        **scores_bwd_items(1),
+        **scores_bwd_items(4),
+        **scores_bwd_items(4, cross, "_encoder"),
+        "deform_vectors_bwd.kernel_ms":
+            (lambda: deform._vectors_bwd_cuda(value, (vh, vw), vloc, vaw, vgbar), "deform_vectors_bwd_kernel", False),
+        "deform_vectors_bwd_sorted.device_ms":
+            (lambda: deform._vectors_bwd_cuda(value, (vh, vw), vloc, vaw, vgbar, deterministic=True), None, False),
+        "bin_rects.kernel_cold_ms": (lambda: binning.bin_rects(gfeat, ntx, nty, 16), "bin_rects_kernel", True),
+        "bin_emit.kernel_cold_ms":
+            (lambda: binning.bin_emit(rects, rcounts, incl, total, ntx * nty, ntx), "bin_emit_kernel", True),
+        "bin_ranges.kernel_cold_ms": (lambda: binning.bin_ranges(keys_sorted, b * ntx * nty), "bin_ranges_kernel", True),
+        "deform_vectors.kernel_cold_ms":
+            (lambda: deform.deform_sample_vectors(value, (vh, vw), vloc, vaw), "deform_vectors_kernel", True),
+        "deform_vectors_bwd.kernel_cold_ms":
+            (lambda: deform._vectors_bwd_cuda(value, (vh, vw), vloc, vaw, vgbar), "deform_vectors_bwd_kernel", True),
+        "bin_bwd.kernel_cold_ms": (lambda: binning.bin_bwd(d_pair, lists, b, g, colors.shape[-1]), "bin_bwd_atomic_kernel", True),
     }
     if args.items is not None:
         items = {k: v for k, v in items.items() if k.startswith(tuple(args.items))}
     readings: dict[str, list[float]] = {k: [] for k in items}
     attempts: dict[str, list[int]] = {k: [] for k in items}
     for _ in range(args.readings):
-        for key, (fn, kernel) in items.items():
-            t = device_time(fn, kernel)
+        for key, (fn, kernel, cold) in items.items():
+            t = device_time(fn, kernel, cold=cold)
             readings[key].append(t["kernel_ms"] if kernel else t["device_ms"])
             attempts[key].append(t["attempts"])
     summary = {k: {"median": float(np.median(v)), "min": min(v), "max": max(v)} for k, v in readings.items()}

@@ -1,6 +1,6 @@
 """Time full-width requests and training steps of this tree on the card.
 
-    python -m transplat_tpu_torch.time_paths [--requests 30] [--steps 10] [--label NAME]
+    python -m transplat_tpu_torch.time_paths [--requests 30] [--steps 10] [--label NAME] [--deterministic-kernels]
 
 Prints one JSON line: the median and quartiles of the request time (the
 serving path of chip_smoke.py: 2 context views at 256x256 -> 4 target views,
@@ -9,6 +9,8 @@ trainer), each after a warm-up, by a host clock around work that ends in a
 synchronize. Host times spread between processes and machines: to compare
 two trees, run this from each of them in turns (parent, change, change,
 parent) on one card, back to back, and compare the processes' medians.
+`--deterministic-kernels` times the steps with trainer.deterministic_kernels
+on (a tree that has the switch).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=30)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--label", default="")
+    ap.add_argument("--deterministic-kernels", action="store_true")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -54,7 +57,8 @@ def main(argv=None) -> int:
             request_ms.append((time.perf_counter() - t0) * 1e3)
     del encoder
 
-    state, step, train_batch, gen = build(re10k_encoder_cfg(), IMAGE, "cuda", 0)
+    switch = {"deterministic_kernels": True} if args.deterministic_kernels else {}
+    state, step, train_batch, gen = build(re10k_encoder_cfg(), IMAGE, "cuda", 0, **switch)
     step_ms = []
     for i in range(2 + args.steps):  # two warm-up steps
         torch.cuda.synchronize()
@@ -64,7 +68,7 @@ def main(argv=None) -> int:
         if i >= 2:
             step_ms.append((time.perf_counter() - t0) * 1e3)
     print(json.dumps({
-        "label": args.label, "device": torch.cuda.get_device_name(0),
+        "label": args.label, "device": torch.cuda.get_device_name(0), "deterministic_kernels": args.deterministic_kernels,
         "request": {"count": args.requests, **_summary(request_ms)},
         "step": {"count": args.steps, **_summary(step_ms)},
     }), flush=True)

@@ -1,6 +1,6 @@
 """A few training steps on synthetic posed batches.
 
-    python -m transplat_tpu_torch.train_demo [--steps N] [--device cpu] [--tiny]
+    python -m transplat_tpu_torch.train_demo [--steps N] [--device cpu] [--tiny] [--deterministic-kernels]
 
 Counterpart of scripts/bench_train_step.py of the JAX package: the re10k
 configuration at full width (`--tiny`: a narrow encoder at 64x64, for a CPU),
@@ -8,7 +8,8 @@ random weights from `--seed`, random-init LPIPS (calibrated LPIPS weights
 are not part of the repository), `synthetic_batch` with 2 context and 4
 target views, MSE + 0.05 LPIPS, clip 0.5 + Adam under the one-cycle
 schedule, dropout on. Prints one JSON line per step and a summary line.
-Runs on the card unless `--device cpu` is given.
+Runs on the card unless `--device cpu` is given. `--deterministic-kernels`
+makes every step repeat its bits (trainer.deterministic_kernels).
 """
 
 from __future__ import annotations
@@ -40,12 +41,15 @@ def tiny_encoder_cfg() -> EncoderCfg:
     )
 
 
-def build(encoder_cfg: EncoderCfg, image_shape, device, seed: int, num_target: int = 4):
+def build(encoder_cfg: EncoderCfg, image_shape, device, seed: int, num_target: int = 4,
+          deterministic_kernels: bool = False):
     """(state, train_step, batch, generator): a seeded trainer on one fixed synthetic batch."""
     optimizer = make_optimizer(make_lr_schedule(RE10K_LR, RE10K_MAX_STEPS), grad_clip=0.5)
     state = create_train_state(encoder_cfg, optimizer, LPIPS(device=device, seed=seed), device=device)
     init_random(state.encoder, seed)
-    step = make_train_step(encoder_cfg, LossCfg(), re10k_decoder_cfg(), optimizer, image_shape)
+    step = make_train_step(
+        encoder_cfg, LossCfg(), re10k_decoder_cfg(), optimizer, image_shape, deterministic_kernels=deterministic_kernels
+    )
     batch = batch_to_device(
         synthetic_batch(seed, batch_size=1, num_context=2, num_target=num_target, image_shape=image_shape), device
     )
@@ -58,13 +62,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true", help="narrow encoder at 64x64 (for a CPU)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--deterministic-kernels", action="store_true", help="steps that repeat their bits")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg, image_shape = (tiny_encoder_cfg(), (64, 64)) if args.tiny else (re10k_encoder_cfg(), (256, 256))
-    state, step, batch, gen = build(cfg, image_shape, device, args.seed)
+    state, step, batch, gen = build(cfg, image_shape, device, args.seed, deterministic_kernels=args.deterministic_kernels)
     times = []
     for _ in range(args.steps):
         t0 = time.perf_counter()

@@ -8,10 +8,16 @@ sampler and of the rasterizer come from the hand-written backward kernels
 (ops/deform.py, ops/rasterizer/composite.py); everything else is autograd.
 The stages of a step are marked with record_function spans (`train.*`),
 which profile_training.py reads.
+
+`deterministic_kernels` makes a step on the card repeat its bits, as the JAX
+step does by construction: K2 and K8 take their sorted modes, K6 refuses a
+shape it cannot sum in a fixed order (K4 and the forward kernels repeat
+their bits anyway), and the step runs under `repeatable_ops`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -109,6 +115,34 @@ def create_train_state(
     return state
 
 
+@contextlib.contextmanager
+def repeatable_ops(on: bool = True):
+    """Inside, PyTorch's own operations repeat their bits from run to run:
+    cuDNN takes deterministic algorithms and no benchmark search, and
+    `torch.use_deterministic_algorithms(True, warn_only=True)` swaps in
+    deterministic versions of the operations that have them (the scatter
+    behind an indexing gather's backward, for one) and warns about any that
+    has none (without filling fresh allocations, which the port's kernels
+    write in full). Everything is put back on leaving. Off: nothing changes."""
+    if not on:
+        yield
+        return
+    import torch.utils.deterministic
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(), torch.utils.deterministic.fill_uninitialized_memory)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved[0], saved[1]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+        torch.utils.deterministic.fill_uninitialized_memory = saved[4]
+
+
 def loss_and_grads(
     state: TrainState,
     batch: dict,
@@ -117,12 +151,14 @@ def loss_and_grads(
     image_shape: tuple[int, int],
     generator: torch.Generator | None = None,
     deterministic: bool = False,
+    deterministic_kernels: bool = False,
 ):
     """One forward and backward of the training loss in training mode (batch
     statistics in BatchNorm, which move their running ones; dropout from
-    `generator` unless `deterministic`). Returns (metrics, gradients by
-    parameter name), the loss under metrics["loss"]; the encoder is back in
-    eval mode afterwards."""
+    `generator` unless `deterministic`; with `deterministic_kernels` the
+    same bits on every run, see the module docstring). Returns (metrics,
+    gradients by parameter name), the loss under metrics["loss"]; the encoder
+    is back in eval mode afterwards."""
     encoder = state.encoder
     params = state.trainable()
     encoder.train()
@@ -131,16 +167,21 @@ def loss_and_grads(
             m.train(not deterministic)
     try:
         ctx, tgt = batch["context"], batch["target"]
-        with record_function("train.encoder"):
-            gaussians = encoder(*(ctx[k] for k in CONTEXT_KEYS), global_step=state.step, generator=generator)
-        with record_function("train.decoder"):
-            out = decode_splatting(
-                gaussians, tgt["extrinsics"], tgt["intrinsics"], tgt["near"], tgt["far"], image_shape, cfg=decoder_cfg
-            )
-        with record_function("train.loss"):
-            loss, parts = compute_losses(loss_cfg, out.color, tgt["image"], state.step, lpips_fn=state.lpips)
-        with record_function("train.backward"):
-            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        with repeatable_ops(deterministic_kernels):
+            with record_function("train.encoder"):
+                gaussians = encoder(
+                    *(ctx[k] for k in CONTEXT_KEYS), global_step=state.step, generator=generator,
+                    deterministic_kernels=deterministic_kernels,
+                )
+            with record_function("train.decoder"):
+                out = decode_splatting(
+                    gaussians, tgt["extrinsics"], tgt["intrinsics"], tgt["near"], tgt["far"], image_shape,
+                    cfg=decoder_cfg, deterministic_kernels=deterministic_kernels,
+                )
+            with record_function("train.loss"):
+                loss, parts = compute_losses(loss_cfg, out.color, tgt["image"], state.step, lpips_fn=state.lpips)
+            with record_function("train.backward"):
+                grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     finally:
         encoder.eval()
     metrics = {k: v.detach() for k, v in parts.items()}
@@ -161,13 +202,15 @@ def make_train_step(
     optimizer: ClipAdam,
     image_shape: tuple[int, int],
     deterministic: bool = False,
+    deterministic_kernels: bool = False,
 ):
     """Returns train_step(state, batch, generator) -> (state, metrics).
 
     batch: {"context": image, intrinsics, extrinsics, near, far;
     "target": the same} as tensors on the encoder's device. `generator`
     (on that device) draws the dropout masks; `deterministic` turns dropout
-    off (BatchNorm stays on batch statistics). The state is updated in
+    off (BatchNorm stays on batch statistics); `deterministic_kernels` gives
+    the same bits on every run (the module docstring). The state is updated in
     place. Metrics are 0-dim tensors (lr a float), so a step does not wait
     for the card: loss, mse, lpips, psnr, grad_norm, lr, render_overflow
     (always 0: the port drops nothing)."""
@@ -175,7 +218,9 @@ def make_train_step(
     def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None):
         if state.encoder.cfg != encoder_cfg:
             raise ValueError("the state's encoder was built from another EncoderCfg")
-        metrics, grads = loss_and_grads(state, batch, loss_cfg, decoder_cfg, image_shape, generator, deterministic)
+        metrics, grads = loss_and_grads(
+            state, batch, loss_cfg, decoder_cfg, image_shape, generator, deterministic, deterministic_kernels
+        )
         with record_function("train.optimizer"):
             metrics["grad_norm"] = optimizer.update(state.trainable(), grads, state.opt_state)
         metrics["lr"] = optimizer.lr_schedule(state.step)

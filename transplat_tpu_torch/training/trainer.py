@@ -61,7 +61,10 @@ class Trainer:
         )
         self.optimizer = make_optimizer(schedule, cfg.optimizer.gradient_clip_val)
         self.image_shape = tuple(cfg.dataset.image_shape)
-        self.step_fn = make_train_step(cfg.encoder, cfg.loss, cfg.decoder, self.optimizer, self.image_shape)
+        self.step_fn = make_train_step(
+            cfg.encoder, cfg.loss, cfg.decoder, self.optimizer, self.image_shape,
+            deterministic_kernels=cfg.trainer.deterministic_kernels,
+        )
         self.ckpt = CheckpointManager(ckpt.save_dir, ckpt.every_n_train_steps)
         # Beside the checkpoints' directory: outputs/metrics.jsonl for the default save_dir.
         self.metrics_path = Path(ckpt.save_dir).parent / "metrics.jsonl"

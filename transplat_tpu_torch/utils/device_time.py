@@ -23,6 +23,13 @@ summed per call, and the median over calls is returned:
 - `kernel_ms`: only the events whose name contains `kernel` (the
   hand-written kernel alone), or None when no name is given.
 
+With `cold=True` each call is preceded by a write of a FLUSH_BYTES buffer
+(more than the H100's 50 MB L2), so the call finds its inputs in device
+memory, not in L2; the write's own device event is left out of both times.
+Without it the 20 calls run back to back and a function whose bytes fit in
+L2 reads them from there: its time can then fall below a bound computed
+from the device-memory rate.
+
     python -m transplat_tpu_torch.utils.device_time
 
 measures what the profiler costs the host: the host microseconds per launch
@@ -44,12 +51,15 @@ WARMUP = 3
 # launched (8 for 20 calls, once in some 40 readings on an H100): a trace
 # that does not split evenly into the calls is taken again.
 ATTEMPTS = 3
+# The write before each call of a cold reading: 128 MiB, over twice the L2.
+FLUSH_BYTES = 128 * 2**20
 
 
-def device_time(fn, kernel: str | None = None) -> dict:
+def device_time(fn, kernel: str | None = None, cold: bool = False) -> dict:
     """Median device ms per call of fn() over CALLS calls (see the module docstring)."""
     from torch.profiler import ProfilerActivity, profile
 
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda") if cold else None
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -57,6 +67,9 @@ def device_time(fn, kernel: str | None = None) -> dict:
     for attempt in range(1, ATTEMPTS + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(CALLS):
+                if cold:
+                    flush.fill_(1.0)
+                    torch.cuda.synchronize()
                 fn()
                 torch.cuda.synchronize()
         device = sorted(  # device work only: not the ranges that annotate it (autograd's, for one)
@@ -69,6 +82,10 @@ def device_time(fn, kernel: str | None = None) -> dict:
         raise RuntimeError(f"device_time: {len(device)} device events do not split into {CALLS} calls")
     per = len(device) // CALLS
     groups = [device[i * per : (i + 1) * per] for i in range(CALLS)]
+    if cold:  # each call's first event is the flush
+        if any("Fill" not in grp[0][2] for grp in groups):
+            raise RuntimeError(f"device_time: a cold call does not start with the flush: {groups[0][0][2]!r}")
+        groups = [grp[1:] for grp in groups]
     names = [name for _, _, name in groups[0]]
     if any([name for _, _, name in grp] != names for grp in groups):
         raise RuntimeError("device_time: the calls launched different device work")
