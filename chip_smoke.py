@@ -13,7 +13,12 @@ evaluate paths on one NVIDIA card and check them.
    just after; every forward kernel must have launched.
 3. Each kernel is held against its plain PyTorch version on the card at the
    shapes of the paths (K1, K3, K4 and K2 on the Gaussians a request
-   produced and on a synthetic scene of elongated splats; K5 and K6 at 2 x
+   produced and on a synthetic scene of elongated splats; K1's three kernels
+   and their lists, equal bit for bit to the classic route's (a key per
+   pair, torch.sort), also on synthetic scenes with a dead-heavy and an
+   all-dead view, a grid wider than one shared-memory histogram, Gaussians
+   that cover every tile and no pairs at all; K3, K4 and K2's sorted mode
+   give the same bits on both routes' lists; K5 and K6 at 2 x
    4096 queries of 64x64 maps; K7 and K8, both modes, at 2 x 4096 queries
    of a 64x64x128 value map with self-attention-like locations; K5 at P = 1
    also on the encoder's own epipolar locations, K6 at P = 4 on the
@@ -88,7 +93,7 @@ FIT_DET_STEPS = 4
 # or gradient fault that halves the progress fails.
 FIT_MIN_PSNR_GAIN_DB = 8.0
 FORWARD_KERNELS = (
-    "deform_scores_p1", "deform_scores_p4", "deform_vectors", "bin_rects", "bin_emit", "bin_ranges", "composite",
+    "deform_scores_p1", "deform_scores_p4", "deform_vectors", "bin_count", "bin_scan", "bin_place", "composite",
 )
 BACKWARD_KERNELS = ("deform_scores_bwd_p1", "deform_scores_bwd_p4", "deform_vectors_bwd", "composite_bwd", "bin_bwd")
 # What trainer.deterministic_kernels puts in place of K8's and K2's atomic modes.
@@ -574,29 +579,99 @@ def check_deform_vectors_bwd(dev) -> list[dict]:
 NEEDED_OPS = {"composite": (16.0, lambda c: 4.0 + 2 * c), "composite_bwd": (16.0, lambda c: 43.0 + 4 * c)}
 
 
+def check_binning(gfeat, image_shape, tile: int, label: str) -> dict:
+    """K1 on depth-sorted rows: each of its three kernels equal to its plain
+    version (torch.equal), and the whole, bin_gaussians, equal to
+    bin_gaussians_plain (the classic route: a key per pair, torch.sort,
+    each run's ends). Returns the pieces for timing."""
+    from transplat_tpu_torch.ops.rasterizer import binning
+
+    b, g, _ = gfeat.shape
+    ntx, nty = binning.grid_size(image_shape, tile)
+    table, rects, aux = binning.bin_count(gfeat, ntx, nty, tile)
+    table_p, rects_p, aux_p = binning.bin_count_plain(gfeat, ntx, nty, tile)
+    require(torch.equal(table, table_p) and torch.equal(rects, rects_p), f"{label}: bin_count != plain")
+    bases, bases_p = table.clone(), table.clone()
+    ranges = binning.bin_scan(bases, aux)
+    ranges_p = binning.bin_scan_plain(bases_p, aux_p)
+    require(torch.equal(bases, bases_p) and torch.equal(ranges, ranges_p) and torch.equal(aux[0], aux_p[0]),
+            f"{label}: bin_scan != plain")
+    total = int(aux[0])
+    idx = binning.bin_place(rects, bases, ranges, total, ntx, nty)
+    require(torch.equal(idx, binning.bin_place_plain(rects, bases, ranges, total, ntx, nty)), f"{label}: bin_place != plain")
+    lists = binning.bin_gaussians(gfeat, image_shape, tile)
+    ref = binning.bin_gaussians_plain(gfeat, image_shape, tile)
+    require(torch.equal(lists.idx, ref.idx) and torch.equal(lists.ranges, ref.ranges) and torch.equal(lists.idx, idx),
+            f"{label}: bin_gaussians != bin_gaussians_plain")
+    emit({"phase": "binning_check", "scene": label, "views": b, "gaussians": g, "h": image_shape[0], "w": image_shape[1],
+          "tile": tile, "tiles_per_view": ntx * nty, "chunks": table.shape[-1], "pairs": total,
+          "empty_views": int(((ranges[:, 1] - ranges[:, 0]).reshape(b, -1).sum(1) == 0).sum()),
+          "equal_to_plain": True, "equal_to_sorted_route": True})
+    return dict(table=table, rects=rects, aux=aux, bases=bases, ranges=ranges, total=total, lists=lists, ref=ref,
+                ntx=ntx, nty=nty)
+
+
+def check_binning_scenes(dev) -> None:
+    """K1 beyond the request: synthetic scenes with a dead-heavy view and an
+    all-dead one, a grid wider than one shared-memory histogram (1024^2 at
+    tile 8: 16,384 tiles a view), Gaussians that cover every tile, a count
+    of Gaussians that is not a multiple of the chunk, and no pairs at all."""
+    from transplat_tpu_torch.ops.rasterizer import api, binning
+
+    cams, gs = synthetic_scene(131072 + 77, 4, dev, SEED + 4)
+    with torch.no_grad():
+        for shape, tile in (((256, 256), 16), ((1024, 1024), 8)):
+            gfeat, _ = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, shape))
+            check_binning(gfeat, shape, tile, f"synthetic_{shape[0]}_tile{tile}")
+            dead = gfeat.clone()
+            kill = torch.rand(dead.shape[:2], device=dev, generator=torch.Generator(device=dev).manual_seed(SEED)) < 0.9
+            kill[1] = True  # a view with no live Gaussian
+            dead[kill] = torch.tensor([1e9, 1e9, 0, 0, 0, 0, 0, 0], device=dev)
+            check_binning(dead, shape, tile, f"dead_heavy_{shape[0]}_tile{tile}")
+            big = gfeat.clone()
+            big[:, :40, 2:7] = torch.tensor([1e-8, 0.0, 1e-8, 1e4, 0.9], device=dev)  # cover every tile
+            check_binning(big, shape, tile, f"cover_all_{shape[0]}_tile{tile}")
+        none = gfeat.clone()
+        none[..., 5] = 0.0
+        check_binning(none, (1024, 1024), 8, "no_pairs")
+
+
+def bin_gaussians_record(gfeat, image_shape, total: int, cells: int, table_bytes: int) -> dict:
+    """The whole of K1 on the request: device time of one bin_gaussians call
+    (its three kernels and the host read of the number of pairs), warm and
+    cold, against the bound of the function (the rows read once, idx, ranges
+    and the count table written once) and the classic route on the card
+    (bin_gaussians_plain: a key per pair, torch.sort, the runs' ends)."""
+    from transplat_tpu_torch.ops.rasterizer import binning
+    from transplat_tpu_torch.utils.device_time import device_time
+
+    with torch.no_grad():
+        t = timings(lambda: binning.bin_gaussians(gfeat, image_shape), "bin_",
+                    lambda: binning.bin_gaussians_plain(gfeat, image_shape))
+        parts = device_time(lambda: binning.bin_gaussians(gfeat, image_shape), cold=True)["events"]
+    nbytes = 4 * gfeat.numel() + 4 * total + 8 * cells + table_bytes
+    b_ms, b_by = bound(nbytes, 0.0)
+    rec = {"phase": "bin_gaussians", "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "pairs": total,
+           "parts_cold_ms": [[name[:60], ms] for name, ms in parts],
+           "kernel_is": "bin_count + bin_scan + bin_place; device_ms adds the host read's copy",
+           "library_is": "bin_gaussians_plain: the classic route in PyTorch ops (torch.sort)", **t}
+    emit(rec)
+    return rec
+
+
 def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> list[dict]:
-    """K1 (bin_rects, bin_emit, bin_ranges) and K3 (composite) against their
-    plain versions on one set of projected Gaussians."""
+    """K1 (bin_count, bin_scan, bin_place) and K3 (composite) against their
+    plain versions on one set of projected Gaussians; K3, K4 and K2's sorted
+    mode give the same bits on K1's lists as on the classic route's."""
     from transplat_tpu_torch import raster_report
     from transplat_tpu_torch.ops.rasterizer import binning, composite
 
     gfeat, colors = binning.sort_by_depth(proj)
     b, g, _ = gfeat.shape
-    ntx, nty = binning.grid_size(image_shape, 16)
-    t_count = ntx * nty
-    rects, counts = binning.bin_rects(gfeat, ntx, nty, 16)
-    rects_p, counts_p = binning.bin_rects_plain(gfeat, ntx, nty, 16)
-    require(torch.equal(rects, rects_p) and torch.equal(counts, counts_p), f"{label}: bin_rects != plain")
-    incl = torch.cumsum(counts.reshape(-1), 0, dtype=torch.int64)
-    total = int(incl[-1])
-    keys, vals = binning.bin_emit(rects, counts, incl, total, t_count, ntx)
-    keys_p, vals_p = binning.bin_emit_plain(rects, counts, incl, total, t_count, ntx)
-    require(torch.equal(keys, keys_p) and torch.equal(vals, vals_p), f"{label}: bin_emit != plain")
-    keys_sorted, perm = torch.sort(keys, stable=True)
-    cells = b * t_count
-    ranges = binning.bin_ranges(keys_sorted, cells)
-    require(torch.equal(ranges, binning.bin_ranges_plain(keys_sorted, cells)), f"{label}: bin_ranges != plain")
-    lists = binning.TileLists(vals[perm].contiguous(), ranges, ntx, nty)
+    k1 = check_binning(gfeat, image_shape, 16, label)
+    lists, ref_lists, total = k1["lists"], k1["ref"], k1["total"]
+    ntx, nty = k1["ntx"], k1["nty"]
+    cells = b * ntx * nty
     bg = torch.zeros((b, colors.shape[-1]), device=gfeat.device)
     img = composite.composite_tiles(gfeat, colors, lists, bg, image_shape)
     img_p, _, evaluations = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
@@ -639,31 +714,50 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
     first = binning.bin_bwd(d_pair, lists, b, g, c, deterministic=True)
     second = binning.bin_bwd(d_pair, lists, b, g, c, deterministic=True)
     require(all(torch.equal(x, y) for x, y in zip(first, second)), f"{label}: bin_bwd sorted mode is not deterministic")
+    # The classic route's lists (a key per pair, torch.sort) give K3, K4 and
+    # K2's sorted mode the same inputs, so the same bits.
+    ref_order = composite.tile_order(ref_lists)
+    ref_image, ref_t = composite._composite_fwd_cuda(gfeat, colors, ref_lists, bg_b, image_shape, order=ref_order)
+    ref_d_pair = composite._composite_bwd_cuda(gfeat, colors, ref_lists, bg_b, ref_image, ref_t, g_out, order=ref_order)
+    same = (torch.equal(img, composite.composite_tiles(gfeat, colors, ref_lists, bg, image_shape))
+            and torch.equal(image, ref_image) and torch.equal(t_final, ref_t) and torch.equal(d_pair, ref_d_pair)
+            and all(torch.equal(x, y) for x, y in zip(first, binning.bin_bwd(ref_d_pair, ref_lists, b, g, c, deterministic=True))))
+    require(same, f"{label}: K3, K4 or K2 give other bits on the classic route's lists")
     torch.cuda.synchronize()
     emit({"phase": "raster_bwd_check", "scene": label, "tolerance": GRAD_TOL,
           "error_is": "max abs, values scaled to the gradient's largest entry",
-          "composite_bwd_errors": k4_errs, "composite_bwd_bit_identical_runs": True, "bin_bwd_errors": k2_errs, **sizes})
+          "composite_bwd_errors": k4_errs, "composite_bwd_bit_identical_runs": True, "bin_bwd_errors": k2_errs,
+          "same_bits_as_sorted_route": ["composite", "composite_bwd", "bin_bwd_sorted"], **sizes})
     if not timed:
         return []
     srcs = dict(bin="transplat_tpu_torch/csrc/binning.cu", comp="transplat_tpu_torch/csrc/composite.cu")
-    k1 = "transplat_tpu/ops/rasterizer/pallas_binning.py:276"
+    k1_tpu = "transplat_tpu/ops/rasterizer/pallas_binning.py:276"
     k3 = "transplat_tpu/ops/rasterizer/pallas_composite.py:160"
-    boundaries = torch.arange(cells + 1, dtype=keys_sorted.dtype, device=keys_sorted.device)
     pair_rows = binning._pair_rows(lists, b, g)
+    table_bytes = 4 * k1["table"].numel()
+
+    def scan_once():
+        aux = k1["aux"].clone()
+        aux[1] = 0  # bin_count zeroes the scan's count of finished blocks
+        return binning.bin_scan(k1["table"].clone(), aux)
+
+    bin_gaussians_record(gfeat, image_shape, total, cells, table_bytes)
     recs = []
     # name, source, TPU kernel, error, wrapper, plain version, library call, bytes, operations, kernel name
     specs = [
-        ("bin_rects", srcs["bin"], k1, 0.0,
-         lambda: binning.bin_rects(gfeat, ntx, nty, 16), lambda: binning.bin_rects_plain(gfeat, ntx, nty, 16), None,
-         4 * b * g * (8 + 4 + 1), b * g * 40.0, "bin_rects_kernel"),
-        ("bin_emit", srcs["bin"], k1, 0.0,
-         lambda: binning.bin_emit(rects, counts, incl, total, t_count, ntx),
-         lambda: binning.bin_emit_plain(rects, counts, incl, total, t_count, ntx), None,
-         b * g * (16 + 4 + 8) + 8 * total, 4.0 * total, "bin_emit_kernel"),
-        ("bin_ranges", srcs["bin"], k1, 0.0,
-         lambda: binning.bin_ranges(keys_sorted, cells), lambda: binning.bin_ranges_plain(keys_sorted, cells),
-         lambda: torch.searchsorted(keys_sorted, boundaries),
-         4 * total + 8 * cells, 3.0 * total, "bin_ranges_kernel"),
+        # K1's kernels: the rows in, the count table and the packed rectangles out;
+        # the table scanned in place and the ranges out; the rectangles, bases
+        # and ranges in and idx out. None of them equals one library call.
+        ("bin_count", srcs["bin"], k1_tpu, 0.0,
+         lambda: binning.bin_count(gfeat, ntx, nty, 16), lambda: binning.bin_count_plain(gfeat, ntx, nty, 16), None,
+         4 * gfeat.numel() + table_bytes + 8 * b * g, b * g * 40.0, "bin_count_kernel"),
+        ("bin_scan", srcs["bin"], k1_tpu, 0.0, scan_once,
+         lambda: binning.bin_scan_plain(k1["table"].clone(), k1["aux"].clone()), None,
+         2 * table_bytes + 8 * cells, table_bytes / 2.0, "bin_scan_kernel"),
+        ("bin_place", srcs["bin"], k1_tpu, 0.0,
+         lambda: binning.bin_place(k1["rects"], k1["bases"], k1["ranges"], total, ntx, nty),
+         lambda: binning.bin_place_plain(k1["rects"], k1["bases"], k1["ranges"], total, ntx, nty), None,
+         8 * b * g + table_bytes + 8 * cells + 4 * total, 10.0 * total, "bin_place_kernel"),
         ("composite", srcs["comp"], k3, err,
          lambda: composite.composite_tiles(gfeat, colors, lists, bg, image_shape),
          lambda: composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape), None,
@@ -1182,6 +1276,7 @@ def main() -> int:
         err = max_err(fast, oracle)
         require(err <= 1e-5, f"renderer vs oracle: {err}")
         emit({"phase": "oracle_check", "gaussians": 2048, "views": 2, "h": 64, "w": 64, "max_abs_err": err, "tolerance": 1e-5})
+    check_binning_scenes(dev)
 
     # ---- the slice at a tiny width: card kernels vs CPU plain versions -----
     from transplat_tpu_torch.model.adapter import GaussianAdapterCfg

@@ -56,21 +56,61 @@ def test_deform_scores(dev, q, d, p, h, w):
 
 @pytest.mark.parametrize("image_shape", [(64, 80), (100, 76)])
 def test_binning_kernels_equal_plain(dev, image_shape):
+    """K1's three kernels (count, scan, place) each equal to their plain
+    versions, and the lists equal to the classic route's (a key per pair,
+    torch.sort), bit for bit."""
     cams, gs = scene(3000, 3, dev, 1)
     proj = api.project_views(*cams[:2], cams[2], *gs, image_shape)
     gfeat, _ = binning.sort_by_depth(proj)
     ntx, nty = binning.grid_size(image_shape, 16)
-    rects, counts = binning.bin_rects(gfeat, ntx, nty, 16)
-    rects_p, counts_p = binning.bin_rects_plain(gfeat, ntx, nty, 16)
-    assert torch.equal(counts, counts_p) and torch.equal(rects, rects_p)
-    incl = torch.cumsum(counts.reshape(-1), 0, dtype=torch.int64)
-    total = int(incl[-1])
-    keys, vals = binning.bin_emit(rects, counts, incl, total, ntx * nty, ntx)
-    keys_p, vals_p = binning.bin_emit_plain(rects, counts, incl, total, ntx * nty, ntx)
-    assert torch.equal(keys, keys_p) and torch.equal(vals, vals_p)
-    keys_sorted, _ = torch.sort(keys, stable=True)
-    cells = gfeat.shape[0] * ntx * nty
-    assert torch.equal(binning.bin_ranges(keys_sorted, cells), binning.bin_ranges_plain(keys_sorted, cells))
+    kernels.reset_launches()
+    table, rects, aux = binning.bin_count(gfeat, ntx, nty, 16)
+    table_p, rects_p, aux_p = binning.bin_count_plain(gfeat, ntx, nty, 16)
+    assert torch.equal(table, table_p) and torch.equal(rects, rects_p)
+    bases, bases_p = table.clone(), table.clone()
+    ranges = binning.bin_scan(bases, aux)
+    ranges_p = binning.bin_scan_plain(bases_p, aux_p)
+    assert torch.equal(bases, bases_p) and torch.equal(ranges, ranges_p) and int(aux[0]) == int(aux_p[0])
+    total = int(aux[0])
+    idx = binning.bin_place(rects, bases, ranges, total, ntx, nty)
+    assert torch.equal(idx, binning.bin_place_plain(rects, bases, ranges, total, ntx, nty))
+    assert kernels.launches == {"bin_count": 1, "bin_scan": 1, "bin_place": 1}
+    ref = binning.bin_gaussians_plain(gfeat, image_shape)
+    assert torch.equal(idx, ref.idx) and torch.equal(ranges, ref.ranges)
+
+
+def _binning_case(dev, case):
+    """Depth-sorted rows for the K1 edge cases: a grid wider than one
+    shared-memory histogram, a dead-heavy and an all-dead view, Gaussians
+    covering every tile, a count that is not a multiple of the chunk, no
+    pairs at all."""
+    g = 2 * binning.BIN_CHUNK + 37
+    shape, tile = ((512, 768), 8) if case == "wide_grid" else ((100, 76), 16)
+    cams, gs = scene(g, 3, dev, 5)
+    gfeat, _ = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, shape))
+    gfeat = gfeat.clone()
+    if case == "dead_views":
+        gfeat[1] = torch.tensor([1e9, 1e9, 0, 0, 0, 0, 0, 0], device=dev)
+        gfeat[2, ::3] = torch.tensor([1e9, 1e9, 0, 0, 0, 0, 0, 0], device=dev)
+    elif case == "cover_all":
+        gfeat[:, :5, 2:7] = torch.tensor([1e-8, 0.0, 1e-8, 1e4, 0.9], device=dev)
+    elif case == "no_pairs":
+        gfeat[..., 5] = 0.0
+    return gfeat.contiguous(), shape, tile
+
+
+@pytest.mark.parametrize("case", ["wide_grid", "dead_views", "cover_all", "ragged", "no_pairs"])
+def test_bin_gaussians_equals_the_sorted_route(dev, case):
+    gfeat, shape, tile = _binning_case(dev, case)
+    lists = binning.bin_gaussians(gfeat, shape, tile)
+    ref = binning.bin_gaussians_plain(gfeat, shape, tile)
+    torch.cuda.synchronize()
+    assert torch.equal(lists.idx, ref.idx) and torch.equal(lists.ranges, ref.ranges)
+    assert (lists.num_tiles_x, lists.num_tiles_y) == (ref.num_tiles_x, ref.num_tiles_y)
+    if case == "wide_grid":
+        assert lists.num_tiles_x * lists.num_tiles_y > 1024  # more tiles than one histogram holds
+    if case == "no_pairs":
+        assert lists.idx.numel() == 0 and int(lists.ranges.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("image_shape", [(64, 80), (100, 76)])
@@ -79,7 +119,7 @@ def test_render_kernels_match_plain(dev, image_shape):
     bg = torch.tensor([[0.2, 0.5, 0.9], [0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], device=dev)
     kernels.reset_launches()
     out = api.render(*cams, image_shape, bg, *gs)
-    assert {"bin_rects", "bin_emit", "bin_ranges", "composite"} <= set(kernels.launches)
+    assert {"bin_count", "bin_scan", "bin_place", "composite"} <= set(kernels.launches)
     # The plain compositor on the same lists (the binning kernels equal their
     # plain versions exactly, test above), and the naive oracle.
     gfeat, colors = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, image_shape))
@@ -374,7 +414,7 @@ def test_bin_bwd_atomic_edge_cases(dev, channels):
     lengths[0, 2] = 0
     ends = np.cumsum(lengths.reshape(-1))
     ranges = np.stack([ends - lengths.reshape(-1), ends], 1)
-    ranges[lengths.reshape(-1) == 0] = 0  # bin_ranges gives (0, 0) to an empty tile
+    ranges[lengths.reshape(-1) == 0] = 0  # K1 gives (0, 0) to an empty tile
     n = int(ends[-1])
     idx = rng.integers(0, g, n).astype(np.int32)
     d_pair = np.zeros((n, binning.pair_width(channels)), np.float32)
@@ -490,9 +530,9 @@ def test_every_wrapper_keeps_the_graph(dev):
     with pytest.raises(ValueError, match="requires grad"):
         composite._composite_fwd_cuda(gfeat, colors, lists, bg, (32, 32))
     with pytest.raises(ValueError, match="requires grad"):
-        binning.bin_rects(gfeat, 2, 2, 16)
+        binning.bin_count(gfeat, 2, 2, 16)
     with torch.no_grad():
-        assert binning.bin_rects(gfeat, 2, 2, 16)[0].dtype == torch.int32
+        assert binning.bin_count(gfeat, 2, 2, 16)[0].dtype == torch.int32
 
 
 def test_wrappers_reject_bad_input(dev):
@@ -502,7 +542,7 @@ def test_wrappers_reject_bad_input(dev):
             torch.zeros(4, 2, 1, 2, device=dev), torch.zeros(4, 2, 1, device=dev),
         )
     with pytest.raises(ValueError):
-        binning.bin_rects(torch.zeros(1, 4, 7, device=dev), 2, 2, 16)
+        binning.bin_count(torch.zeros(1, 4, 7, device=dev), 2, 2, 16)
     with pytest.raises(ValueError):
         composite.composite_tiles(
             torch.zeros(1, 4, 8, device=dev), torch.zeros(1, 4, 3, device=dev),

@@ -48,10 +48,12 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # scores, loc, aw, out, n_queries, h, w, d, p, stream
     "tp_deform_scores": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
-    # gfeat, rects, counts, n, ntx, nty, tile, stream
-    "tp_bin_rects": (_P, _P, _P, _LL, _I, _I, _I, _P),
-    # rects, counts, incl, keys, vals, n, g, num_tiles, ntx, stream
-    "tp_bin_emit": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
+    # gfeat, table, rects, aux, views, g, ntx, nty, tile, chunk, stream
+    "tp_bin_count": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
+    # table, rowtot, ranges, aux, rows, chunks, stream
+    "tp_bin_scan": (_P, _P, _P, _P, _LL, _I, _P),
+    # rects, bases, ranges, idx, views, g, ntx, nty, chunk, stream
+    "tp_bin_place": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
     # keys, ranges, n_pairs, stream
     "tp_bin_ranges": (_P, _P, _LL, _P),
     # gfeat, colors, idx, ranges, order (or null), bg, out, t_final (or null), views, g, c, h, w, ntx, nty,

@@ -1,15 +1,19 @@
 """Tile binning (K1) and its transpose (K2).
 
 Counterpart of transplat_tpu/ops/rasterizer/pallas_binning.py
-(`build_sorted_features`, `cull_radii`, `_bin_fwd_kernel`, `_bin_bwd_kernel`).
-The port builds index lists plus per-tile [start, end) ranges instead of
-routed feature copies, with no capacity and nothing dropped (csrc/binning.cu
-says how); `bin_bwd` adds the list entries' gradients back into per-Gaussian
-rows (csrc/binning_bwd.cu). Gradient rows are `pair_width(C)` wide: the 8
+(`build_sorted_features`, `cull_radii`, `chunk_bases`, `_bin_fwd_kernel`,
+`_bin_bwd_kernel`). The port builds index lists plus per-tile [start, end)
+ranges instead of routed feature copies, with no capacity and nothing
+dropped: three kernels count each chunk's pairs per tile, scan the counts
+and place every pair, with no sort (csrc/binning.cu says how). `bin_bwd` adds
+the list entries' gradients back into per-Gaussian rows
+(csrc/binning_bwd.cu). Gradient rows are `pair_width(C)` wide: the 8
 geometry columns and the C colours zero-padded to whole 16-byte vectors.
 
-Each step has a wrapper that launches its CUDA kernel for CUDA tensors and
-runs its plain PyTorch version (same arithmetic, `*_plain`) for CPU tensors.
+Each kernel has a wrapper that launches it for CUDA tensors and runs its
+plain PyTorch version (same function, `*_plain`) for CPU tensors.
+`bin_gaussians_plain` builds the same lists another way (one key per pair,
+a stable sort, the runs' ends), as the reference the kernels are held to.
 """
 
 from __future__ import annotations
@@ -71,7 +75,7 @@ def grid_size(image_shape: tuple[int, int], tile: int) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
-# Step 2: tile rectangles under the exact significance cull
+# Tile rectangles under the exact significance cull
 # ---------------------------------------------------------------------------
 
 
@@ -107,65 +111,26 @@ def bin_rects_plain(gfeat: torch.Tensor, ntx: int, nty: int, tile: int):
     return rects, counts.to(torch.int32)
 
 
-def bin_rects(gfeat: torch.Tensor, ntx: int, nty: int, tile: int):
-    if not gfeat.is_cuda:
-        return bin_rects_plain(gfeat, ntx, nty, tile)
-    kernels.check_cuda_tensor("gfeat", gfeat, torch.float32, 3)
-    if gfeat.shape[-1] != GFEAT_WIDTH:
-        raise ValueError(f"gfeat: expected {GFEAT_WIDTH} columns, got {gfeat.shape[-1]}")
-    b, g, _ = gfeat.shape
-    rects = torch.empty((b, g, 4), dtype=torch.int32, device=gfeat.device)
-    counts = torch.empty((b, g), dtype=torch.int32, device=gfeat.device)
-    kernels.call(
-        "tp_bin_rects", "bin_rects",
-        gfeat.data_ptr(), rects.data_ptr(), counts.data_ptr(), b * g, ntx, nty, tile,
-    )
-    return rects, counts
-
-
 # ---------------------------------------------------------------------------
-# Step 3: one (view * T + tile, Gaussian) pair per covered tile
+# The reference route: one (view * T + tile) key per pair, a stable sort
 # ---------------------------------------------------------------------------
 
 
-def bin_emit_plain(rects, counts, incl, total: int, num_tiles: int, ntx: int):
-    """rects (B, G, 4), counts (B, G), incl (B*G,) int64 inclusive cumsum of
-    counts -> keys (N,) int32 and vals (N,) int32 (sorted-Gaussian ranks)."""
-    g = counts.shape[1]
-    n = counts.reshape(-1).to(torch.int64)
+def _pairs_of_rects(rects: torch.Tensor, ntx: int, nty: int):
+    """rects (B, G, 4) inclusive tile rectangles (x1 < x0 where empty) ->
+    every (Gaussian, covered tile) pair in Gaussian order, the tiles of a
+    Gaussian in row-major order: keys (N,) int64 view * T + tile and vals
+    (N,) int64 the Gaussian's depth-sorted rank."""
+    g = rects.shape[1]
     r = rects.reshape(-1, 4).to(torch.int64)
+    n = torch.clamp(r[:, 2] - r[:, 0] + 1, min=0) * torch.clamp(r[:, 3] - r[:, 1] + 1, min=0)
+    total = int(n.sum())
     gid = torch.repeat_interleave(torch.arange(n.shape[0], device=n.device), n, output_size=total)
-    j = torch.arange(total, device=n.device) - (incl - n)[gid]
+    j = torch.arange(total, device=n.device) - (torch.cumsum(n, 0) - n)[gid]
     width = (r[:, 2] - r[:, 0] + 1)[gid]
     tx = r[gid, 0] + j % width
     ty = r[gid, 1] + j // width
-    keys = (gid // g) * num_tiles + ty * ntx + tx
-    return keys.to(torch.int32), (gid % g).to(torch.int32)
-
-
-def bin_emit(rects, counts, incl, total: int, num_tiles: int, ntx: int):
-    if not rects.is_cuda:
-        return bin_emit_plain(rects, counts, incl, total, num_tiles, ntx)
-    kernels.check_cuda_tensor("rects", rects, torch.int32, 3)
-    kernels.check_cuda_tensor("counts", counts, torch.int32, 2)
-    kernels.check_cuda_tensor("incl", incl, torch.int64, 1)
-    b, g = counts.shape
-    if rects.shape != (b, g, 4) or incl.shape[0] != b * g:
-        raise ValueError("bin_emit: rects, counts and incl disagree in shape")
-    keys = torch.empty((total,), dtype=torch.int32, device=rects.device)
-    vals = torch.empty((total,), dtype=torch.int32, device=rects.device)
-    if total:
-        kernels.call(
-            "tp_bin_emit", "bin_emit",
-            rects.data_ptr(), counts.data_ptr(), incl.data_ptr(), keys.data_ptr(),
-            vals.data_ptr(), b * g, g, num_tiles, ntx,
-        )
-    return keys, vals
-
-
-# ---------------------------------------------------------------------------
-# Step 5: per-tile [start, end) in the tile-sorted pair list
-# ---------------------------------------------------------------------------
+    return (gid // g) * (ntx * nty) + ty * ntx + tx, gid % g
 
 
 def bin_ranges_plain(keys_sorted: torch.Tensor, num_cells: int) -> torch.Tensor:
@@ -177,33 +142,173 @@ def bin_ranges_plain(keys_sorted: torch.Tensor, num_cells: int) -> torch.Tensor:
     return torch.where((end > start)[:, None], ranges, 0).to(torch.int32)
 
 
-def bin_ranges(keys_sorted: torch.Tensor, num_cells: int) -> torch.Tensor:
-    if not keys_sorted.is_cuda:
-        return bin_ranges_plain(keys_sorted, num_cells)
-    kernels.check_cuda_tensor("keys_sorted", keys_sorted, torch.int32, 1)
-    ranges = torch.zeros((num_cells, 2), dtype=torch.int32, device=keys_sorted.device)
-    if keys_sorted.shape[0]:
-        kernels.call("tp_bin_ranges", "bin_ranges", keys_sorted.data_ptr(), ranges.data_ptr(), keys_sorted.shape[0])
+def bin_gaussians_plain(gfeat: torch.Tensor, image_shape: tuple[int, int], tile: int = 16) -> TileLists:
+    """The lists the kernels build, by the classic route: a key per pair, a
+    stable sort by key (each tile's run stays in depth order), each run's ends."""
+    ntx, nty = grid_size(image_shape, tile)
+    keys, vals = _pairs_of_rects(bin_rects_plain(gfeat, ntx, nty, tile)[0], ntx, nty)
+    keys_sorted, perm = torch.sort(keys, stable=True)
+    idx = vals[perm].to(torch.int32)
+    return TileLists(idx=idx, ranges=bin_ranges_plain(keys_sorted, gfeat.shape[0] * ntx * nty),
+                     num_tiles_x=ntx, num_tiles_y=nty)
+
+
+# ---------------------------------------------------------------------------
+# K1: count, scan, place (csrc/binning.cu)
+# ---------------------------------------------------------------------------
+
+# Depth-sorted Gaussians a block of bin_count and bin_place takes (kChunk in
+# csrc/binning.cu): the count table has one column per chunk.
+BIN_CHUNK = 1024
+
+
+def _check_gfeat(gfeat: torch.Tensor) -> None:
+    kernels.check_cuda_tensor("gfeat", gfeat, torch.float32, 3)
+    if gfeat.shape[-1] != GFEAT_WIDTH:
+        raise ValueError(f"gfeat: expected {GFEAT_WIDTH} columns, got {gfeat.shape[-1]}")
+    b, g, _ = gfeat.shape
+    if b > 65535 or g >= 2**31:
+        raise ValueError(f"gfeat: at most 65535 views of fewer than 2**31 Gaussians, got {b} x {g}")
+
+
+def pack_rects(rects: torch.Tensor) -> torch.Tensor:
+    """(..., 4) int32 rectangles -> (..., 2) int32, 16 bits a coordinate:
+    (x0 | y0 << 16, x1 | y1 << 16); an empty one is (1, 0)."""
+    r = rects.to(torch.int64)
+    empty = (r[..., 2] < r[..., 0]) | (r[..., 3] < r[..., 1])
+    packed = torch.stack([r[..., 0] | (r[..., 1] << 16), r[..., 2] | (r[..., 3] << 16)], dim=-1)
+    packed = torch.where(empty[..., None], torch.tensor([1, 0], device=r.device), packed)
+    return torch.where(packed >= 2**31, packed - 2**32, packed).to(torch.int32)
+
+
+def unpack_rects(packed: torch.Tensor) -> torch.Tensor:
+    """The inverse of pack_rects: (..., 2) -> (..., 4) int32 (x0, y0, x1, y1)."""
+    p = packed.to(torch.int64) & 0xFFFFFFFF
+    rect = torch.stack([p[..., 0] & 0xFFFF, p[..., 0] >> 16, p[..., 1] & 0xFFFF, p[..., 1] >> 16], dim=-1)
+    return rect.to(torch.int32)
+
+
+def bin_count_plain(gfeat: torch.Tensor, ntx: int, nty: int, tile: int):
+    """(B, G, 8) depth-sorted rows -> table (B, T, ceil(G / BIN_CHUNK)) int32,
+    the Gaussians of each chunk that cover each tile; rects (B, G, 2) int32,
+    each Gaussian's packed cull rectangle (pack_rects); aux (2,) int64 (zeros;
+    bin_scan writes the number of pairs into aux[0])."""
+    b, g, _ = gfeat.shape
+    chunks, cells = -(-g // BIN_CHUNK), b * ntx * nty
+    rects = bin_rects_plain(gfeat, ntx, nty, tile)[0]
+    keys, vals = _pairs_of_rects(rects, ntx, nty)
+    table = torch.bincount(keys * chunks + vals // BIN_CHUNK, minlength=cells * chunks)
+    aux = torch.zeros(2, dtype=torch.int64, device=gfeat.device)
+    return table.to(torch.int32).reshape(b, ntx * nty, chunks), pack_rects(rects), aux
+
+
+def _check_grid(ntx: int, nty: int) -> None:
+    if ntx > 65535 or nty > 65535 or ntx * nty >= 2**31:
+        raise ValueError(f"a tile grid of {ntx} x {nty}: at most 65535 tiles a side and 2**31 in all")
+
+
+def bin_count(gfeat: torch.Tensor, ntx: int, nty: int, tile: int):
+    if not gfeat.is_cuda:
+        return bin_count_plain(gfeat, ntx, nty, tile)
+    _check_gfeat(gfeat)
+    _check_grid(ntx, nty)
+    b, g, _ = gfeat.shape
+    table = torch.empty((b, ntx * nty, -(-g // BIN_CHUNK)), dtype=torch.int32, device=gfeat.device)
+    rects = torch.empty((b, g, 2), dtype=torch.int32, device=gfeat.device)
+    aux = torch.empty(2, dtype=torch.int64, device=gfeat.device)
+    if table.numel():
+        kernels.call(
+            "tp_bin_count", "bin_count",
+            gfeat.data_ptr(), table.data_ptr(), rects.data_ptr(), aux.data_ptr(), b, g, ntx, nty, tile, BIN_CHUNK,
+        )
+    else:
+        rects[...] = torch.tensor([1, 0], dtype=torch.int32, device=gfeat.device)
+        aux.zero_()
+    return table, rects, aux
+
+
+def bin_scan_plain(table: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
+    """table (B, T, chunks) counts, in place -> each (view, tile) row's
+    exclusive prefix over the chunks (JAX's `chunk_bases` without its last
+    column); returns ranges (B * T, 2) int32, [start, end) of each cell in
+    the list ((0, 0) where empty), and writes the number of pairs to aux[0]."""
+    rows = table.reshape(table.shape[0] * table.shape[1], table.shape[2]).to(torch.int64)
+    incl = torch.cumsum(rows, dim=1)
+    totals = incl[:, -1] if rows.shape[1] else torch.zeros(rows.shape[0], dtype=torch.int64, device=table.device)
+    table.copy_((incl - rows).reshape(table.shape))
+    start = torch.cumsum(totals, 0) - totals
+    ranges = torch.where((totals > 0)[:, None], torch.stack([start, start + totals], dim=-1), 0)
+    aux[0] = totals.sum()
+    return ranges.to(torch.int32)
+
+
+def bin_scan(table: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
+    if not table.is_cuda:
+        return bin_scan_plain(table, aux)
+    kernels.check_cuda_tensor("table", table, torch.int32, 3)
+    kernels.check_cuda_tensor("aux", aux, torch.int64, 1)
+    b, t, chunks = table.shape
+    rowtot = torch.empty(b * t, dtype=torch.int32, device=table.device)
+    ranges = torch.empty((b * t, 2), dtype=torch.int32, device=table.device)
+    if table.numel():
+        kernels.call(
+            "tp_bin_scan", "bin_scan",
+            table.data_ptr(), rowtot.data_ptr(), ranges.data_ptr(), aux.data_ptr(), b * t, chunks,
+        )
+    else:
+        ranges.zero_()
     return ranges
 
 
-# ---------------------------------------------------------------------------
-# The whole binning
-# ---------------------------------------------------------------------------
+def bin_place_plain(rects, bases, ranges, total: int, ntx: int, nty: int) -> torch.Tensor:
+    """Every pair of the packed rectangles (bin_count) at its cell's start +
+    its chunk's prefix (bases, from bin_scan) + the number of earlier
+    Gaussians of its chunk on the same tile -> idx (total,) int32, the
+    depth-sorted rank of each pair."""
+    keys, vals = _pairs_of_rects(unpack_rects(rects), ntx, nty)
+    chunks = bases.shape[-1]
+    column = keys * chunks + vals // BIN_CHUNK  # the pair's (cell, chunk)
+    # Pairs of one (cell, chunk) come in depth order; count the earlier ones.
+    order = torch.sort(column, stable=True)[1]
+    first = torch.searchsorted(column[order], column[order], right=False)
+    earlier = torch.empty_like(column)
+    earlier[order] = torch.arange(column.shape[0], device=column.device) - first
+    pos = ranges[keys, 0].to(torch.int64) + bases.reshape(-1)[column].to(torch.int64) + earlier
+    idx = torch.empty(total, dtype=torch.int32, device=rects.device)
+    idx[pos] = vals.to(torch.int32)
+    return idx
+
+
+def bin_place(rects, bases, ranges, total: int, ntx: int, nty: int) -> torch.Tensor:
+    if not rects.is_cuda:
+        return bin_place_plain(rects, bases, ranges, total, ntx, nty)
+    kernels.check_cuda_tensor("rects", rects, torch.int32, 3)
+    kernels.check_cuda_tensor("bases", bases, torch.int32, 3)
+    kernels.check_cuda_tensor("ranges", ranges, torch.int32, 2)
+    b, g, _ = rects.shape
+    if rects.shape[-1] != 2 or bases.shape != (b, ntx * nty, -(-g // BIN_CHUNK)) or ranges.shape != (b * ntx * nty, 2):
+        raise ValueError("bin_place: rects, bases and ranges disagree in shape")
+    _check_grid(ntx, nty)
+    idx = torch.empty(total, dtype=torch.int32, device=rects.device)
+    if total:
+        kernels.call(
+            "tp_bin_place", "bin_place",
+            rects.data_ptr(), bases.data_ptr(), ranges.data_ptr(), idx.data_ptr(), b, g, ntx, nty, BIN_CHUNK,
+        )
+    return idx
 
 
 def bin_gaussians(gfeat: torch.Tensor, image_shape: tuple[int, int], tile: int = 16) -> TileLists:
-    """Depth-sorted (B, G, 8) rows -> per-tile index lists (no capacity, nothing dropped)."""
+    """Depth-sorted (B, G, 8) rows -> per-tile index lists (no capacity,
+    nothing dropped), equal to bin_gaussians_plain's: count, scan, then one
+    host read of the number of pairs (idx is allocated to it), then place."""
     ntx, nty = grid_size(image_shape, tile)
-    b, g, _ = gfeat.shape
-    num_tiles = ntx * nty
-    rects, counts = bin_rects(gfeat, ntx, nty, tile)
-    incl = torch.cumsum(counts.reshape(-1), dim=0, dtype=torch.int64)
-    total = int(incl[-1]) if incl.numel() else 0
-    keys, vals = bin_emit(rects, counts, incl, total, num_tiles, ntx)
-    keys_sorted, perm = torch.sort(keys, stable=True)
-    idx = vals[perm].contiguous()
-    ranges = bin_ranges(keys_sorted, b * num_tiles)
+    table, rects, aux = bin_count(gfeat, ntx, nty, tile)
+    ranges = bin_scan(table, aux)
+    total = int(aux[0])
+    if total >= 2**31:
+        raise ValueError(f"bin_gaussians: {total} pairs do not fit the int32 ranges")
+    idx = bin_place(rects, table, ranges, total, ntx, nty)
     return TileLists(idx=idx, ranges=ranges, num_tiles_x=ntx, num_tiles_y=nty)
 
 

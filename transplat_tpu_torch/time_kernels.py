@@ -24,10 +24,16 @@ random locations), then takes `--readings` readings in turns of:
 - `deform_vectors_bwd`: K8's atomic mode, `deform_vectors_bwd_sorted` its
   sorted, deterministic mode (device time, the sort included), on
   chip_smoke.py's self-attention-like value-sampler inputs;
-- `bin_rects`, `bin_emit`, `bin_ranges` (K1), `deform_vectors` (K7),
-  `deform_vectors_bwd` and `bin_bwd` (K2's atomic mode, called directly) with
-  the L2 flushed before each call (`.kernel_cold_ms`): their bytes fit in the
-  50 MB L2, where back-to-back calls find them.
+- `bin_gaussians`: the whole of K1, from the depth-sorted rows to `idx` and
+  `ranges`, on the request's Gaussians: every device event of one call, warm
+  and cold, split into its parts (`parts`: each event's name and its median
+  share over the readings), and `bin_gaussians.wrapper_ms`, one call between
+  CUDA events with its host read of the total;
+- `deform_vectors` (K7) on the self-attention-like value-sampler inputs,
+  device time warm and cold, and its wrapper time;
+- `deform_vectors_bwd` and `bin_bwd` (K2's atomic mode, called directly)
+  with the L2 flushed before each call (`.kernel_cold_ms`): their bytes fit
+  in the 50 MB L2, where back-to-back calls find them.
 
 Each reading is the median device time over 20 calls (utils/device_time.py).
 `--items` keeps the items whose name starts with one of the given prefixes:
@@ -101,7 +107,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA card")
-    from chip_smoke import deform_inputs, vectors_inputs
+    from chip_smoke import deform_inputs, time_ms, vectors_inputs
 
     from .ops import deform
     from .ops.rasterizer import binning, composite
@@ -151,12 +157,6 @@ def main(argv=None) -> int:
 
     value, vloc, vaw, vgbar, (_, _, vh, vw, _, _) = vectors_inputs(dev)
     ntx, nty = lists.num_tiles_x, lists.num_tiles_y
-    with torch.no_grad():
-        rects, rcounts = binning.bin_rects(gfeat, ntx, nty, 16)
-        incl = torch.cumsum(rcounts.reshape(-1), 0, dtype=torch.int64)
-        total = int(incl[-1])
-        keys, _ = binning.bin_emit(rects, rcounts, incl, total, ntx * nty, ntx)
-        keys_sorted, _ = torch.sort(keys, stable=True)
     # name -> (function, kernel name or None for the device time, L2 flushed before each call)
     items = {
         **sampler_items(1),
@@ -173,29 +173,44 @@ def main(argv=None) -> int:
             (lambda: deform._vectors_bwd_cuda(value, (vh, vw), vloc, vaw, vgbar), "deform_vectors_bwd_kernel", False),
         "deform_vectors_bwd_sorted.device_ms":
             (lambda: deform._vectors_bwd_cuda(value, (vh, vw), vloc, vaw, vgbar, deterministic=True), None, False),
-        "bin_rects.kernel_cold_ms": (lambda: binning.bin_rects(gfeat, ntx, nty, 16), "bin_rects_kernel", True),
-        "bin_emit.kernel_cold_ms":
-            (lambda: binning.bin_emit(rects, rcounts, incl, total, ntx * nty, ntx), "bin_emit_kernel", True),
-        "bin_ranges.kernel_cold_ms": (lambda: binning.bin_ranges(keys_sorted, b * ntx * nty), "bin_ranges_kernel", True),
-        "deform_vectors.kernel_cold_ms":
-            (lambda: deform.deform_sample_vectors(value, (vh, vw), vloc, vaw), "deform_vectors_kernel", True),
+        "bin_gaussians.device_ms": (lambda: binning.bin_gaussians(gfeat, IMAGE), None, False),
+        "bin_gaussians.device_cold_ms": (lambda: binning.bin_gaussians(gfeat, IMAGE), None, True),
+        "deform_vectors.device_ms": (lambda: deform.deform_sample_vectors(value, (vh, vw), vloc, vaw), None, False),
+        "deform_vectors.device_cold_ms": (lambda: deform.deform_sample_vectors(value, (vh, vw), vloc, vaw), None, True),
         "deform_vectors_bwd.kernel_cold_ms":
             (lambda: deform._vectors_bwd_cuda(value, (vh, vw), vloc, vaw, vgbar), "deform_vectors_bwd_kernel", True),
         "bin_bwd.kernel_cold_ms": (lambda: binning.bin_bwd(d_pair, lists, b, g, colors.shape[-1]), "bin_bwd_atomic_kernel", True),
     }
+    # name -> function: one call between CUDA events, host work included
+    wrappers = {
+        "bin_gaussians.wrapper_ms": lambda: binning.bin_gaussians(gfeat, IMAGE),
+        "deform_vectors.wrapper_ms": lambda: deform.deform_sample_vectors(value, (vh, vw), vloc, vaw),
+    }
     if args.items is not None:
         items = {k: v for k, v in items.items() if k.startswith(tuple(args.items))}
-    readings: dict[str, list[float]] = {k: [] for k in items}
+        wrappers = {k: v for k, v in wrappers.items() if k.startswith(tuple(args.items))}
+    readings: dict[str, list[float]] = {k: [] for k in (*items, *wrappers)}
     attempts: dict[str, list[int]] = {k: [] for k in items}
+    events: dict[str, list[list]] = {k: [] for k in items}
     for _ in range(args.readings):
         for key, (fn, kernel, cold) in items.items():
             t = device_time(fn, kernel, cold=cold)
             readings[key].append(t["kernel_ms"] if kernel else t["device_ms"])
             attempts[key].append(t["attempts"])
+            events[key].append(t["events"])
+        for key, fn in wrappers.items():
+            readings[key].append(time_ms(fn))
+    # The parts of each multi-event item: every event's median ms over the readings and its share.
+    parts = {}
+    for key, per_reading in events.items():
+        if per_reading and len(per_reading[0]) > 1:
+            ms = [float(np.median([r[i][1] for r in per_reading])) for i in range(len(per_reading[0]))]
+            parts[key] = [{"event": name[:80], "ms": m, "share": m / max(sum(ms), 1e-12)}
+                          for (name, _), m in zip(per_reading[0], ms)]
     summary = {k: {"median": float(np.median(v)), "min": min(v), "max": max(v)} for k, v in readings.items()}
     print(json.dumps({
         "label": args.label, "device": torch.cuda.get_device_name(0), "pairs": int(lists.idx.shape[0]),
-        "readings": readings, "attempts": attempts, "summary": summary,
+        "readings": readings, "attempts": attempts, "summary": summary, "parts": parts,
     }), flush=True)
     return 0
 

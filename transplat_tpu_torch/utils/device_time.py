@@ -21,7 +21,9 @@ summed per call, and the median over calls is returned:
 - `device_ms`: all device events of a call, the wrapper's fill and zero
   kernels (`torch.zeros`) included;
 - `kernel_ms`: only the events whose name contains `kernel` (the
-  hand-written kernel alone), or None when no name is given.
+  hand-written kernel alone), or None when no name is given;
+- `events`: each device event of a call in launch order, as [name, median
+  ms], so a function of several kernels can be split into its parts.
 
 With `cold=True` each call is preceded by a write of a FLUSH_BYTES buffer
 (more than the H100's 50 MB L2), so the call finds its inputs in device
@@ -100,6 +102,8 @@ def device_time(fn, kernel: str | None = None, cold: bool = False) -> dict:
         "device_ms": median_ms(lambda name: True),
         "kernel_ms": None if kernel is None else median_ms(lambda name: kernel in name),
         "device_launches": len(groups[0]),
+        "events": [[name, float(np.median([(grp[i][1] - grp[i][0]) for grp in groups])) / 1e3]
+                   for i, name in enumerate(names)],
         "attempts": attempt,
     }
 
