@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and fit -> checkpoint ->
-evaluate paths on one NVIDIA card and check them.
+evaluate paths, and its data path and command line, on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -60,6 +61,19 @@ evaluate paths on one NVIDIA card and check them.
    FIT_MIN_PSNR_GAIN_DB. `fit_resume_deterministic`: the same with
    trainer.deterministic_kernels on for FIT_DET_STEPS steps; the resumed
    run's losses and final parameters must equal the first run's exactly.
+
+8. The data path and the command line (`data_cli_phase`, in a temporary
+   directory, each part under a time budget): the native library and the
+   JPEG route (nvJPEG on a host without libjpeg), a 360x640 batch decoded
+   against its source and LANCZOS-rescaled; RE10K-format chunks from a seed
+   (train: 2 scenes x 30 frames, test: 2 x 60 on camera paths the index
+   generator accepts); `transplat_tpu_torch.main` generate-index, train
+   (CLI_TRAIN_STEPS steps at full width with the default 4 forked loader
+   workers; validations read the test split; launch counts reset just
+   before and read just after: all twelve kernels), test on its checkpoint
+   (PSNR, SSIM, LPIPS for both scenes), bench (its JSON line printed as it
+   is; its peak memory and tile pairs on an earlier line), and the
+   loader's examples per second with 0 and 4 workers.
 
 Prints JSON records, then the card's name and power limit as nvidia-smi
 gives them, a `kernels` record, and as the last line
@@ -1148,6 +1162,231 @@ def fit_resume_deterministic(dev, records: list[dict]) -> None:
           "parameters_bit_identical": True, "launches": launches})
 
 
+# Budgets (seconds) of the data-and-CLI phase's parts: a part that runs past
+# its budget fails instead of waiting (a loader that never yields, a stuck worker).
+DATA_BUDGET_S = {"native": 120, "chunks": 180, "generate_index": 120, "train": 420, "test": 180, "bench": 300,
+                 "loader": 240}
+# nvJPEG's chroma upsampling is not libjpeg's: a decode is held against the
+# source pixels of the images its route encoded at quality 95, 4:2:0 (mean
+# absolute error, of 1). Measured on an H100 machine (nvJPEG, 12.8 toolkit):
+# 2.48-2.58 / 255 on chunks.panorama_frames; a decoder that shifts or
+# swaps channels reads tens of levels.
+JPEG_MAE_TOL = 3.0 / 255.0
+TRAIN_SCENES, TRAIN_FRAMES, TEST_SCENES, TEST_FRAMES = 2, 30, 2, 60
+CLI_TRAIN_STEPS = 4
+LOADER_BATCHES = 12
+
+
+class _Budget:
+    """`with _Budget(part, times):` raises TimeoutError once the part has run
+    DATA_BUDGET_S[part] seconds (SIGALRM), and records its seconds in `times`."""
+
+    def __init__(self, part: str, times: dict):
+        self.part, self.times = part, times
+
+    def _expired(self, signum, frame):
+        raise TimeoutError(f"data phase: part {self.part!r} ran past its {DATA_BUDGET_S[self.part]} s budget")
+
+    def __enter__(self):
+        import signal
+
+        self.previous = signal.signal(signal.SIGALRM, self._expired)
+        signal.alarm(DATA_BUDGET_S[self.part])
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, self.previous)
+        self.times[self.part] = time.perf_counter() - self.t0
+        return False
+
+
+def _main_quiet(argv: list[str]) -> tuple[int, str]:
+    """transplat_tpu_torch.main in this process; (exit code, what it printed)."""
+    import contextlib
+    import io
+
+    from transplat_tpu_torch.main import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(argv)
+    return rc, out.getvalue()
+
+
+def data_cli_phase(dev, records: list[dict]) -> None:
+    """The data path and the command line at full re10k width, in a temporary
+    directory: the native library and the JPEG route (one 360x640 batch
+    decoded against its source and LANCZOS-rescaled), RE10K-format chunks
+    from a seed written with that route's encoder, then
+    `main generate-index` (every test scene gets an entry), `main train`
+    (CLI_TRAIN_STEPS steps over the chunks with the default 4 forked
+    workers; a validation reads a scene of the test split; a checkpoint;
+    all twelve kernels launch), `main test` on that checkpoint (finite
+    PSNR, SSIM, LPIPS for both test scenes), `main bench` (its line printed
+    as is; every number finite and positive, `device` the card), and the
+    loader's examples per second with 0 and 4 workers beside a training
+    step's ms. Each part runs under its budget (DATA_BUDGET_S)."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from transplat_tpu_torch import kernels, native
+    from transplat_tpu_torch.config import load_config
+    from transplat_tpu_torch.dataset import chunks
+    from transplat_tpu_torch.training import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    times: dict[str, float] = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # main train writes outputs/latest-run under the working directory
+        try:
+            # 1. the native library and the JPEG route
+            with _Budget("native", times):
+                route = native.jpeg_route()  # builds and loads the route's library and the resizes
+                source = chunks.panorama_frames(6, (360, 640), seed=SEED)
+                blobs = native.encode_jpeg_batch(source, quality=95)
+                native.decode_jpeg_batch(blobs)  # warm
+                t0 = time.perf_counter()
+                decoded = native.decode_jpeg_batch(blobs)
+                decode_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                small = native.resize_lanczos_batch(decoded, (256, 455))
+                lanczos_ms = (time.perf_counter() - t0) * 1e3
+                mae = float(np.abs(decoded.astype(np.float64) - source).mean()) / 255.0
+                require(decoded.shape == source.shape and small.shape == (6, 256, 455, 3), "data: decoded shapes")
+                require(mae <= JPEG_MAE_TOL, f"data: {route} decode differs from its source by {mae} > {JPEG_MAE_TOL}")
+                truncated = blobs[0][: len(blobs[0]) // 2]
+                try:
+                    native.decode_jpeg_batch([truncated])
+                    raise RuntimeError("check failed: data: a truncated JPEG decoded without an error")
+                except ValueError:
+                    pass
+            emit({"phase": "data_native", "jpeg_route": route, "images": 6, "shape": [360, 640],
+                  "decode_ms": decode_ms, "lanczos_to_256x455_ms": lanczos_ms, "decode_mean_abs_err": mae,
+                  "tolerance": JPEG_MAE_TOL, "quality": 95, "seconds": times["native"]})
+
+            # 2. chunks from a seed: the keys of the two splits differ
+            data = Path(tmp) / "re10k"
+            with _Budget("chunks", times):
+                for i in range(TRAIN_SCENES):  # one chunk file each: two of the four workers read one
+                    chunks.write_chunk(data / "train" / f"{i:06d}.torch",
+                                       [chunks.make_scene(f"train_{i}", TRAIN_FRAMES, seed=SEED + i)])
+                test_keys = [f"test_{i}" for i in range(TEST_SCENES)]
+                chunks.write_chunk(data / "test" / "000000.torch",
+                                   [chunks.make_scene(k, TEST_FRAMES, seed=SEED + 100 + i) for i, k in enumerate(test_keys)])
+
+            # 3. generate-index
+            index = Path(tmp) / "index.json"
+            with _Budget("generate_index", times):
+                rc, out = _main_quiet(["generate-index", "--dataset-root", str(data), "--output", str(index)])
+            entries = json.loads(index.read_text())
+            require(rc == 0 and sorted(entries) == test_keys and all(entries[k] for k in test_keys),
+                    f"data: generate-index gave {entries}")
+
+            # 4. train over the chunks, at full width, with the default workers
+            run = Path(tmp) / "run"
+            cfg = load_config("re10k")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            with _Budget("train", times):
+                rc, out = _main_quiet(["train", "--dataset-root", str(data), "--max-steps", str(CLI_TRAIN_STEPS),
+                                       "--output", str(run)])
+                torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+            require(rc == 0, f"data: main train exited {rc}")
+            for name in FORWARD_KERNELS + BACKWARD_KERNELS:
+                require(launches.get(name, 0) > 0, f"data: kernel {name} was not launched by main train")
+            ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
+            require(f"step_{CLI_TRAIN_STEPS:08d}.pt" in ckpts, f"data: checkpoints {ckpts}")
+            lines = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+            vals = [r for r in lines if "val_psnr" in r]
+            val_scenes = sorted({s for r in vals for s in r["val_scenes"]})
+            require(vals and set(val_scenes) <= set(test_keys), f"data: validations read {val_scenes}")
+            require(all(np.isfinite(r["val_psnr"]) for r in vals), "data: a validation's PSNR is not finite")
+            require(f"JPEG route {route}, {cfg.trainer.num_workers} worker" in out, "data: main train's data line")
+            for rec in records:
+                rec["launches_cli_train"] = launches.get(rec["name"], 0)
+
+            # 5. test on that checkpoint
+            scores_dir = Path(tmp) / "scores"
+            kernels.reset_launches()
+            with _Budget("test", times):
+                rc, out = _main_quiet(["test", "--dataset-root", str(data), "--evaluation-index", str(index),
+                                       "--checkpoint", str(run / "checkpoints"), "--output", str(scores_dir)])
+                torch.cuda.synchronize()
+            test_launches = dict(kernels.launches)
+            scores = json.loads((scores_dir / "scores_per_scene.json").read_text())
+            require(rc == 0 and sorted(scores) == test_keys, f"data: main test scored {sorted(scores)}")
+            for key, s in scores.items():
+                require(all(np.isfinite(s[k]) for k in ("psnr", "ssim", "lpips")), f"data: scores of {key}: {s}")
+            for name in ("bin_count", "bin_scan", "bin_place", "composite", "deform_scores_p1", "deform_vectors"):
+                require(test_launches.get(name, 0) > 0, f"data: kernel {name} was not launched by main test")
+
+            # 6. bench
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            with _Budget("bench", times):
+                rc, out = _main_quiet(["bench"])
+            bench_launches = dict(kernels.launches)
+            bench_peak = torch.cuda.max_memory_allocated()
+            line = out.strip().splitlines()[-1]
+            print(line, flush=True)
+            bench = json.loads(line)
+            numbers = {k: v for k, v in bench.items() if isinstance(v, (int, float))}
+            require(rc == 0 and all(np.isfinite(v) and v > 0 for v in numbers.values()), f"data: bench {bench}")
+            require(bench["device"] == torch.cuda.get_device_name(0) and "train_step_ms" in bench,
+                    f"data: bench device {bench.get('device')}")
+            for name in ("bin_count", "bin_scan", "bin_place", "composite", "composite_bwd", "bin_bwd"):
+                require(bench_launches.get(name, 0) > 0, f"data: kernel {name} was not launched by the bench")
+            from transplat_tpu_torch import bench as port_bench
+            from transplat_tpu_torch.ops.rasterizer import api, binning
+
+            with torch.no_grad():
+                scene = port_bench.bench_scene(8, 131_072, dev, seed=0)
+                proj = api.project_views(scene["extrinsics"], scene["intrinsics"], scene["near"],
+                                         *(scene[k] for k in port_bench.GAUSSIAN_KEYS), (256, 256))
+                pairs = int(binning.bin_gaussians(binning.sort_by_depth(proj)[0], (256, 256), 16).idx.numel())
+            del scene, proj
+            emit({"phase": "bench", "peak_mem_bytes": bench_peak, "pairs": pairs, "views": 8, "gaussians": 131_072,
+                  "launches": bench_launches, "seconds": times["bench"]})
+
+            # 7. the loader's examples per second, 0 and 4 workers, at re10k shapes
+            loader = {}
+            with _Budget("loader", times):
+                for nw in (4, 0):  # a thread of the 0-worker loader keeps filling its queue after it
+                    lcfg = load_config("re10k", dataset=dict(roots=[str(data)]),
+                                       trainer=dict(num_workers=nw),
+                                       checkpointing=dict(save_dir=str(Path(tmp) / f"loader{nw}")))
+                    trainer = Trainer(lcfg, log_fn=lambda m: None, device=dev)
+                    it = trainer.train_batches()
+                    next(it)  # workers started, first batch in
+                    t0 = time.perf_counter()
+                    for _ in range(LOADER_BATCHES):
+                        batch = next(it)
+                    dt = time.perf_counter() - t0
+                    it.close()
+                    b = batch["context"]["image"].shape[0]
+                    require(batch["context"]["image"].shape == (b, 2, 256, 256, 3), "data: loader batch shape")
+                    loader[nw] = LOADER_BATCHES * b / dt
+        finally:
+            os.chdir(cwd)
+    emit({"phase": "data_cli", "jpeg_route": route, "seconds": times, "seconds_total": sum(times.values()),
+          "train_steps": CLI_TRAIN_STEPS, "train_launches": launches, "validated_scenes": val_scenes,
+          "checkpoints": ckpts, "index": entries, "test_scores": scores, "test_launches": test_launches,
+          "loader_examples_per_s": {"workers_0": loader[0], "workers_4": loader[4]},
+          "loader_ms_per_example": {"workers_0": 1e3 / loader[0], "workers_4": 1e3 / loader[4]},
+          "train_step_ms_bench_b1": bench["train_step_ms"], "examples_per_train_step": cfg.trainer.batch_size, "frames": {"train": [TRAIN_SCENES, TRAIN_FRAMES],
+                                                                        "test": [TEST_SCENES, TEST_FRAMES]}})
+
+
 def tiny_train_vs_cpu(dev) -> None:
     """One training step's loss and gradients (dropout off) at a tiny width:
     the kernels on the card against the plain versions on the CPU, from the
@@ -1330,6 +1569,9 @@ def main() -> int:
     # ---- fit -> validate -> checkpoint -> resume -> evaluate ----------------
     fit_slice(dev, records)
     fit_resume_deterministic(dev, records)
+
+    # ---- the data path and the command line ----------------------------------
+    data_cli_phase(dev, records)
 
     print(smi, flush=True)
     emit({"kernels": records})

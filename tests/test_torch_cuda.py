@@ -678,3 +678,55 @@ def test_fit_resume_with_the_switch_is_exact(dev):
     from chip_smoke import fit_resume_deterministic
 
     fit_resume_deterministic(dev, [])
+
+
+def test_jpeg_route_on_the_card_decodes_its_source(dev):
+    """The card machine's JPEG route (nvJPEG where the host has no libjpeg):
+    frames it encodes at quality 95 decode within chip_smoke.py's tolerance
+    of their source pixels, a truncated or foreign stream raises."""
+    from chip_smoke import JPEG_MAE_TOL
+    from transplat_tpu_torch import native
+    from transplat_tpu_torch.dataset import chunks
+
+    route = native.jpeg_route()
+    source = chunks.panorama_frames(4, (360, 640), seed=1)
+    blobs = native.encode_jpeg_batch(source, quality=95)
+    decoded = native.decode_jpeg_batch(blobs)
+    assert decoded.shape == source.shape and decoded.dtype == np.uint8
+    assert float(np.abs(decoded.astype(np.float64) - source).mean()) / 255.0 <= JPEG_MAE_TOL, route
+    assert all(native.jpeg_shape(b) == (360, 640) for b in blobs)
+    for bad in (blobs[0][: len(blobs[0]) // 2], b"not a jpeg"):
+        with pytest.raises(ValueError):
+            native.decode_jpeg_batch([bad])
+    if native.has_nvjpeg():
+        on_card = native.decode_jpeg_batch(blobs, route="nvjpeg")
+        assert float(np.abs(on_card.astype(np.float64) - source).mean()) / 255.0 <= JPEG_MAE_TOL
+
+
+def test_main_train_two_steps_over_chunks(dev, tmp_path, monkeypatch):
+    """`main train` on the card over seeded chunks: a narrow encoder at 64x64,
+    two forked loader workers, two steps; a checkpoint, and validations that
+    read the test split."""
+    import json
+
+    from transplat_tpu_torch.dataset import chunks
+    from transplat_tpu_torch.main import main
+
+    data = tmp_path / "data"
+    chunks.write_chunk(data / "train" / "000000.torch", [chunks.make_scene(f"tr_{i}", 30, seed=i) for i in range(2)])
+    chunks.write_chunk(data / "test" / "000000.torch", [chunks.make_scene("te_0", 60, seed=7)])
+    (tmp_path / "tiny.yaml").write_text(
+        "dataset: {image_shape: [64, 64]}\n"
+        "encoder: {d_feature: 16, num_depth_candidates: 16, costvolume_unet_feat_dim: 16,"
+        " costvolume_unet_channel_mult: [1, 1], costvolume_unet_attn_res: [2], depth_unet_feat_dim: 8,"
+        " depth_unet_attn_res: [4], depth_unet_channel_mult: [1, 1, 1], dav2_encoder: vits, dav2_input_size: 28,"
+        " gaussian_adapter: {sh_degree: 1}}\n"
+        "trainer: {batch_size: 1, num_workers: 2, val_check_interval: 0.5}\n"
+    )
+    monkeypatch.chdir(tmp_path)
+    run = tmp_path / "run"
+    assert main(["train", "--config", "tiny.yaml", "--dataset-root", str(data), "--max-steps", "2",
+                 "--output", str(run)]) == 0
+    assert (run / "checkpoints" / "step_00000002.pt").exists()
+    vals = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines() if "val_psnr" in x]
+    assert [r["step"] for r in vals] == [1, 2] and all(r["val_scenes"] == ["te_0"] for r in vals)

@@ -133,10 +133,16 @@ def test_port_imports_nothing_of_jax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'transplat_tpu')]\n"
         "print(bad)\n"
+        "print(' '.join(m for m in sys.modules if m.startswith('transplat_tpu_torch')))\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    imported = set(proc.stdout.splitlines()[-1].split())
+    # The data path, the command line and the bench are among the modules checked.
+    for name in ("dataset.types", "dataset.view_samplers", "dataset.shims", "dataset.re10k", "dataset.chunks",
+                 "native", "geometry.overlap", "evaluation.index_generator", "main", "bench", "bench_train_step"):
+        assert f"transplat_tpu_torch.{name}" in imported, name
     files = sorted((ROOT / "transplat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     for path in files:

@@ -446,7 +446,7 @@ def test_trainer_warm_start_validate_and_refusals(tmp_path):
     val = trainer.validate(warm, golden())
     assert set(val) == {"val_psnr"} and np.isfinite(val["val_psnr"]) and 3.0 < val["val_psnr"] < 40.0
     assert not warm.encoder.training  # validation and the step leave the encoder in eval mode
-    with pytest.raises(NotImplementedError, match="chunk dataset"):
+    with pytest.raises(FileNotFoundError, match="no training chunks"):  # fit(None) reads chunks: none here
         trainer.fit(None)
     with pytest.raises(NotImplementedError, match="lpips_weights"):
         Trainer(port_config._apply_overrides(cfg_a, dict(checkpointing=dict(lpips_weights="w.npy"))), device="cpu")
@@ -502,7 +502,7 @@ def test_evaluator_scores_match_jax(evaluator_pair):
     assert all(isinstance(v, (int, float)) for v in got.values())
 
 
-def test_evaluator_without_lpips_run_and_finalize(evaluator_pair, capsys):
+def test_evaluator_without_lpips_run_and_finalize(evaluator_pair, capsys, tmp_path):
     cfg, encoder, _, jax_evaluator, batch = evaluator_pair
     ev = Evaluator(cfg, encoder, device="cpu")
     scores, _ = ev.evaluate_batch(batch)
@@ -531,9 +531,11 @@ def test_evaluator_without_lpips_run_and_finalize(evaluator_pair, capsys):
     assert "averaged scores:" in capsys.readouterr().out
     with pytest.raises(ValueError, match="evaluation_index is not set"):
         ev.make_dataset()
-    indexed = port_config._apply_overrides(cfg, dict(test=dict(evaluation_index="index.json")))
-    with pytest.raises(NotImplementedError, match="chunk dataset"):
-        Evaluator(indexed, encoder, device="cpu").make_dataset()
+    index = tmp_path / "index.json"
+    index.write_text(json.dumps({"golden_planes": {"context": [0, 1], "target": [0]}}))
+    indexed = port_config._apply_overrides(cfg, dict(test=dict(evaluation_index=str(index))))
+    dataset = Evaluator(indexed, encoder, device="cpu").make_dataset()  # the test split through the index
+    assert dataset.stage == "test" and dataset.view_sampler.scenes() == ["golden_planes"]
     with pytest.raises(NotImplementedError, match="save_ply"):
         Evaluator(port_config._apply_overrides(cfg, dict(test=dict(save_ply=True))), encoder, device="cpu")
 

@@ -227,7 +227,24 @@ def test_render_matches_jax_pallas_interpret():
 
 
 def test_bf16_precision_not_ported():
+    """The bf16 tier is forward-only: under autograd it raises, as the JAX
+    tier's backward does (pallas_composite.py:497-501)."""
     scene = make_scene(7, views=1, g=16)
-    cam_t, g_t = _args(scene, torch.from_numpy)
-    with pytest.raises(NotImplementedError):
+    cam_t, g_t = _args(scene, lambda a: torch.from_numpy(a).requires_grad_())
+    with pytest.raises(NotImplementedError, match="inference-only"):
         api.render(*cam_t, (16, 16), torch.zeros(1, 3), *g_t, cfg=RasterizeConfig(precision="bf16"))
+    with pytest.raises(ValueError, match="unknown precision"):
+        api.render(*cam_t, (16, 16), torch.zeros(1, 3), *g_t, cfg=RasterizeConfig(precision="f16"))
+
+
+@pytest.mark.parametrize("tile", [8, 16])
+def test_bf16_tier_forward_equals_f32_bit_for_bit(tile):
+    """The port's bf16 tier runs the float32 kernels (the JAX tier's bf16
+    matmul routing is a TPU choice): its colours equal the f32 forward's."""
+    scene = make_scene(8, views=2, g=512)
+    cam_t, g_t = _args(scene, torch.from_numpy)
+    bg = torch.from_numpy(BG[:2])
+    with torch.no_grad():
+        f32 = api.render(*cam_t, (48, 40), bg, *g_t, cfg=RasterizeConfig(tile_size=tile))
+    tier = api.render(*cam_t, (48, 40), bg, *g_t, cfg=RasterizeConfig(tile_size=tile, precision="bf16"))
+    assert torch.equal(tier.color, f32.color) and torch.equal(tier.radii, f32.radii)

@@ -16,13 +16,20 @@ checkpoint -> evaluate), written for one H100:
   * training/    the training step (forward, backward, clip + Adam), the
                  learning-rate schedule, CheckpointManager and Trainer;
                  train_demo.py takes a few steps
-  * evaluation/  PSNR / SSIM and the Evaluator (scores and timing JSONs)
-  * dataset/     numpy batches: synthetic, the golden scene, DataLoader
+  * evaluation/  PSNR / SSIM, the Evaluator (scores and timing JSONs) and
+                 the evaluation-index generator
+  * dataset/     numpy batches: the RE10K chunk reader, view samplers and
+                 shims, DataLoader and MultiWorkerLoader, synthetic batches,
+                 the golden scene, seeded chunks for tests
+  * native/      JPEG decode (host libjpeg or the card's nvJPEG) and the
+                 image resizes, C++ built with the host compiler at first use
   * utils/       Benchmarker (synchronised stage timer)
   * config.py    the typed configuration tree and the experiment presets
   * csrc/        CUDA C++ sources, built with nvcc for sm_90a at first use
   * inference.py the serving path (encoder -> decode_splatting -> colour)
   * overfit_golden.py  the golden-scene convergence gate
+  * main.py      the command line: train, test, generate-index, bench
+  * bench.py     the rasterizer and training-step benchmark
 
 The entry points are exported here: render_novel_views, make_train_step,
 Trainer, CheckpointManager, Evaluator, compute_psnr, compute_ssim,

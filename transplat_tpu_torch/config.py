@@ -8,8 +8,8 @@ package has for the TPU and the port has no use for are left out
 (`EncoderCfg.s2d_unet`, see model/encoder.py). One field is the port's own:
 `TrainerCfg.deterministic_kernels`, which the JAX package needs no switch
 for (a Pallas grid runs in order, so its steps repeat their bits). `DatasetCfg` and `BoundedCfg`
-carry the JAX fields and defaults; their readers (the chunk dataset and the
-view samplers) are not ported yet.
+carry the JAX fields and defaults; their readers are dataset/re10k.py and
+dataset/view_samplers.py.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ class TrainerCfg:
     num_sanity_val_steps: int = 2
     val_save_media: bool = True  # accepted; the port's validation saves no media yet
     batch_size: int = 2  # per device
-    num_workers: int = 4  # data-loading worker processes (the chunk dataset's port will read it)
+    num_workers: int = 4  # forked data-loading worker processes (0: a prefetch thread)
     seed: int = 111123
     # Port only: training steps on the card repeat their bits (K2 and K8 in
     # their sorted modes, deterministic cuDNN; training/step.py). Not the

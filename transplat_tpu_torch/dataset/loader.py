@@ -1,11 +1,13 @@
-"""Host data loading: batching with a prefetch thread, the synthetic and
-golden-scene batches (numpy only), and the move of a batch to a device.
+"""Host data loading: batching with a prefetch thread or forked worker
+processes, the synthetic and golden-scene batches (numpy only), and the move
+of a batch to a device.
 
-Own copies of `_stack_examples`, `DataLoader`, `synthetic_batch`,
-`_plane_texture` and `golden_scene_batch` from transplat_tpu/dataset/loader.py,
-so the port needs nothing of the JAX package; the arrays are equal bit for
-bit (tests/test_torch_fit_eval.py). `MultiWorkerLoader` waits for the chunk
-dataset's port."""
+Own copies of `_stack_examples`, `DataLoader`, `MultiWorkerLoader`,
+`synthetic_batch`, `_plane_texture` and `golden_scene_batch` from
+transplat_tpu/dataset/loader.py, so the port needs nothing of the JAX
+package; the arrays are equal bit for bit (tests/test_torch_fit_eval.py,
+tests/test_torch_dataset.py). Where the JAX loaders can wait forever, these
+raise: a worker's error reaches the consumer."""
 
 from __future__ import annotations
 
@@ -45,7 +47,9 @@ def _stack_examples(examples: list) -> dict:
 
 
 class DataLoader:
-    """Batches an example iterator with background prefetch."""
+    """Batches an example iterator with background prefetch (a thread). An
+    error of the iterator reaches the consumer; closing the consumer's
+    iterator stops the thread."""
 
     def __init__(self, dataset, batch_size: int, prefetch: int = 4, drop_last: bool = True):
         self.dataset = dataset
@@ -55,7 +59,16 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[dict]:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
-        sentinel = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
 
         def worker():
             buf = []
@@ -63,22 +76,111 @@ class DataLoader:
                 for example in self.dataset:
                     buf.append(example)
                     if len(buf) == self.batch_size:
-                        q.put(_stack_examples(buf))
+                        if not put(("batch", _stack_examples(buf))):
+                            return
                         buf = []
                 if buf and not self.drop_last:
-                    q.put(_stack_examples(buf))
-            finally:
-                q.put(sentinel)
+                    put(("batch", _stack_examples(buf)))
+                put(("done", None))
+            except Exception as e:  # handed to the consumer, which raises it
+                put(("error", e))
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is sentinel:
-                break
-            yield item
+        try:
+            while True:
+                kind, item = q.get()
+                if kind == "error":
+                    raise item
+                if kind == "done":
+                    break
+                yield item
+        finally:
+            stop.set()
 
 
+class MultiWorkerLoader:
+    """Batches from forked worker processes through one shared queue.
+
+    `make_worker_iter(worker_id)` -> an iterable of examples; each worker
+    assembles whole batches from its own shard and pushes them (batch order
+    across workers is not deterministic). Forked workers inherit the
+    factory's closure, so state they must see change (the curriculum's step)
+    is shared explicitly: a multiprocessing.Value read inside the closure.
+
+    The workers fork from a process that may hold a CUDA context: they must
+    touch nothing on the card (numpy, torch.load of CPU tensors and the host
+    decoder only). `finish`, if given, runs in the consuming process on each
+    example the workers send, before the batch is stacked (the card's JPEG
+    decoder). A worker that raises or dies ends the iteration with a
+    RuntimeError (with its traceback). A worker whose iterable ends sends a
+    sentinel: with `finite` (one pass each) the iteration ends after every
+    worker's; without it (endless workers) the end of all of them raises."""
+
+    def __init__(
+        self,
+        make_worker_iter,
+        num_workers: int,
+        batch_size: int,
+        prefetch: int = 4,
+        finite: bool = False,
+        finish=None,
+    ):
+        self.make_worker_iter = make_worker_iter
+        self.num_workers = max(1, num_workers)
+        self.batch_size = batch_size
+        self.prefetch = prefetch
+        self.finite = finite
+        self.finish = finish
+
+    def _worker(self, worker_id: int, q) -> None:
+        import traceback
+
+        buf = []
+        try:
+            for example in self.make_worker_iter(worker_id):
+                buf.append(example)
+                if len(buf) == self.batch_size:
+                    q.put(("batch", buf if self.finish is not None else _stack_examples(buf)))
+                    buf = []
+            q.put(("done", worker_id))
+        except Exception:
+            q.put(("error", f"loader worker {worker_id} failed:\n{traceback.format_exc()}"))
+
+    def __iter__(self) -> Iterator[dict]:
+        import multiprocessing as mp
+
+        ctx = mp.get_context("fork")
+        q = ctx.Queue(maxsize=self.prefetch * self.num_workers)
+        procs = [ctx.Process(target=self._worker, args=(w, q), daemon=True) for w in range(self.num_workers)]
+        for p in procs:
+            p.start()
+        done = 0
+        try:
+            while done < self.num_workers:
+                try:
+                    kind, item = q.get(timeout=5.0)
+                except queue.Empty:
+                    killed = [(i, p.exitcode) for i, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                    if killed:
+                        raise RuntimeError(f"loader workers (id, exit code) {killed} died without a word") from None
+                    continue
+                if kind == "error":
+                    raise RuntimeError(item)
+                if kind == "done":
+                    done += 1
+                    if self.finite:
+                        continue
+                    if done == self.num_workers:
+                        raise RuntimeError(f"all {self.num_workers} loader workers ended: their examples ran out")
+                    continue
+                yield _stack_examples([self.finish(e) for e in item]) if self.finish is not None else item
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+            for p in procs:
+                p.join(timeout=2)
 
 
 def synthetic_batch(

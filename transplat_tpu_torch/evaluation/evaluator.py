@@ -3,10 +3,11 @@
 Counterpart of transplat_tpu/evaluation/evaluator.py: per scene PSNR / SSIM
 (/ LPIPS when an LPIPS module is given) and the dropped-pair count, encoder
 and decoder timed through the Benchmarker (timing skips the first
-`eval_time_skip_steps` scenes), per-scene and averaged score JSONs. What the
-JAX Evaluator has and this one does not yet: its own dataset (`run` takes
-any iterable of batches), the staged encoder timing, the workload analysis,
-videos and the PLY export.
+`eval_time_skip_steps` scenes), per-scene and averaged score JSONs. `run`
+reads the test chunks through the evaluation index (`test.evaluation_index`)
+one scene at a time, or any iterable of batches it is given. What the JAX
+Evaluator has and this one does not yet: the staged encoder timing, the
+workload analysis, saved images, videos and the PLY export.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import numpy as np
 import torch
 
 from ..config import RootCfg
-from ..dataset.loader import CONTEXT_KEYS, batch_to_device
+from ..dataset.loader import CONTEXT_KEYS, DataLoader, batch_to_device
+from ..dataset.re10k import ChunkDataset
+from ..dataset.view_samplers import ViewSamplerEvaluation
 from ..loss.vgg import LPIPS
 from ..model.decoder import decode_splatting
 from ..model.encoder import EncoderTranSplat
@@ -49,18 +52,17 @@ class Evaluator:
         self.benchmarker = Benchmarker(self.device)
         self.scores: dict[str, dict] = {}
 
-    def make_dataset(self, stage: str = "test"):
-        if self.cfg.test.evaluation_index is None:
+    def make_dataset(self, stage: str = "test") -> ChunkDataset:
+        """The chunks of `stage` with the context and target views of the evaluation index."""
+        index_path = self.cfg.test.evaluation_index
+        if index_path is None:
             raise ValueError(
                 "cfg.test.evaluation_index is not set: evaluation uses fixed "
                 "context/target indices (reference assets/evaluation_index_*"
                 ".json). Point it at an index JSON, or create one with "
-                "`python -m transplat_tpu.main generate-index`."
+                "`python -m transplat_tpu_torch.main generate-index`."
             )
-        raise NotImplementedError(
-            "the chunk dataset and the evaluation view sampler (dataset/re10k.py, dataset/view_samplers.py of the "
-            "JAX package) are not ported yet: give run() an iterable of batches"
-        )
+        return ChunkDataset(self.cfg.dataset, stage, ViewSamplerEvaluation(index_path))
 
     @torch.no_grad()
     def evaluate_batch(self, batch: dict) -> tuple[dict, np.ndarray]:
@@ -87,12 +89,13 @@ class Evaluator:
         return result, out.color.cpu().numpy()
 
     def run(self, loader: Iterable[dict] | None = None, max_scenes: int | None = None) -> dict:
-        """Score every batch of `loader` (one scene each), then `finalize`
-        into cfg.test.output_path."""
+        """Score every batch of `loader` (one scene each; default: the test
+        chunks through the evaluation index), then `finalize` into
+        cfg.test.output_path."""
         out_dir = Path(self.cfg.test.output_path)
         out_dir.mkdir(parents=True, exist_ok=True)
         if loader is None:
-            loader = self.make_dataset()
+            loader = DataLoader(self.make_dataset(), batch_size=1, drop_last=False)
         for i, batch in enumerate(loader):
             if max_scenes is not None and i >= max_scenes:
                 break

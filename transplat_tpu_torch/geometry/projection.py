@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+_EPS = 1.1920929e-07  # float32 machine epsilon
+
 
 def homogenize_points(points: torch.Tensor) -> torch.Tensor:
     """(..., d) xyz -> (..., d+1) xyz1."""
@@ -29,6 +31,28 @@ def transform_rigid(coords: torch.Tensor, transformation: torch.Tensor) -> torch
 
 def transform_cam2world(coords: torch.Tensor, extrinsics: torch.Tensor) -> torch.Tensor:
     return transform_rigid(coords, extrinsics)
+
+
+def transform_world2cam(coords: torch.Tensor, extrinsics: torch.Tensor) -> torch.Tensor:
+    return transform_rigid(coords, torch.linalg.inv(extrinsics))
+
+
+def project_camera_space(points: torch.Tensor, intrinsics: torch.Tensor, epsilon: float = _EPS,
+                         infinity: float = 1e8) -> torch.Tensor:
+    """Perspective-divide then apply intrinsics. points: (..., 3) -> (..., 2)."""
+    z = points[..., -1:]
+    points = points / (z + epsilon)
+    points = torch.nan_to_num(points, posinf=infinity, neginf=-infinity)
+    points = transform_rigid(points, intrinsics)
+    return points[..., :-1]
+
+
+def project(points: torch.Tensor, extrinsics: torch.Tensor, intrinsics: torch.Tensor, epsilon: float = _EPS):
+    """World points -> normalized image xy. Returns (xy, in_front_of_camera)."""
+    points = homogenize_points(points)
+    points = transform_world2cam(points, extrinsics)[..., :-1]
+    in_front = points[..., -1] >= 0
+    return project_camera_space(points, intrinsics, epsilon=epsilon), in_front
 
 
 def unproject(coordinates: torch.Tensor, z: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:

@@ -33,11 +33,17 @@ from .reference import render_reference_view
 MODES = ("auto", "reference")
 
 
+PRECISIONS = ("f32", "bf16")
+
+
 @dataclass(frozen=True)
 class RasterizeConfig:
     tile_size: int = 16
     mode: str = "auto"
-    # "f32" only; the JAX package's forward-only "bf16" tier is not ported yet.
+    # "f32": the differentiable default. "bf16": the JAX package's forward-only
+    # inference tier, which routes its TPU matmuls in bf16. The port has no
+    # such routing: the tier runs the float32 kernels (its colours equal the
+    # "f32" forward bit for bit) and, as in JAX, refuses autograd.
     precision: str = "f32"
 
 
@@ -75,8 +81,14 @@ def rasterize(
 ) -> torch.Tensor:
     """Composite projected Gaussians into (B, h, w, C) images; `deterministic`
     makes the backward repeat its bits (K2's sorted mode)."""
-    if cfg.precision != "f32":
-        raise NotImplementedError(f"precision={cfg.precision!r}: only 'f32' is ported")
+    if cfg.precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {cfg.precision!r}; expected one of {PRECISIONS}")
+    if cfg.precision == "bf16" and torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (*proj, background, feature)
+    ):
+        raise NotImplementedError(
+            "precision='bf16' rendering is an inference-only tier: differentiate with the default precision='f32'"
+        )
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}; expected one of {MODES}")
     if cfg.mode == "reference":
