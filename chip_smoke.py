@@ -74,6 +74,19 @@ check them.
    (PSNR, SSIM, LPIPS for both scenes), bench (its JSON line printed as it
    is; its peak memory and tile pairs on an earlier line), and the
    loader's examples per second with 0 and 4 workers.
+9. Evaluation from weight files (`eval_artifacts`, inside the data phase's
+   directory, on its test chunks and index, under its own budget): a seeded
+   encoder tree in the JAX layout and a seeded LPIPS state dict;
+   `transplat_tpu_torch.main test` with both, --save-image, stage timing,
+   the analysis, videos and PLY (launch counts reset just before and read
+   just after: K1, K3, K5 at P = 1 and 4, K7); the loaded encoder equal to
+   the tree bit for bit, the staged encoder to the fused one, each PLY to
+   the encoder's Gaussians, each video 30 frames at 256x256; a video's
+   30-view decode held against the plain versions; a second `main test`
+   from seed-init weights and `main compute-metrics` over both runs'
+   renders (the run against itself at PSNR_SATURATION_DB). Before the data
+   phase, `decode_30_views` times K1 and K3 at the shape of a video's
+   decode (30 views x 131,072 Gaussians) on the serving request's Gaussians.
 
 Prints JSON records, then the card's name and power limit as nvidia-smi
 gives them, a `kernels` record, and as the last line
@@ -1165,7 +1178,7 @@ def fit_resume_deterministic(dev, records: list[dict]) -> None:
 # Budgets (seconds) of the data-and-CLI phase's parts: a part that runs past
 # its budget fails instead of waiting (a loader that never yields, a stuck worker).
 DATA_BUDGET_S = {"native": 120, "chunks": 180, "generate_index": 120, "train": 420, "test": 180, "bench": 300,
-                 "loader": 240}
+                 "loader": 240, "eval_artifacts": 300}
 # nvJPEG's chroma upsampling is not libjpeg's: a decode is held against the
 # source pixels of the images its route encoded at quality 95, 4:2:0 (mean
 # absolute error, of 1). Measured on an H100 machine (nvJPEG, 12.8 toolkit):
@@ -1217,7 +1230,286 @@ def _main_quiet(argv: list[str]) -> tuple[int, str]:
     return rc, out.getvalue()
 
 
-def data_cli_phase(dev, records: list[dict]) -> None:
+# The staged encoder against the fused one on the card: the largest
+# |staged - fused| / (1 + |fused|) over the Gaussians' tensors. Both run the
+# same operations in the same order on one stream, so they agree bit for bit
+# where every kernel repeats its bits from call to call.
+STAGED_TOL = 1e-6
+# export_ply's rows of the Gaussians `main test` wrote against the same
+# transform of the encoder's output in this process: |a - b| / (1 + |b|).
+PLY_TOL = 1e-5
+# compute_psnr of an image against itself: -10 log10(0 + 1e-12).
+PSNR_SATURATION_DB = 120.0
+VGG_PLAN = ((3, 64), (64, 64), (64, 128), (128, 128), (128, 256), (256, 256), (256, 256), (256, 512), (512, 512),
+            (512, 512), (512, 512), (512, 512), (512, 512))
+VGG_FEATURE_INDEX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def seeded_lpips_state(naming: str = "torchvision", prefix: str = "", seed: int = 0) -> dict:
+    """A seeded lpips(net='vgg') state dict, as numpy arrays, in torchvision's
+    naming (`net.features.N`) or the lpips package's (`net.sliceK.N`), with
+    the heads `lin{i}.model.1.weight`: He-scaled convs, small biases, heads
+    in [0, 1)."""
+    rng = np.random.RandomState(seed)
+    state = {}
+    for (cin, cout), idx in zip(VGG_PLAN, VGG_FEATURE_INDEX):
+        if naming == "torchvision":
+            name = f"{prefix}net.features.{idx}"
+        else:
+            name = f"{prefix}net.slice{1 + sum(idx > b for b in (3, 8, 15, 22))}.{idx}"
+        state[f"{name}.weight"] = (rng.randn(cout, cin, 3, 3) * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
+        state[f"{name}.bias"] = (0.01 * rng.randn(cout)).astype(np.float32)
+    for i, ch in enumerate((64, 128, 256, 512, 512)):
+        state[f"{prefix}lin{i}.model.1.weight"] = rng.rand(1, ch, 1, 1).astype(np.float32)
+    return state
+
+
+def _flat_tree(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def decode_30_views(encoder, batch: dict, dev, smi: str) -> dict:
+    """K1 and K3 as a video's decode runs them: the Gaussians of `batch`'s
+    context views rendered into the 30 wobble cameras of
+    Evaluator.render_video in one call. Launches of one decode, tile pairs,
+    peak bytes, ms between CUDA events, and each kernel's device times
+    (`timings`: warm, cold, wrapper) beside the 4-view request's."""
+    from transplat_tpu_torch import kernels
+    from transplat_tpu_torch.dataset.loader import CONTEXT_KEYS, batch_to_device
+    from transplat_tpu_torch.evaluation.evaluator import video_cameras
+    from transplat_tpu_torch.model.decoder import decode_splatting
+    from transplat_tpu_torch.ops.rasterizer import api, binning, composite
+
+    ctx = batch_to_device(batch, dev)["context"]
+    extr, intr = (torch.from_numpy(x)[None].to(dev) for x in video_cameras(batch)["wobble"])
+    near = torch.full((1, 30), float(batch["context"]["near"][0, 0]), device=dev)
+    far = torch.full((1, 30), float(batch["context"]["far"][0, 0]), device=dev)
+    with torch.no_grad():
+        gaussians = encoder(*(ctx[k] for k in CONTEXT_KEYS))
+
+        def decode():
+            return decode_splatting(gaussians, extr, intr, near, far, IMAGE)
+
+        decode()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        decode()
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated() - held
+        proj = api.project_views(extr[0], intr[0], near[0], *(x.expand(30, *x.shape[1:]).contiguous() for x in gaussians),
+                                 IMAGE)
+        gfeat, colors = binning.sort_by_depth(proj)
+        lists = binning.bin_gaussians(gfeat, IMAGE)
+        bg = torch.zeros(30, 3, device=dev)
+        rec = {"phase": "decode_30_views", "card": smi, "views": 30, "gaussians": int(gaussians.means.shape[1]),
+               "pairs": int(lists.idx.numel()), "launches": launches, "peak_bytes_above_held": peak,
+               "decode_ms_events": time_ms(decode, iters=5, warmup=1),
+               "k1_bin_gaussians": timings(lambda: binning.bin_gaussians(gfeat, IMAGE), "bin_"),
+               "k3_composite": timings(lambda: composite._composite_fwd_cuda(gfeat, colors, lists, bg, IMAGE),
+                                       "composite_kernel")}
+    require(all(launches.get(k, 0) == 1 for k in ("bin_count", "bin_scan", "bin_place", "composite")),
+            f"decode_30_views: launches {launches}")
+    emit(rec)
+    return rec
+
+
+def eval_artifacts_phase(dev, tmp, data, index, smi: str) -> dict:
+    """Evaluation from weight files with every artifact, at full re10k width,
+    on the seeded test chunks of the data phase and its index: a seeded
+    encoder tree in the JAX layout and a seeded LPIPS state dict are written,
+    `main test` loads both and writes renders, videos, PLY, stage timing and
+    the analysis (launch counts reset just before and read just after: K1,
+    K3, K5 at P = 1 and 4, K7); the loaded encoder must equal the tree bit
+    for bit, the staged encoder the fused one (STAGED_TOL), each PLY the
+    encoder's Gaussians (PLY_TOL), each video 30 frames; a video's 30-view
+    decode is held against the plain versions (K1's lists against the
+    classic route's, K3 against the plain compositor) and measured (pairs,
+    peak bytes, ms between CUDA events; its kernels' device times come from
+    `decode_30_views`); then a second `main test` from seed-init weights
+    and `main compute-metrics` over both runs' renders."""
+    from pathlib import Path
+
+    from transplat_tpu_torch import kernels
+    from transplat_tpu_torch.config import CheckpointingCfg, load_config
+    from transplat_tpu_torch.convert import to_jax_tree
+    from transplat_tpu_torch.dataset.loader import CONTEXT_KEYS, DataLoader, batch_to_device
+    from transplat_tpu_torch.evaluation import Evaluator
+    from transplat_tpu_torch.evaluation.evaluator import video_cameras
+    from transplat_tpu_torch.evaluation.staged import STAGES, StagedEncoder
+    from transplat_tpu_torch.inference import init_random
+    from transplat_tpu_torch.model.decoder import decode_splatting
+    from transplat_tpu_torch.model.encoder import EncoderTranSplat
+    from transplat_tpu_torch.ops.rasterizer import api, binning, composite
+    from transplat_tpu_torch.training.schedule import make_lr_schedule
+    from transplat_tpu_torch.training.step import create_train_state, make_optimizer
+    from transplat_tpu_torch.utils.benchmarker import Benchmarker
+    from transplat_tpu_torch.utils.image_io import load_video
+    from transplat_tpu_torch.visualization.ply_export import ply_rows, read_ply
+
+    times: dict[str, float] = {}
+    tmp, data, index = Path(tmp), Path(data), Path(index)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _Budget("eval_artifacts", times):
+        t0 = time.perf_counter()
+        cfg = load_config("re10k", test=dict(evaluation_index=str(index)), dataset=dict(roots=[str(data)]))
+        seeded = EncoderTranSplat(cfg.encoder, device=dev)
+        init_random(seeded, SEED + 7)
+        tree = to_jax_tree(seeded)
+        del seeded
+        tree_path, lpips_path = tmp / "encoder_tree.npy", tmp / "lpips_vgg.npy"
+        np.save(tree_path, tree, allow_pickle=True)
+        np.save(lpips_path, seeded_lpips_state("torchvision", "", SEED + 8), allow_pickle=True)
+        write_s = time.perf_counter() - t0
+
+        out = tmp / "eval_weights"
+        weights = [f"checkpointing.pretrained_model={tree_path}", f"checkpointing.lpips_weights={lpips_path}"]
+        artifacts = ["test.stage_timing=true", "test.analyze=true", "test.save_video=true", "test.save_ply=true"]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, printed = _main_quiet(["test", "--dataset-root", str(data), "--evaluation-index", str(index),
+                                   "--output", str(out), "--save-image", *weights, *artifacts])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        require(rc == 0, f"eval_artifacts: main test exited {rc}")
+        require(f"loaded pretrained weights: model={tree_path}" in printed and "lpips: weights from" in printed,
+                "eval_artifacts: main test did not report the weight files")
+        for name in ("bin_count", "bin_scan", "bin_place", "composite", "deform_scores_p1", "deform_scores_p4",
+                     "deform_vectors"):
+            require(launches.get(name, 0) > 0, f"eval_artifacts: kernel {name} was not launched by main test")
+
+        # the loaded encoder is the tree, bit for bit
+        optimizer = make_optimizer(make_lr_schedule(cfg.optimizer.lr, 1000))
+        state = create_train_state(cfg.encoder, optimizer, None, device=dev, seed=0,
+                                   ckpt_cfg=CheckpointingCfg(pretrained_model=str(tree_path)))
+        encoder = state.encoder.eval()
+        loaded, want = _flat_tree(to_jax_tree(encoder)), _flat_tree(tree)
+        require(sorted(loaded) == sorted(want) and all(np.array_equal(loaded[k], want[k]) for k in want),
+                "eval_artifacts: the loaded encoder differs from the tree")
+        del state, tree, loaded, want
+
+        scores = json.loads((out / "scores_per_scene.json").read_text())
+        scenes = sorted(scores)
+        entries = json.loads(index.read_text())
+        require(len(scenes) == 2 and all(np.isfinite(scores[s]["lpips"]) for s in scenes),
+                f"eval_artifacts: scores {scores}")
+        bench_json = json.loads((out / "benchmark.json").read_text())
+        require(set(STAGES) <= set(bench_json["summary"]), f"eval_artifacts: benchmark.json has {sorted(bench_json['summary'])}")
+        for name in ("analysis_per_scene.json", "analysis_avg.json"):
+            require((out / name).is_file(), f"eval_artifacts: no {name}")
+
+        ev = Evaluator(cfg, encoder, None, device=dev)
+        ply_err, staged_err, stage_records, decode30 = 0.0, None, None, None
+        for batch in DataLoader(ev.make_dataset(), batch_size=1, drop_last=False):
+            scene = batch["scene"][0]
+            n_targets = len(entries[scene]["target"])
+            pngs = sorted(p.name for p in (out / scene / "color").glob("*.png"))
+            require(pngs == [f"{t:04d}.png" for t in range(n_targets)], f"eval_artifacts: {scene} PNGs {pngs}")
+            for name in ("wobble", "interpolation"):
+                frames = load_video(out / scene / f"{name}.mp4")
+                require(frames.shape == (30, *IMAGE, 3), f"eval_artifacts: {scene} {name}.mp4 is {frames.shape}")
+            ctx = batch_to_device(batch, dev)["context"]
+            with torch.no_grad():
+                gaussians, aux = encoder(*(ctx[k] for k in CONTEXT_KEYS), return_aux=True)
+            names, rows = read_ply(out / scene / "gaussians.ply")
+            want_names, want_rows = ply_rows(
+                gaussians.means[0].cpu().numpy(), aux["scales"][0].cpu().numpy(), aux["rotations"][0].cpu().numpy(),
+                gaussians.harmonics[0].cpu().numpy(), gaussians.opacities[0].cpu().numpy())
+            require(names == want_names and rows.shape == (2 * IMAGE[0] * IMAGE[1], len(names)),
+                    f"eval_artifacts: {scene} PLY holds {rows.shape}")
+            err = float(np.max(np.abs(rows - want_rows) / (1.0 + np.abs(want_rows))))
+            require(err <= PLY_TOL, f"eval_artifacts: {scene} PLY differs from the encoder's Gaussians by {err}")
+            ply_err = max(ply_err, err)
+            if staged_err is not None:
+                continue
+
+            # the staged encoder against the fused one, every stage timed and measured
+            staged = StagedEncoder(encoder)
+            bench = Benchmarker(dev)
+            staged.run(ctx, benchmarker=bench)  # warm
+            bench = Benchmarker(dev)
+            staged_g, _ = staged.run(ctx, benchmarker=bench)
+            staged_err = max(float(((a - b).abs() / (1.0 + b.abs())).max()) for a, b in zip(staged_g, gaussians))
+            require(staged_err <= STAGED_TOL, f"eval_artifacts: staged vs fused encoder {staged_err} > {STAGED_TOL}")
+            summary, memory, flops = bench.summarize(), staged.memory_analysis(), staged.cost_analysis()
+            stage_records = {t: {"device_ms": summary[t]["mean_ms"], "peak_bytes": memory[t]["peak_bytes_in_use"],
+                                 "peak_rise_bytes": memory[t]["stage_peak_delta"], "flops": flops[t]["flops"]}
+                             for t in STAGES}
+
+            # a video's 30-view decode: launches, pairs, peak bytes, device ms; K1 and K3 against plain versions
+            extr, intr = (torch.from_numpy(x)[None].to(dev) for x in video_cameras(batch)["wobble"])
+            near = torch.full((1, 30), float(batch["context"]["near"][0, 0]), device=dev)
+            far = torch.full((1, 30), float(batch["context"]["far"][0, 0]), device=dev)
+
+            def decode():
+                return decode_splatting(gaussians, extr, intr, near, far, IMAGE, cfg=cfg.decoder)
+
+            with torch.no_grad():
+                decode()
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launches()
+                color = decode().color
+                torch.cuda.synchronize()
+                decode_launches = {k: kernels.launches.get(k, 0) for k in ("bin_count", "bin_scan", "bin_place", "composite")}
+                peak = torch.cuda.max_memory_allocated() - held
+                require(all(v == 1 for v in decode_launches.values()), f"eval_artifacts: 30-view decode {decode_launches}")
+                proj = api.project_views(extr[0], intr[0], near[0],
+                                         *(x.expand(30, *x.shape[1:]).contiguous() for x in gaussians), IMAGE)
+                gfeat, colors = binning.sort_by_depth(proj)
+                lists = binning.bin_gaussians(gfeat, IMAGE)
+                classic = binning.bin_gaussians_plain(gfeat, IMAGE)
+                require(torch.equal(lists.idx, classic.idx) and torch.equal(lists.ranges, classic.ranges),
+                        "eval_artifacts: K1's 30-view lists differ from the classic route's")
+                bg = torch.zeros(30, 3, device=dev)
+                plain, _, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg, IMAGE)
+                k3_err, k3_share = require_composite(color[0], plain, "eval_artifacts: 30-view decode")
+                pairs = int(lists.idx.numel())
+                del proj, gfeat, colors, lists, classic, plain
+                decode_ms = time_ms(decode, iters=5, warmup=1)
+            decode30 = {"views": 30, "gaussians": int(gaussians.means.shape[1]), "pairs": pairs, "launches": decode_launches,
+                        "peak_bytes_above_held": peak, "decode_ms_events": decode_ms,
+                        "k3_max_abs_err_vs_plain": k3_err, "k3_share_beyond_1e-5": k3_share,
+                        "k1_lists_equal_classic_route": True}
+
+        # a second run from seed-init weights, then compute-metrics over both runs' renders
+        seeded_out = tmp / "eval_seeded"
+        rc, _ = _main_quiet(["test", "--dataset-root", str(data), "--evaluation-index", str(index),
+                             "--output", str(seeded_out), "--save-image"])
+        require(rc == 0, f"eval_artifacts: the seed-init main test exited {rc}")
+        metrics_dir = tmp / "metrics"
+        rc, _ = _main_quiet(["compute-metrics", "--ground-truth", str(out), "--method", f"weights={out}",
+                             "--method", f"seeded={seeded_out}", "--output", str(metrics_dir)])
+        summary = json.loads((metrics_dir / "summary.json").read_text())
+        require(rc == 0 and sorted(summary) == ["seeded", "weights"], f"eval_artifacts: compute-metrics {summary}")
+        require(abs(summary["weights"]["psnr"] - PSNR_SATURATION_DB) < 1e-3,
+                f"eval_artifacts: PSNR of the renders against themselves {summary['weights']['psnr']}")
+        require(np.isfinite(summary["seeded"]["psnr"]) and summary["seeded"]["psnr"] < PSNR_SATURATION_DB,
+                f"eval_artifacts: seed-init PSNR {summary['seeded']['psnr']}")
+        del encoder, ev
+    record = {"phase": "eval_artifacts", "card": smi, "scenes": scenes, "launches": launches,
+              "stages": stage_records, "stage_ms_main_test": {t: bench_json["summary"][t]["mean_ms"] for t in STAGES},
+              "staged_vs_fused_max_rel_err": staged_err, "staged_tolerance": STAGED_TOL,
+              "ply_max_rel_err": ply_err, "ply_tolerance": PLY_TOL, "decode_30_views": decode30,
+              "scores": scores, "compute_metrics": summary, "write_weights_s": write_s, "main_test_s": test_s,
+              "seconds": times["eval_artifacts"]}
+    emit(record)
+    return record
+
+
+def data_cli_phase(dev, records: list[dict], smi: str) -> None:
     """The data path and the command line at full re10k width, in a temporary
     directory: the native library and the JPEG route (one 360x640 batch
     decoded against its source and LANCZOS-rescaled), RE10K-format chunks
@@ -1229,7 +1521,8 @@ def data_cli_phase(dev, records: list[dict]) -> None:
     PSNR, SSIM, LPIPS for both test scenes), `main bench` (its line printed
     as is; every number finite and positive, `device` the card), and the
     loader's examples per second with 0 and 4 workers beside a training
-    step's ms. Each part runs under its budget (DATA_BUDGET_S)."""
+    step's ms, and `eval_artifacts_phase` on the same chunks and index. Each
+    part runs under its budget (DATA_BUDGET_S)."""
     import os
     import tempfile
     from pathlib import Path
@@ -1376,6 +1669,9 @@ def data_cli_phase(dev, records: list[dict]) -> None:
                     b = batch["context"]["image"].shape[0]
                     require(batch["context"]["image"].shape == (b, 2, 256, 256, 3), "data: loader batch shape")
                     loader[nw] = LOADER_BATCHES * b / dt
+
+            # 8. evaluation from weight files with every artifact, on these chunks
+            eval_artifacts_phase(dev, tmp, data, index, smi)
         finally:
             os.chdir(cwd)
     emit({"phase": "data_cli", "jpeg_route": route, "seconds": times, "seconds_total": sum(times.values()),
@@ -1516,6 +1812,7 @@ def main() -> int:
         require(err <= 1e-5, f"renderer vs oracle: {err}")
         emit({"phase": "oracle_check", "gaussians": 2048, "views": 2, "h": 64, "w": 64, "max_abs_err": err, "tolerance": 1e-5})
     check_binning_scenes(dev)
+    decode_30_views(encoder, batch, dev, smi)
 
     # ---- the slice at a tiny width: card kernels vs CPU plain versions -----
     from transplat_tpu_torch.model.adapter import GaussianAdapterCfg
@@ -1571,7 +1868,7 @@ def main() -> int:
     fit_resume_deterministic(dev, records)
 
     # ---- the data path and the command line ----------------------------------
-    data_cli_phase(dev, records)
+    data_cli_phase(dev, records, smi)
 
     print(smi, flush=True)
     emit({"kernels": records})

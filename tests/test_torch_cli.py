@@ -4,7 +4,9 @@ Each mode runs at a tiny size with --device cpu, in this process
 (`main(argv)`), over chunks written from a seed: generate-index against the
 JAX package's command line on the same chunks, train (a narrow encoder at
 64x64 from a YAML override) with its held-out validation, test on its
-checkpoint, the refusals, and the bench at a tiny size.
+checkpoint (also with --save-image), test from weight files with every
+artifact and compute-metrics against the JAX command line, the refusals,
+and the bench at a tiny size.
 """
 
 import json
@@ -156,15 +158,82 @@ def test_tiny_train_validates_held_out_then_test_scores(data_root, tmp_path, mon
     assert sorted(per_scene) == ["te_0", "te_1"]
     for s in per_scene.values():
         assert all(np.isfinite(s[k]) for k in ("psnr", "ssim", "lpips")) and s["render_overflow"] == 0
-    with pytest.raises(NotImplementedError, match="utils/image_io"):
-        main(["test", "--config", "tiny.yaml", "--save-image", "--evaluation-index", str(index), "--device", "cpu"])
+    # --save-image writes each scene's rendered targets (utils/image_io.py)
+    assert main(["test", "--config", "tiny.yaml", "--dataset-root", str(data_root), "--evaluation-index", str(index),
+                 "--checkpoint", str(run / "checkpoints"), "--output", str(scores_dir), "--save-image",
+                 "--device", "cpu"]) == 0
+    pngs = sorted(str(p.relative_to(scores_dir)) for p in scores_dir.rglob("*.png"))
+    assert pngs == [f"te_{i}/color/{t:04d}.png" for i in range(2) for t in range(len(json.loads(index.read_text())["te_0"]["target"]))]
 
 
 def test_compute_metrics_names_what_it_waits_for(capsys):
-    assert main(["compute-metrics", "--ground-truth", "gt", "--method", "m=dir"]) != 0
-    err = capsys.readouterr().err
-    for name in ("evaluation/metric_computer.py", "utils/image_io.py", "visualization/"):
-        assert name in err
+    """Without --ground-truth or a --method, compute-metrics refuses and names
+    both, as the JAX command line does (an argparse error, exit code 2)."""
+    for argv in (["compute-metrics", "--method", "m=dir"], ["compute-metrics", "--ground-truth", "gt"]):
+        with pytest.raises(SystemExit) as exit_info:
+            main(argv)
+        assert exit_info.value.code == 2
+        err = capsys.readouterr().err
+        assert "compute-metrics requires --ground-truth and at least one --method name=dir" in err
+    with pytest.raises(SystemExit):
+        main(["test", "--device", "cpu", "test.no_such_field=1"])  # an override of no config field
+    assert "no_such_field" in capsys.readouterr().err
+
+
+def test_test_from_weight_files_with_every_artifact_then_compute_metrics(data_root, tmp_path, monkeypatch, capsys):
+    """`main test` from weight files (a seeded encoder tree in the JAX layout and
+    LPIPS weights, given as config overrides) with every artifact; then
+    `compute-metrics` over its renders, against the JAX command line's
+    summary.json on the same directories (PSNR 1e-4 dB, SSIM 5e-5)."""
+    from chip_smoke import seeded_lpips_state as lpips_state_dict
+    from transplat_tpu_torch.config import load_config
+    from transplat_tpu_torch.convert import to_jax_tree
+    from transplat_tpu_torch.inference import init_random
+    from transplat_tpu_torch.model.encoder import EncoderTranSplat
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "tiny.yaml").write_text(TINY_YAML)
+    seeded = EncoderTranSplat(load_config("re10k", yaml_path=tmp_path / "tiny.yaml").encoder, device="cpu")
+    init_random(seeded, 17)
+    np.save(tmp_path / "tree.npy", to_jax_tree(seeded), allow_pickle=True)
+    np.save(tmp_path / "lpips.npy", lpips_state_dict("torchvision", seed=2), allow_pickle=True)
+    index = tmp_path / "index.json"
+    assert main(["generate-index", "--dataset-root", str(data_root), "--output", str(index), "--device", "cpu"]) == 0
+    common = ["--config", "tiny.yaml", "--dataset-root", str(data_root), "--evaluation-index", str(index),
+              "--device", "cpu", f"checkpointing.lpips_weights={tmp_path / 'lpips.npy'}"]
+    out = tmp_path / "weights"
+    assert main(["test", *common, "--output", str(out), "--save-image", f"checkpointing.pretrained_model={tmp_path / 'tree.npy'}",
+                 "test.stage_timing=true", "test.analyze=true", "test.save_video=true", "test.save_ply=true"]) == 0
+    printed = capsys.readouterr().out
+    assert f"loaded pretrained weights: model={tmp_path / 'tree.npy'}" in printed and "lpips: weights from" in printed
+    files = sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file())
+    for scene in ("te_0", "te_1"):
+        for name in ("color/0000.png", "wobble.mp4", "interpolation.mp4", "gaussians.ply"):
+            assert f"{scene}/{name}" in files
+    for name in ("analysis_avg.json", "analysis_per_scene.json", "benchmark.json", "scores_all_avg.json",
+                 "scores_per_scene.json"):
+        assert name in files
+    assert "encoder_4b_cost_volume_matching" in json.loads((out / "benchmark.json").read_text())["summary"]
+    assert all(np.isfinite(s["lpips"]) for s in json.loads((out / "scores_per_scene.json").read_text()).values())
+    # a second method: the seed-init weights of `test` without a weight file
+    other = tmp_path / "seeded"
+    assert main(["test", *common, "--output", str(other), "--save-image"]) == 0
+
+    methods = ["--method", f"weights={out}", "--method", f"seeded={other}"]
+    assert main(["compute-metrics", "--ground-truth", str(out), *methods, "--output", str(tmp_path / "m"),
+                 "--device", "cpu"]) == 0
+    ours = json.loads((tmp_path / "m" / "summary.json").read_text())
+    assert ours["weights"]["psnr"] == pytest.approx(120.0)  # identical images: -10 log10(1e-12)
+    assert ours["weights"]["ssim"] == pytest.approx(1.0) and "lpips" not in ours["weights"]  # no lpips_fn, as in JAX
+    proc = jax_cli(["compute-metrics", "--ground-truth", str(out), *methods, "--output", str(tmp_path / "j")], tmp_path)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    theirs = json.loads((tmp_path / "j" / "summary.json").read_text())
+    assert sorted(ours) == sorted(theirs) == ["seeded", "weights"]
+    for m in ours:
+        assert sorted(ours[m]) == sorted(theirs[m]) == ["psnr", "ssim"]
+        # SSIM's variances are differences of float32 filter sums: at 64x64 the two
+        # packages' filters part by 1.9e-5 (measured), so 5e-5 here.
+        assert abs(ours[m]["psnr"] - theirs[m]["psnr"]) < 1e-4 and abs(ours[m]["ssim"] - theirs[m]["ssim"]) < 5e-5
 
 
 TRAIN_TINY = dict(encoder_cfg=tiny_encoder_cfg(), image_shape=(64, 64), inner=1, iters=1)

@@ -730,3 +730,67 @@ def test_main_train_two_steps_over_chunks(dev, tmp_path, monkeypatch):
     assert (run / "checkpoints" / "step_00000002.pt").exists()
     vals = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines() if "val_psnr" in x]
     assert [r["step"] for r in vals] == [1, 2] and all(r["val_scenes"] == ["te_0"] for r in vals)
+
+
+# Evaluation from weight files (the staged encoder, the videos' 30-view decodes).
+
+
+def _tiny_encoder(dev, seed=0):
+    from transplat_tpu_torch.inference import init_random
+    from transplat_tpu_torch.model.encoder import EncoderTranSplat
+    from transplat_tpu_torch.train_demo import tiny_encoder_cfg
+
+    encoder = EncoderTranSplat(tiny_encoder_cfg(), device=dev)
+    init_random(encoder, seed)
+    return encoder
+
+
+def test_staged_encoder_matches_fused_on_the_card(dev):
+    """The staged encoder runs the fused encoder's operations stage by stage,
+    with a synchronisation and two CUDA events between stages: the same
+    Gaussians (STAGED_TOL), every stage timed and measured on the card."""
+    from chip_smoke import STAGED_TOL
+    from transplat_tpu_torch.dataset import synthetic_batch
+    from transplat_tpu_torch.evaluation.staged import STAGES, StagedEncoder
+    from transplat_tpu_torch.utils.benchmarker import Benchmarker
+
+    encoder = _tiny_encoder(dev)
+    batch = synthetic_batch(0, image_shape=(64, 64), num_target=1)
+    ctx = [torch.as_tensor(batch["context"][k], device=dev) for k in ("image", "intrinsics", "extrinsics", "near", "far")]
+    kernels.reset_launches()
+    with torch.no_grad():
+        fused = encoder(*ctx)
+    fused_launches = dict(kernels.launches)
+    bench = Benchmarker(dev)
+    staged = StagedEncoder(encoder)
+    kernels.reset_launches()
+    gaussians, aux = staged.run(batch["context"], benchmarker=bench)
+    assert dict(kernels.launches) == fused_launches  # the same kernels, as often
+    for a, b in zip(gaussians, fused):
+        err = float(((a - b).abs() / (1.0 + b.abs())).max())
+        assert err <= STAGED_TOL, err
+    summary = bench.summarize()
+    assert list(summary) == STAGES and all(s["mean_ms"] > 0 for s in summary.values())
+    memory = staged.memory_analysis()
+    assert all(memory[t]["peak_bytes_in_use"] >= memory[t]["bytes_in_use_before"] for t in STAGES)
+    assert staged.cost_analysis()["encoder_2_backbone"]["flops"] > 0
+
+
+def test_thirty_view_decode_matches_plain(dev):
+    """A video's decode: 30 target views of one scene in one call, the kernels
+    (K1's lists, K3) against the plain compositor on the same lists and the
+    classic binning route."""
+    cams, gs = scene(20_000, 30, dev, 5)
+    image_shape = (256, 256)
+    bg = torch.zeros(30, 3, device=dev)
+    kernels.reset_launches()
+    out = api.render(*cams, image_shape, bg, *gs)
+    assert kernels.launches.get("composite", 0) == 1 and kernels.launches.get("bin_place", 0) == 1
+    gfeat, colors = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, image_shape))
+    lists = binning.bin_gaussians(gfeat, image_shape)
+    classic = binning.bin_gaussians_plain(gfeat, image_shape)
+    assert torch.equal(lists.idx, classic.idx) and torch.equal(lists.ranges, classic.ranges)
+    assert lists.idx.numel() > 0 and lists.ranges.dtype == torch.int32
+    plain, _, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
+    torch.cuda.synchronize()
+    require_composite(out.color, plain, "30-view decode")

@@ -141,7 +141,9 @@ def test_port_imports_nothing_of_jax():
     imported = set(proc.stdout.splitlines()[-1].split())
     # The data path, the command line and the bench are among the modules checked.
     for name in ("dataset.types", "dataset.view_samplers", "dataset.shims", "dataset.re10k", "dataset.chunks",
-                 "native", "geometry.overlap", "evaluation.index_generator", "main", "bench", "bench_train_step"):
+                 "native", "geometry.overlap", "evaluation.index_generator", "main", "bench", "bench_train_step",
+                 "training.pretrained", "evaluation.staged", "evaluation.metric_computer", "utils.analysis",
+                 "utils.image_io", "visualization.ply_export", "visualization.trajectory", "visualization.layout"):
         assert f"transplat_tpu_torch.{name}" in imported, name
     files = sorted((ROOT / "transplat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20

@@ -448,7 +448,9 @@ def test_trainer_warm_start_validate_and_refusals(tmp_path):
     assert not warm.encoder.training  # validation and the step leave the encoder in eval mode
     with pytest.raises(FileNotFoundError, match="no training chunks"):  # fit(None) reads chunks: none here
         trainer.fit(None)
-    with pytest.raises(NotImplementedError, match="lpips_weights"):
+    # a weight file that is not there fails at construction, naming it (weight files load since the port of
+    # training/pretrained.py; tests/test_torch_pretrained.py loads them)
+    with pytest.raises(FileNotFoundError, match="w.npy"):
         Trainer(port_config._apply_overrides(cfg_a, dict(checkpointing=dict(lpips_weights="w.npy"))), device="cpu")
     # a data iterator that ends stops the run and still saves
     cfg_c = tiny_cfg(tmp_path / "c", num_sanity_val_steps=0)
@@ -536,8 +538,11 @@ def test_evaluator_without_lpips_run_and_finalize(evaluator_pair, capsys, tmp_pa
     indexed = port_config._apply_overrides(cfg, dict(test=dict(evaluation_index=str(index))))
     dataset = Evaluator(indexed, encoder, device="cpu").make_dataset()  # the test split through the index
     assert dataset.stage == "test" and dataset.view_sampler.scenes() == ["golden_planes"]
-    with pytest.raises(NotImplementedError, match="save_ply"):
-        Evaluator(port_config._apply_overrides(cfg, dict(test=dict(save_ply=True))), encoder, device="cpu")
+    # the artifact options are accepted (tests/test_torch_evaluation_artifacts.py runs them); stage_timing
+    # puts the staged encoder in place
+    staged = Evaluator(port_config._apply_overrides(cfg, dict(test=dict(save_ply=True, stage_timing=True))), encoder,
+                       device="cpu")
+    assert staged._staged is not None and staged._staged.encoder is encoder and ev._staged is None
 
 
 def test_benchmarker_times_and_summarises(tmp_path):

@@ -12,23 +12,29 @@ checkpoint -> evaluate), written for one H100:
   * model/       nn.Modules: multi-view backbone, frozen DAv2 prior, depth
                  predictor, Gaussian adapter, splatting decoder; init.py
                  draws initial parameters as the Flax initialisers do
-  * loss/        MSE, depth smoothness, LPIPS (VGG16, float32)
+  * loss/        MSE, depth smoothness, LPIPS (VGG16, float32) and its
+                 weight loader
   * training/    the training step (forward, backward, clip + Adam), the
-                 learning-rate schedule, CheckpointManager and Trainer;
-                 train_demo.py takes a few steps
-  * evaluation/  PSNR / SSIM, the Evaluator (scores and timing JSONs) and
-                 the evaluation-index generator
+                 learning-rate schedule, CheckpointManager, Trainer and the
+                 weight-file loader (pretrained.py); train_demo.py takes a
+                 few steps
+  * evaluation/  PSNR / SSIM, the Evaluator (scores, timing JSONs, renders,
+                 videos, PLY, analysis), the staged encoder, the offline
+                 MetricComputer and the evaluation-index generator
   * dataset/     numpy batches: the RE10K chunk reader, view samplers and
                  shims, DataLoader and MultiWorkerLoader, synthetic batches,
                  the golden scene, seeded chunks for tests
   * native/      JPEG decode (host libjpeg or the card's nvJPEG) and the
                  image resizes, C++ built with the host compiler at first use
-  * utils/       Benchmarker (synchronised stage timer)
+  * utils/       Benchmarker (stage timer: CUDA events on the card),
+                 device_time, the workload analysis, image and video files
+  * visualization/  camera trajectories, PLY export, layout, colour map
   * config.py    the typed configuration tree and the experiment presets
   * csrc/        CUDA C++ sources, built with nvcc for sm_90a at first use
   * inference.py the serving path (encoder -> decode_splatting -> colour)
   * overfit_golden.py  the golden-scene convergence gate
-  * main.py      the command line: train, test, generate-index, bench
+  * main.py      the command line: train, test, generate-index, bench,
+                 compute-metrics
   * bench.py     the rasterizer and training-step benchmark
 
 The entry points are exported here: render_novel_views, make_train_step,

@@ -9,11 +9,15 @@ convert.load_jax_variables fills them from {"params": lpips_params}.
 
 Calibrated LPIPS weights are not part of the repository: the module starts
 from a random initialisation (same compute as calibrated weights, not a
-calibrated perceptual metric).
+calibrated perceptual metric). `load_lpips_weights` fills it from converted
+lpips(net='vgg') torch weights, and `init_lpips` builds a loaded module from
+such a state dict, as `init_lpips_params` of the JAX package's
+training/step.py does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -85,3 +89,62 @@ class LPIPS(nn.Module):
             head = getattr(self, f"lin{i}").abs()
             total = total + torch.mean(torch.sum(diff * head[None, :, None, None], dim=1), dim=(-2, -1))
         return total
+
+
+def _conv_index(key: str) -> int | None:
+    """The torchvision feature index of a VGG conv weight key, or None."""
+    parts = key.split(".")
+    if not key.endswith(".weight") or "model" in parts:
+        return None
+    if not ("features" in parts or any(p.startswith("slice") for p in parts)):
+        return None
+    try:
+        return int(parts[-2])  # torchvision's feature index (globally unique)
+    except ValueError:
+        return None
+
+
+def load_lpips_weights(lpips: LPIPS, torch_state_dict: dict, strict: bool = True) -> LPIPS:
+    """Fill `lpips` (in place) from converted lpips(net='vgg') torch weights.
+
+    torch_state_dict: a flat dict of arrays in either naming, torchvision's
+    (`features.N.weight`) or the lpips package's slices (`net.sliceK.N.weight`,
+    N torchvision's global feature index), under any prefix (a Lightning
+    checkpoint's `losses.*.lpips.`). The convs fill conv0, conv1, ... in the
+    order of their feature index; the heads are the keys ending
+    `lin{i}.model.1.weight`. strict: exactly 13 convs and 5 heads, else
+    ValueError (a partial load would leave random convs behind)."""
+    conv_keys = sorted((k for k in torch_state_dict if _conv_index(k) is not None), key=_conv_index)
+    if strict and len(conv_keys) != 13:
+        raise ValueError(f"expected 13 VGG conv weights, matched {len(conv_keys)}: {conv_keys[:4]}...")
+    updates = []
+    for i, wk in enumerate(conv_keys):
+        conv = getattr(lpips.vgg, f"conv{i}")
+        bk = wk[: -len("weight")] + "bias"
+        updates += [(conv.weight, torch_state_dict[wk]), (conv.bias, torch_state_dict[bk])]
+    n_heads = 0
+    for i in range(len(_STAGES)):
+        suffix = f"lin{i}.model.1.weight"
+        for key in torch_state_dict:
+            if key.endswith(suffix):
+                updates.append((getattr(lpips, f"lin{i}"), np.asarray(torch_state_dict[key]).reshape(-1)))
+                n_heads += 1
+                break
+    if strict and n_heads != 5:
+        raise ValueError(f"expected 5 LPIPS linear heads, matched {n_heads}")
+    with torch.no_grad():
+        for tensor, value in updates:
+            value = torch.as_tensor(np.asarray(value, dtype=np.float32))
+            if tuple(value.shape) != tuple(tensor.shape):
+                raise ValueError(f"LPIPS weight of shape {tuple(value.shape)} where {tuple(tensor.shape)} is expected")
+            tensor.copy_(value)
+    return lpips
+
+
+def init_lpips(torch_state: dict | None, device="cuda") -> LPIPS | None:
+    """A frozen LPIPS on `device` loaded from converted torch weights, or None
+    when there are none: a random-init LPIPS is a noise term in the loss,
+    so the trainer leaves the perceptual term out without weights."""
+    if torch_state is None:
+        return None
+    return load_lpips_weights(LPIPS(device=device), torch_state)

@@ -9,13 +9,23 @@ Counterpart of transplat_tpu/main.py, with its parser and every flag, plus
                   outputs/runs/<stamp> (or --output) and the outputs/latest-run
                   link; `--checkpoint latest` follows the previous run
   test            evaluate a checkpoint (--checkpoint, a run's checkpoints
-                  directory) on the test chunks through --evaluation-index;
-                  scores into --output
+                  directory) or weight files (checkpointing.pretrained_model,
+                  .dav2_weights, .lpips_weights: .npy trees in the JAX
+                  package's layout) on the test chunks through
+                  --evaluation-index; scores and, as asked, renders
+                  (--save-image), videos, PLY, stage timing and analysis into
+                  --output
   generate-index  an evaluation index by view overlap over <root>/test/*.torch
                   (--output, default outputs/evaluation_index.json;
                   --video-index for dense targets)
   bench           the rasterizer and training-step benchmark (bench.py)
-  compute-metrics not ported yet: exits non-zero and names what it waits for
+  compute-metrics PSNR / SSIM of saved renders (--method name=dir, repeatable)
+                  against --ground-truth's, into --output/summary.json
+                  (default outputs/metrics); --side-by-side, --animate
+
+Besides the flags, config fields can be set as `section.field=value`
+arguments (the value read as YAML), after the --config file: e.g.
+`checkpointing.pretrained_model=tree.npy test.save_ply=true`.
 
 `main(argv)` runs in the caller's process and returns the exit code, so a
 script can read the kernels' launch counts around it.
@@ -25,7 +35,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import sys
 
 import torch
 
@@ -56,7 +65,26 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--analyze", action="store_true", help="test: per-scene workload analysis")
     parser.add_argument("--stage-timing", action="store_true", help="test: stage-resolved encoder timing")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("overrides", nargs="*", default=[], metavar="section.field=value",
+                        help="config fields, each value read as YAML")
     return parser
+
+
+def parse_overrides(items: list[str]) -> dict:
+    """["a.b=1", "c.d=x"] -> {"a": {"b": 1}, "c": {"d": "x"}}, values read as YAML."""
+    import yaml
+
+    nested: dict = {}
+    for item in items:
+        key, sep, value = item.partition("=")
+        if not sep or not key:
+            raise ValueError(f"config override {item!r} is not of the form section.field=value")
+        node = nested
+        *parents, leaf = key.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = yaml.safe_load(value)
+    return nested
 
 
 def _device(name: str) -> torch.device:
@@ -106,33 +134,59 @@ def _train(cfg, args, device: torch.device) -> int:
 
 
 def _test(cfg, args, device: torch.device) -> int:
+    import numpy as np
+
     from .evaluation.evaluator import Evaluator
-    from .loss.vgg import LPIPS
+    from .loss.vgg import LPIPS, init_lpips
     from .training.checkpointing import CheckpointManager
     from .training.schedule import make_lr_schedule
     from .training.step import create_train_state, make_optimizer
 
-    if cfg.test.save_image:
-        raise NotImplementedError("--save-image: saving renders needs utils/image_io.py, which is not ported yet")
-    if cfg.checkpointing.pretrained_model or cfg.checkpointing.dav2_weights or cfg.checkpointing.lpips_weights:
-        raise NotImplementedError(
-            "checkpointing.pretrained_model / dav2_weights / lpips_weights: loading weight files "
-            "(training/pretrained.py of the JAX package) is not ported yet"
-        )
+    ckpt = cfg.checkpointing
     optimizer = make_optimizer(make_lr_schedule(cfg.optimizer.lr, 1000))
-    state = create_train_state(cfg.encoder, optimizer, None, device=device, seed=0)
-    if cfg.checkpointing.load:
-        restored = CheckpointManager(cfg.checkpointing.load).restore(state)
+    state = create_train_state(cfg.encoder, optimizer, None, device=device, seed=0, ckpt_cfg=ckpt)
+    if ckpt.pretrained_model or ckpt.dav2_weights:
+        print(f"loaded pretrained weights: model={ckpt.pretrained_model} dav2={ckpt.dav2_weights}", flush=True)
+    if ckpt.load:
+        restored = CheckpointManager(ckpt.load).restore(state)
         if restored is None:
-            raise FileNotFoundError(f"no checkpoint under {cfg.checkpointing.load}")
+            raise FileNotFoundError(f"no checkpoint under {ckpt.load}")
         state = restored
         print(f"loaded checkpoint at step {state.step}", flush=True)
     state.encoder.eval()
-    # LPIPS with random-init weights (calibrated ones load with the pretrained loader, not ported yet).
-    lpips = LPIPS(device=device, seed=0)
-    print("lpips: random-init weights", flush=True)
-    scores = Evaluator(cfg, state.encoder, lpips, device=device).run(max_scenes=args.max_scenes)
+    lpips = state.lpips  # a Lightning tree's embedded LPIPS, if any
+    if ckpt.lpips_weights:
+        lpips = init_lpips(np.load(ckpt.lpips_weights, allow_pickle=True).item(), device)
+        print(f"lpips: weights from {ckpt.lpips_weights}", flush=True)
+    elif lpips is not None:
+        print("lpips: weights embedded in the pretrained tree", flush=True)
+    else:
+        # Without weights the port still scores LPIPS, with a seeded random
+        # initialisation (the JAX command line leaves LPIPS out then).
+        lpips = LPIPS(device=device, seed=0)
+        print("lpips: random-init weights", flush=True)
+    evaluator = Evaluator(cfg, state.encoder, lpips, device=device)
+    scores = evaluator.run(max_scenes=args.max_scenes, save_images=cfg.test.save_image)
     print(json.dumps(dict(list(scores.items())[:5]), indent=2), flush=True)
+    return 0
+
+
+def _compute_metrics(args, device: torch.device) -> int:
+    from pathlib import Path
+
+    from .evaluation.metric_computer import MetricComputer, MetricComputerCfg
+
+    mc_cfg = MetricComputerCfg(
+        methods=dict(m.split("=", 1) for m in args.method),
+        ground_truth=args.ground_truth,
+        output_path=args.output or "outputs/metrics",
+        side_by_side=args.side_by_side,
+        animate_side_by_side=args.animate,
+    )
+    computer = MetricComputer(mc_cfg, device=device)
+    for scene in sorted(p.name for p in Path(args.ground_truth).iterdir() if p.is_dir()):
+        computer.process_scene(scene)
+    print(json.dumps(computer.summarize(), indent=2), flush=True)
     return 0
 
 
@@ -158,18 +212,19 @@ def _generate_index(cfg, args, device: torch.device) -> int:
 
 def main(argv=None) -> int:
     parser = build_parser()
-    args = parser.parse_args(argv)
+    args = parser.parse_intermixed_args(argv)
     if args.mode == "compute-metrics":
-        print(
-            "compute-metrics is not ported yet: it waits for evaluation/metric_computer.py, utils/image_io.py and "
-            "visualization/ (transplat_tpu/ has them)",
-            file=sys.stderr,
-        )
-        return 2
+        if not args.ground_truth or not args.method:
+            parser.error("compute-metrics requires --ground-truth and at least one --method name=dir")
+        return _compute_metrics(args, _device(args.device))
 
-    from .config import load_config
+    from .config import _apply_overrides, load_config
 
     cfg = load_config(args.experiment, yaml_path=args.config)
+    try:
+        cfg = _apply_overrides(cfg, parse_overrides(args.overrides))
+    except (AttributeError, TypeError, ValueError) as e:
+        parser.error(f"config overrides {args.overrides}: {e}")
     if args.dataset_root:
         cfg.dataset.roots = [args.dataset_root]
     if args.evaluation_index:

@@ -8,6 +8,7 @@ pair dim. Public tensors are NHWC like the JAX module; convolutions run NCHW.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -20,6 +21,12 @@ from .cam_encoder import CamParamEncoder
 from .layers import LN_EPS, conv, gelu, group_norm, to_nchw, to_nhwc
 from .unet import UNetModel
 from .uv_transformer import UVMatcher
+
+
+def no_stage(tag: str) -> contextlib.AbstractContextManager:
+    """The default `stage` of the encoder's and the depth predictor's forward:
+    no context around any stage."""
+    return contextlib.nullcontext()
 
 
 def img2world_matrices(intrinsics_px: torch.Tensor, extrinsics: torch.Tensor) -> torch.Tensor:
@@ -190,22 +197,30 @@ class DepthPredictor(nn.Module):
         self, features, cnn_features, images, intrinsics, extrinsics, near, far, da_depth, dino_feature,
         generator=None,
         deterministic_kernels: bool = False,
+        stage=no_stage,
     ):
         """features/cnn_features (b, v, hf, wf, C); images (b, v, H, W, 3);
         da_depth (b, v, H, W, 1); dino_feature (b, v, hd, wd, cd); generator:
         the dropout masks' source in training mode; deterministic_kernels:
-        the samplers' backward kernels repeat their bits.
+        the samplers' backward kernels repeat their bits; stage: tag ->
+        context manager entered around each of the stages 4a-4f.
         Returns depths, densities (b, v, H*W, 1, gpp), raw_gaussians (b, v, H*W, raw), aux."""
         b, v, hf, wf, _ = features.shape
         big_h, big_w = images.shape[2:4]
-        prep = self.prep(features, intrinsics, extrinsics, near, far, dino_feature)
-        corr = self.matching(prep, (hf, wf), generator, deterministic_kernels)
-        raw_corr = self.cost_unet(corr, features)
-        coarse = self.coarse_depth(raw_corr, prep["disp_candidates"], (big_h, big_w))
-        refine_out, proj_feat_fullres = self.refine(features, cnn_features, images, da_depth, coarse)
-        depths, densities, raw_gaussians = self.heads(
-            refine_out, proj_feat_fullres, images, coarse["fullres_disps"], near, far
-        )
+        with stage("encoder_4a_prep_features"):
+            prep = self.prep(features, intrinsics, extrinsics, near, far, dino_feature)
+        with stage("encoder_4b_cost_volume_matching"):
+            corr = self.matching(prep, (hf, wf), generator, deterministic_kernels)
+        with stage("encoder_4c_cost_volume_unet"):
+            raw_corr = self.cost_unet(corr, features)
+        with stage("encoder_4d_coarse_depth"):
+            coarse = self.coarse_depth(raw_corr, prep["disp_candidates"], (big_h, big_w))
+        with stage("encoder_4e_depth_refine_unet"):
+            refine_out, proj_feat_fullres = self.refine(features, cnn_features, images, da_depth, coarse)
+        with stage("encoder_4f_gaussian_head"):
+            depths, densities, raw_gaussians = self.heads(
+                refine_out, proj_feat_fullres, images, coarse["fullres_disps"], near, far
+            )
         aux = {
             "pdf": to_nhwc(coarse["pdf"]).reshape(b, v, hf, wf, self.num_depth_candidates),
             "coarse_disps": coarse["coarse_disps"].reshape(b, v, hf, wf),

@@ -6,6 +6,10 @@ volume) -> Gaussian adapter. The module starts in eval mode (BatchNorm
 running statistics, no dropout) and honours train(): batch statistics, and
 dropout masks from the generator given to forward. DAv2 is frozen: its
 parameters take no gradient and it runs under no_grad.
+
+forward runs the encoder as the ten stages of the reference's taxonomy
+(`STAGES`, encoder_1 ... encoder_5); a caller may wrap each one in a context
+of its own (`stage`), which is how evaluation/staged.py times them.
 """
 
 from __future__ import annotations
@@ -21,8 +25,22 @@ from ..ops.interpolate import resize_bilinear
 from .adapter import GaussianAdapterCfg, adapt_gaussians
 from .backbone.multiview import BackboneMultiview, normalize_images
 from .dav2 import DAV2_CONFIGS, DepthAnythingV2
-from .depth_predictor import DepthPredictor, img2world_matrices
+from .depth_predictor import DepthPredictor, img2world_matrices, no_stage
 from .types import Gaussians
+
+
+STAGES = [
+    "encoder_1_prep_intrinsics",
+    "encoder_2_backbone",
+    "encoder_3_depth_anything",
+    "encoder_4a_prep_features",
+    "encoder_4b_cost_volume_matching",
+    "encoder_4c_cost_volume_unet",
+    "encoder_4d_coarse_depth",
+    "encoder_4e_depth_refine_unet",
+    "encoder_4f_gaussian_head",
+    "encoder_5_gaussian_adapter",
+]
 
 
 @dataclass(frozen=True)
@@ -102,50 +120,72 @@ class EncoderTranSplat(nn.Module):
         global_step: int = 0,  # position in the opacity warm-up
         generator: torch.Generator | None = None,  # dropout masks (training mode)
         deterministic_kernels: bool = False,  # the samplers' backward kernels repeat their bits
-    ) -> Gaussians:
+        return_aux: bool = False,
+        stage=no_stage,  # tag -> context manager entered around each of the STAGES
+    ):
+        """Gaussians; with `return_aux`, (Gaussians, aux) where aux holds the
+        depth predictor's `pdf` (b, v, hf, wf, D), `coarse_disps` and
+        `depth_candidates` (b, v, D), and `depths` (b, v, H, W), `scales`
+        (b, v*H*W, 3), `rotations` (b, v*H*W, 4, xyzw) and the backbone's
+        matching `features` (b, v, hf, wf, C), NHWC as the JAX encoder lays
+        them out."""
         cfg = self.cfg
         b, v, h, w, _ = images.shape
 
-        # 1. Backbone on full-resolution img->world matrices.
-        img2world = img2world_matrices(unnormalize_intrinsics(intrinsics, (h, w)), extrinsics)
-        trans_features, cnn_features = self.backbone(images, img2world, attn_splits=cfg.multiview_trans_attn_split)
+        # 1. Full-resolution img->world matrices for the backbone.
+        with stage("encoder_1_prep_intrinsics"):
+            img2world = img2world_matrices(unnormalize_intrinsics(intrinsics, (h, w)), extrinsics)
+        with stage("encoder_2_backbone"):
+            trans_features, cnn_features = self.backbone(images, img2world, attn_splits=cfg.multiview_trans_attn_split)
 
         # 2. Frozen DAv2 prior: normalized, channels shuffled [2, 0, 1], resized
         #    (align corners) to the DAv2 input size and back, min-max per view.
-        da_in = normalize_images(images)[..., [2, 0, 1]]
-        size = cfg.dav2_input_size
-        da_in = resize_bilinear(da_in.reshape(b * v, h, w, 3), (size, size), align_corners=True)
-        with torch.no_grad():
-            da_depth, dino_feature = self.da_model(da_in)
-        da_depth = resize_bilinear(da_depth[..., None], (h, w), align_corners=True)
-        flat = da_depth.reshape(b * v, -1)
-        lo = flat.min(dim=-1, keepdim=True).values
-        hi = flat.max(dim=-1, keepdim=True).values
-        da_depth = ((flat - lo) / (hi - lo + 1e-8)).reshape(b, v, h, w, 1)
-        dino_feature = dino_feature.reshape(b, v, *dino_feature.shape[1:])
+        with stage("encoder_3_depth_anything"):
+            da_in = normalize_images(images)[..., [2, 0, 1]]
+            size = cfg.dav2_input_size
+            da_in = resize_bilinear(da_in.reshape(b * v, h, w, 3), (size, size), align_corners=True)
+            with torch.no_grad():
+                da_depth, dino_feature = self.da_model(da_in)
+            da_depth = resize_bilinear(da_depth[..., None], (h, w), align_corners=True)
+            flat = da_depth.reshape(b * v, -1)
+            lo = flat.min(dim=-1, keepdim=True).values
+            hi = flat.max(dim=-1, keepdim=True).values
+            da_depth = ((flat - lo) / (hi - lo + 1e-8)).reshape(b, v, h, w, 1)
+            dino_feature = dino_feature.reshape(b, v, *dino_feature.shape[1:])
 
-        # 3. Depth predictor.
-        depths, densities, raw_gaussians, _ = self.depth_predictor(
+        # 3. Depth predictor (stages 4a-4f).
+        depths, densities, raw_gaussians, aux = self.depth_predictor(
             trans_features, cnn_features, images, intrinsics, extrinsics, near, far, da_depth, dino_feature,
-            generator=generator, deterministic_kernels=deterministic_kernels,
+            generator=generator, deterministic_kernels=deterministic_kernels, stage=stage,
         )
 
         # 4. Gaussian adapter: rays + depths -> world Gaussians.
-        r = h * w
-        xy, _ = sample_image_grid((h, w), device=images.device)
-        xy = xy.reshape(1, 1, r, 2)
-        raw = raw_gaussians.reshape(b, v, r, cfg.num_surfaces, -1)[:, :, :, 0, :]
-        offset_xy = torch.sigmoid(raw[..., :2])
-        pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=raw.dtype, device=raw.device)
-        coords = xy + (offset_xy - 0.5) * pixel_size
-        opacities = map_pdf_to_opacity(densities[..., 0, 0], cfg.opacity_mapping, global_step) / cfg.gaussians_per_pixel
-        adapter = cfg.gaussian_adapter
-        out = adapt_gaussians(
-            adapter, extrinsics, intrinsics, coords, depths[..., 0, 0], opacities, raw[..., 2:], (h, w)
-        )
-        return Gaussians(
-            means=out["means"].reshape(b, v * r, 3),
-            covariances=out["covariances"].reshape(b, v * r, 3, 3),
-            harmonics=out["harmonics"].reshape(b, v * r, 3, adapter.d_sh),
-            opacities=out["opacities"].reshape(b, v * r),
-        )
+        with stage("encoder_5_gaussian_adapter"):
+            r = h * w
+            xy, _ = sample_image_grid((h, w), device=images.device)
+            xy = xy.reshape(1, 1, r, 2)
+            raw = raw_gaussians.reshape(b, v, r, cfg.num_surfaces, -1)[:, :, :, 0, :]
+            offset_xy = torch.sigmoid(raw[..., :2])
+            pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=raw.dtype, device=raw.device)
+            coords = xy + (offset_xy - 0.5) * pixel_size
+            opacities = map_pdf_to_opacity(densities[..., 0, 0], cfg.opacity_mapping, global_step) / cfg.gaussians_per_pixel
+            adapter = cfg.gaussian_adapter
+            out = adapt_gaussians(
+                adapter, extrinsics, intrinsics, coords, depths[..., 0, 0], opacities, raw[..., 2:], (h, w)
+            )
+            gaussians = Gaussians(
+                means=out["means"].reshape(b, v * r, 3),
+                covariances=out["covariances"].reshape(b, v * r, 3, 3),
+                harmonics=out["harmonics"].reshape(b, v * r, 3, adapter.d_sh),
+                opacities=out["opacities"].reshape(b, v * r),
+            )
+        if not return_aux:
+            return gaussians
+        aux = {
+            **aux,
+            "depths": depths.reshape(b, v, h, w),
+            "scales": out["scales"].reshape(b, v * r, 3),
+            "rotations": out["rotations"].reshape(b, v * r, 4),
+            "features": trans_features,
+        }
+        return gaussians, aux

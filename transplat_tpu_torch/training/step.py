@@ -25,7 +25,7 @@ import torch
 from torch.profiler import record_function
 
 from ..loss.losses import LossCfg, compute_losses
-from ..loss.vgg import LPIPS
+from ..loss.vgg import LPIPS, init_lpips
 from ..model.decoder import DecoderCfg, decode_splatting
 from ..model.encoder import EncoderCfg, EncoderTranSplat
 from ..dataset.loader import CONTEXT_KEYS
@@ -102,15 +102,27 @@ def create_train_state(
     lpips: LPIPS | None = None,
     device: str | torch.device = "cuda",
     seed: int | None = None,
+    ckpt_cfg=None,
 ) -> TrainState:
     """A fresh state on `device`: a new EncoderTranSplat, step 0, zero Adam
     moments. With a `seed` the parameters are drawn as the JAX package's
     initialisers draw them (model/init.py), for training from scratch;
     without one they keep PyTorch's default initialisation, for a caller who
-    loads or draws the weights afterwards."""
+    loads or draws the weights afterwards.
+
+    ckpt_cfg: a CheckpointingCfg whose `pretrained_model` / `dav2_weights`
+    .npy trees are merged over those parameters (training/pretrained.py).
+    A Lightning tree's embedded LPIPS becomes the state's LPIPS when no
+    `lpips` is given."""
     state = TrainState(step=0, encoder=EncoderTranSplat(encoder_cfg, device=device), lpips=lpips, opt_state=AdamState())
     if seed is not None:
         init_parameters(state.encoder, seed)
+    if ckpt_cfg is not None and (ckpt_cfg.pretrained_model or ckpt_cfg.dav2_weights):
+        from .pretrained import load_pretrained_variables
+
+        lpips_state = load_pretrained_variables(state.encoder, ckpt_cfg)
+        if lpips_state and state.lpips is None:
+            state.lpips = init_lpips(lpips_state, device)
     state.opt_state = optimizer.init(state.trainable())
     return state
 

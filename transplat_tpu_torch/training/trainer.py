@@ -4,11 +4,13 @@ Counterpart of transplat_tpu/training/trainer.py on one device, in one
 process (shard 0 of 1). With no `data_iter`, `fit` reads the training chunks
 (`<root>/train/*.torch`) through the bounded view sampler, in
 `trainer.num_workers` forked workers or a prefetch thread, and validates on a
-held-out stream read from `<root>/test/*.torch` when there is one. What the
-JAX Trainer has and this one does not yet: the device mesh and
-`shard_batch`, loading pretrained / DAv2 / LPIPS weight files (give a loaded
-LPIPS module to the constructor instead), and the validation media (picture
-grid, orthographic projections, wobble video).
+held-out stream read from `<root>/test/*.torch` when there is one. The
+weight files of `checkpointing` load as in the JAX Trainer: the
+`pretrained_model` / `dav2_weights` trees merge over the initial parameters,
+and `lpips_weights` (or a Lightning tree's embedded LPIPS) puts the
+perceptual term into the loss. What the JAX Trainer has and this one does
+not yet: the device mesh and `shard_batch`, and the validation media
+(picture grid, orthographic projections, wobble video).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import time
 from pathlib import Path
 from typing import Callable, Iterator
 
+import numpy as np
 import torch
 
 from .. import native
@@ -27,7 +30,7 @@ from ..dataset.loader import CONTEXT_KEYS, DataLoader, MultiWorkerLoader, batch_
 from ..dataset.re10k import ChunkDataset, finish_example
 from ..dataset.view_samplers import ViewSamplerBounded
 from ..evaluation.metrics import compute_psnr
-from ..loss.vgg import LPIPS
+from ..loss.vgg import LPIPS, init_lpips
 from ..model.decoder import decode_splatting
 from .checkpointing import CheckpointManager
 from .schedule import make_lr_schedule
@@ -44,18 +47,17 @@ class Trainer:
         log_every: int = 50,
     ):
         """`lpips`: a loaded (frozen) LPIPS module on `device`, or None to
-        train without the perceptual term. `log_every`: steps between log
-        lines and metric records."""
+        train without the perceptual term (`checkpointing.lpips_weights`, when
+        set, loads one in its place). `log_every`: steps between log lines and
+        metric records."""
         ckpt = cfg.checkpointing
-        if ckpt.pretrained_model or ckpt.dav2_weights or ckpt.lpips_weights:
-            raise NotImplementedError(
-                "checkpointing.pretrained_model / dav2_weights / lpips_weights: loading weight files "
-                "(training/pretrained.py of the JAX package) is not ported yet"
-            )
         self.cfg = cfg
         self.device = torch.device(device)
         self.log = log_fn
         self.log_every = log_every
+        if ckpt.lpips_weights:
+            lpips = init_lpips(np.load(ckpt.lpips_weights, allow_pickle=True).item(), self.device)
+            self.log(f"loaded LPIPS weights from {ckpt.lpips_weights}")
         self.lpips = lpips
         self.global_step = 0
         self._shared_step = None  # the curriculum's step as forked loader workers read it
@@ -206,7 +208,11 @@ class Trainer:
         snapshot.write_text(json.dumps(dataclasses.asdict(cfg), default=str, indent=1))
 
         first = next(data_iter)
-        state = create_train_state(cfg.encoder, self.optimizer, self.lpips, device=self.device, seed=cfg.trainer.seed)
+        state = create_train_state(cfg.encoder, self.optimizer, self.lpips, device=self.device, seed=cfg.trainer.seed,
+                                   ckpt_cfg=cfg.checkpointing)
+        if cfg.checkpointing.pretrained_model or cfg.checkpointing.dav2_weights:
+            self.log(f"loaded pretrained weights: model={cfg.checkpointing.pretrained_model} "
+                     f"dav2={cfg.checkpointing.dav2_weights}")
         restored = self.ckpt.restore(state)
         if restored is None and cfg.checkpointing.load:
             # Warm start from another run's checkpoints when this run's directory is fresh.

@@ -1,9 +1,10 @@
-"""Stage-level wall-clock timer with JSON dumps.
+"""Stage-level timer with JSON dumps.
 
-Counterpart of transplat_tpu/utils/benchmarker.py: `time(tag)` waits for the
-card (torch.cuda.synchronize) before it starts and before it stops the
-clock, so a stage's time is its own; `memory(tag)` records allocator bytes
-around a stage. The JAX package's `trace` and `compiled_memory_analysis`
+Counterpart of transplat_tpu/utils/benchmarker.py: on the card `time(tag)`
+waits for the card (torch.cuda.synchronize) before it starts, so a stage's
+time is its own, and reads the device time between two CUDA events recorded
+around the stage; on the CPU it reads the host clock. `memory(tag)` records
+allocator bytes around a stage. The JAX package's `trace` and `compiled_memory_analysis`
 belong to XLA's profiler and compiler and have no counterpart here
 (profile_serving.py and profile_training.py trace with torch.profiler).
 """
@@ -47,13 +48,23 @@ class Benchmarker:
 
     @contextmanager
     def time(self, tag: str, num_calls: int = 1):
+        """Seconds of the stage inside, split evenly over `num_calls`: device
+        time between CUDA events on the card, the host clock on the CPU."""
         self._sync()
-        start = time.perf_counter()
+        if self.device.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        else:
+            t0 = time.perf_counter()
         try:
             yield
         finally:
-            self._sync()
-            elapsed = time.perf_counter() - start
+            if self.device.type == "cuda":
+                end.record()
+                end.synchronize()
+                elapsed = start.elapsed_time(end) / 1e3
+            else:
+                elapsed = time.perf_counter() - t0
             for _ in range(num_calls):
                 self.execution_times[tag].append(elapsed / num_calls)
 
