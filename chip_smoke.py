@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and fit -> checkpoint ->
-evaluate paths, and its data path and command line, on one NVIDIA card and
-check them.
+evaluate paths (validation media included), its data path, command line and
+checkpoint converter, on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -87,6 +87,22 @@ check them.
    renders (the run against itself at PSNR_SATURATION_DB). Before the data
    phase, `decode_30_views` times K1 and K3 at the shape of a video's
    decode (30 views x 131,072 Gaussians) on the serving request's Gaussians.
+10. Validation media (`validation_media`, inside `fit_slice`): every
+   validation of the fit writes its grid, orthographic projections and
+   14-frame wobble video; on the fitted state, a validation with and one
+   without media are timed; launch counts reset just before a validation
+   with media and read just after (K1 and K3 three times each, K5 at P = 1
+   and 4, K7); its files and the video read back; the orthographic
+   render's K1 lists against the plain versions, its K3 image against
+   composite_tiles_plain, and the render on the card against the CPU on a
+   seeded subset of the Gaussians; K1 / K3 pairs for the orthographic
+   render (3 x 128^2) and the wobble's decode (14 x 256^2), their device
+   times taken early, beside decode_30_views (`validation_media_kernels`,
+   on the serving encoder's Gaussians of the golden scene).
+11. The checkpoint converter (`convert_weights_phase`): `python -m
+   transplat_tpu_torch.convert_weights --kind lpips` and its --dry-run on a
+   seeded LPIPS state dict; the .npy must load into LPIPS with the bits of
+   the state dict loaded directly.
 
 Prints JSON records, then the card's name and power limit as nvidia-smi
 gives them, a `kernels` record, and as the last line
@@ -985,11 +1001,13 @@ def train_deterministic(dev, records: list[dict]) -> None:
           "warnings_use_deterministic_algorithms": warned, "dropout": True})
 
 
-def fit_slice(dev, records: list[dict]) -> None:
+def fit_slice(dev, records: list[dict], smi: str, media_kernels: dict) -> None:
     """Path 3 at full width on the 256x256 golden scene: evaluate, fit
     FIT_STEPS steps through the Trainer (one sanity validation, one
-    validation and one checkpoint in the middle, one checkpoint at the end),
-    resume a fresh Trainer from the middle checkpoint, evaluate again."""
+    validation and one checkpoint in the middle, one checkpoint at the end;
+    every validation writes its grid, projections and wobble video),
+    validate with and without media (`validation_media`), resume a fresh
+    Trainer from the middle checkpoint, evaluate again."""
     import itertools
     import os
     import shutil
@@ -1046,6 +1064,11 @@ def fit_slice(dev, records: list[dict]) -> None:
         require(all(np.isfinite(v) for r in steps.values() for v in r.values()), "fit_slice: non-finite step metrics")
         require([r["step"] for r in vals] == [half, FIT_STEPS] and sum("sanity validation" in m for m in logs) == 1,
                 f"fit_slice: validations {vals}, logs {logs[:2]}")
+        media = sorted(os.listdir(f"{tmp}/run/local"))
+        require(media == sorted(f"{kind}_{s:08d}.{ext}" for s in (0, half, FIT_STEPS)
+                                for kind, ext in (("projections", "png"), ("validation", "png"), ("wobble", "mp4"))),
+                f"fit_slice: validation media {media}")
+        validation_media(dev, trainer, state, batch, f"{tmp}/media", smi, media_kernels)
         evaluator = Evaluator(cfg, state.encoder, lpips, device=dev)
         after, color = evaluator.evaluate_batch(batch)
         evaluator.scores[batch["scene"][0]] = after
@@ -1099,7 +1122,205 @@ def fit_slice(dev, records: list[dict]) -> None:
           "resumed_step": half + 1, "resumed_loss": again["loss"], "first_run_loss": first["loss"], "resumed_loss_rel_err": rel,
           "resume_tolerance": 1e-4, "checkpoint_bytes": size, "save_s": save_s, "restore_s": restore_s,
           "launches": launches, "launches_per_step": {k: v / FIT_STEPS for k, v in launches.items()},
-          "lpips": "random-init weights", "scene": "golden_planes", "gaussians": 2 * IMAGE[0] * IMAGE[1]})
+          "lpips": "random-init weights", "scene": "golden_planes", "gaussians": 2 * IMAGE[0] * IMAGE[1],
+          "validation_media_files": len(media)})
+
+
+# A validation with media renders the first example's Gaussians in 3
+# orthographic views at 128^2 and a wobble of this many frames.
+WOBBLE_FRAMES = 14
+ORTHO_SHAPE = (128, 128)
+ORTHO_CPU_GAUSSIANS = 8192
+
+
+def media_renders(g0, ctx: dict, dev) -> dict:
+    """The two renders a validation with media adds, for the first example's
+    Gaussians `g0` and its context `ctx`, as Trainer._save_validation_media
+    makes them: the orthographic views (3 at ORTHO_SHAPE, unscaled) and the
+    wobble's decode (WOBBLE_FRAMES at IMAGE); projected and depth-sorted."""
+    from transplat_tpu_torch.model.types import Gaussians
+    from transplat_tpu_torch.ops.rasterizer import api, binning
+    from transplat_tpu_torch.visualization.validation_3d import axis_looks, orthographic_cameras, validation_wobble
+
+    looks, extent = axis_looks(g0.means[0].cpu().numpy())
+    looks_t = torch.as_tensor(np.stack([e for _, e in looks]), dtype=torch.float32, device=dev)
+    g3 = Gaussians(*(x.expand(3, *x.shape[1:]).contiguous() for x in g0))
+    box = (extent, extent, 0.0, 2.0 * extent)
+    cams = orthographic_cameras(looks_t, *box)
+    ortho = binning.sort_by_depth(api.project_views(cams[0], cams[1], cams[2], *g3, ORTHO_SHAPE, scale_invariant=False))
+    wobble = torch.as_tensor(validation_wobble(ctx["extrinsics"][0].cpu().numpy(), WOBBLE_FRAMES),
+                             dtype=torch.float32, device=dev)
+    first = lambda x: x[0, :1].expand(WOBBLE_FRAMES, *x.shape[2:]).contiguous()  # noqa: E731
+    wob = binning.sort_by_depth(api.project_views(wobble, first(ctx["intrinsics"]), first(ctx["near"]),
+                                                  *(x.expand(WOBBLE_FRAMES, *x.shape[1:]).contiguous() for x in g0), IMAGE))
+    return dict(g3=g3, looks=looks_t, box=box, extent=extent, distance=float(cams[2][0]),
+                ortho=(*ortho, ORTHO_SHAPE, 3), wobble=(*wob, IMAGE, WOBBLE_FRAMES))
+
+
+def validation_media_kernels(encoder, dev, smi: str) -> dict:
+    """K1 and K3 at the shapes a validation with media adds (the
+    orthographic views, the wobble's decode), on the Gaussians `encoder`
+    makes of the golden scene: tile pairs and device times (`timings`).
+    Taken early in the script, as decode_30_views is: late in a long process
+    the profiler has returned short traces (PERF.md §7)."""
+    from transplat_tpu_torch.dataset import golden_scene_batch
+    from transplat_tpu_torch.dataset.loader import CONTEXT_KEYS, batch_to_device
+    from transplat_tpu_torch.model.types import Gaussians
+    from transplat_tpu_torch.ops.rasterizer import binning, composite
+
+    batch = golden_scene_batch(num_context=2, num_target=NUM_TARGET, image_shape=IMAGE)
+    ctx = batch_to_device(batch, dev)["context"]
+    rec = {"phase": "validation_media_kernels", "card": smi, "gaussians": "the serving encoder's, golden scene"}
+    with torch.no_grad():
+        m = media_renders(Gaussians(*(x[:1] for x in encoder(*(ctx[k] for k in CONTEXT_KEYS)))), ctx, dev)
+        for name in ("ortho", "wobble"):
+            gfeat, colors, shape, views = m[name]
+            lists = binning.bin_gaussians(gfeat, shape)
+            bg = torch.zeros((views, 3), device=dev)
+            rec[name] = {"views": views, "h": shape[0], "w": shape[1], "pairs": int(lists.idx.numel()),
+                         "k1_bin_gaussians": timings(lambda: binning.bin_gaussians(gfeat, shape), "bin_"),
+                         "k3_composite": timings(lambda: composite._composite_fwd_cuda(gfeat, colors, lists, bg, shape),
+                                                 "composite_kernel")}
+    emit(rec)
+    return rec
+
+
+def validation_media(dev, trainer, state, batch: dict, out_dir: str, smi: str, kernel_times: dict) -> dict:
+    """Trainer.validate with media at full width (path 3's trained state, the
+    golden scene, 131,072 Gaussians): wall ms of a validation with and
+    without media (median of 3, in turns, after a warm-up); launch counts
+    reset just before one validation with media and read just after (K1 and
+    K3 three times: the validation decode, the orthographic render, the
+    wobble decode; K5 at P = 1 and 4 and K7 in the encoder); its three files,
+    the video read back; peak bytes. Then the orthographic render's own
+    inputs: K1 against its plain versions and K3 against
+    composite_tiles_plain on them, the render on the card against the port
+    on the CPU on the same ORTHO_CPU_GAUSSIANS of them, and both renders'
+    tile pairs, beside the K1 / K3 device times of `kernel_times`
+    (validation_media_kernels)."""
+    import os
+
+    from transplat_tpu_torch import kernels
+    from transplat_tpu_torch.dataset.loader import CONTEXT_KEYS, batch_to_device
+    from transplat_tpu_torch.model.types import Gaussians
+    from transplat_tpu_torch.ops.rasterizer import binning, composite
+    from transplat_tpu_torch.utils.image_io import load_video
+    from transplat_tpu_torch.visualization.validation_3d import render_orthographic
+
+    def validate(media: bool, where: str) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.validate(state, batch, out_dir=where, save_media=media)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    validate(True, f"{out_dir}/warm")
+    with_ms, without_ms = [], []
+    for _ in range(3):
+        with_ms.append(validate(True, f"{out_dir}/timed"))
+        without_ms.append(validate(False, f"{out_dir}/timed_grid"))
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    validate(True, f"{out_dir}/media")
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() - held
+    require(all(launches.get(k, 0) == 3 for k in ("bin_count", "bin_scan", "bin_place", "composite")),
+            f"validation_media: K1 / K3 launches {launches} (3 each expected)")
+    require(all(launches.get(k, 0) > 0 for k in ("deform_scores_p1", "deform_scores_p4", "deform_vectors")),
+            f"validation_media: encoder kernels {launches}")
+    step = f"{trainer.global_step:08d}"
+    names = sorted(os.listdir(f"{out_dir}/media"))
+    require(names == [f"projections_{step}.png", f"validation_{step}.png", f"wobble_{step}.mp4"], f"validation_media: files {names}")
+    require(sorted(os.listdir(f"{out_dir}/timed_grid")) == [f"validation_{step}.png"], "validation_media: save_media=False")
+    video = load_video(f"{out_dir}/media/wobble_{step}.mp4")
+    require(video.shape == (WOBBLE_FRAMES, *IMAGE, 3), f"validation_media: video {video.shape}")
+
+    ctx = batch_to_device(batch, dev)["context"]
+    with torch.no_grad():
+        g0 = Gaussians(*(x[:1] for x in state.encoder(*(ctx[k] for k in CONTEXT_KEYS))))
+        m = media_renders(g0, ctx, dev)
+        ortho = render_orthographic(m["g3"], m["looks"], *m["box"], image_shape=ORTHO_SHAPE)
+        gfeat, colors, _, _ = m["ortho"]
+        k1 = check_binning(gfeat, ORTHO_SHAPE, 16, "ortho_render")
+        bg = torch.zeros((3, 3), device=dev)
+        img = composite.composite_tiles(gfeat, colors, k1["lists"], bg, ORTHO_SHAPE)
+        img_p, _, evaluations = composite.composite_tiles_plain(gfeat, colors, k1["lists"], bg, ORTHO_SHAPE)
+        err, share = require_composite(img, img_p, "ortho render: composite")
+        require(max_err(img, ortho) <= 1e-5, f"ortho render: the kernels' image vs render_orthographic {max_err(img, ortho)}")
+        require(float(ortho.max()) > 0.05 and bool(torch.isfinite(ortho).all()), "ortho render: an empty or non-finite view")
+        # Card against CPU on a seeded subset: the CPU's plain compositor takes
+        # ~G^1.5 time here (every Gaussian lands in a 128^2 view).
+        keep = torch.randperm(m["g3"].means.shape[1], generator=torch.Generator().manual_seed(SEED))[:ORTHO_CPU_GAUSSIANS]
+        sub = Gaussians(*(x[:, keep.to(dev)].contiguous() for x in m["g3"]))
+        sub_card = render_orthographic(sub, m["looks"], *m["box"], image_shape=ORTHO_SHAPE)
+        t0 = time.perf_counter()
+        sub_cpu = render_orthographic(Gaussians(*(x.cpu() for x in sub)), m["looks"].cpu(), *m["box"], image_shape=ORTHO_SHAPE)
+        cpu_s = time.perf_counter() - t0
+        diff = (sub_card.cpu() - sub_cpu).abs()
+        cpu_err, cpu_share = float(diff.max()), float((diff > 1e-4).float().mean())
+        # The same Gaussians on the card and on the CPU: projection rounding can
+        # flip an integer radius or the 1/255 alpha floor (tiny_slice_vs_cpu).
+        require(cpu_share < 0.02 and cpu_err < 0.05, f"ortho render card vs CPU: max {cpu_err}, share beyond 1e-4 {cpu_share}")
+        wobble_pairs = int(binning.bin_gaussians(m["wobble"][0], IMAGE).idx.numel())
+    rec = {
+        "phase": "validation_media", "card": smi, "step": trainer.global_step, "gaussians": int(g0.means.shape[1]),
+        "validation_with_media_ms": float(np.median(with_ms)), "validation_without_media_ms": float(np.median(without_ms)),
+        "validation_with_media_ms_all": with_ms, "validation_without_media_ms_all": without_ms,
+        "launches": launches, "peak_bytes_above_held": peak, "files": names, "video_frames": int(video.shape[0]),
+        "ortho": {"views": 3, "h": ORTHO_SHAPE[0], "w": ORTHO_SHAPE[1], "extent": m["extent"], "camera_distance": m["distance"],
+                  "pairs": k1["total"], "evaluations": evaluations,
+                  "composite_vs_plain_max_abs_err": err, "composite_vs_plain_share_beyond_1e-5": share,
+                  "card_vs_cpu_max_abs_err": cpu_err, "card_vs_cpu_share_beyond_1e-4": cpu_share,
+                  "card_vs_cpu_gaussians": ORTHO_CPU_GAUSSIANS,
+                  "card_vs_cpu_tolerance": "98% within 1e-4, all within 0.05", "cpu_render_s": cpu_s},
+        "wobble": {"views": WOBBLE_FRAMES, "h": IMAGE[0], "w": IMAGE[1], "pairs": wobble_pairs},
+        "kernel_times": {k: kernel_times[k] for k in ("ortho", "wobble")},
+        "kernel_times_on": "validation_media_kernels: the serving encoder's Gaussians of the golden scene",
+    }
+    emit(rec)
+    return rec
+
+
+def convert_weights_phase() -> None:
+    """The checkpoint converter's command line on this machine (no JAX
+    here): `python -m transplat_tpu_torch.convert_weights --kind lpips` on a
+    torch.save'd seeded LPIPS state dict, and its --dry-run. The .npy,
+    loaded by load_lpips_weights, must fill an LPIPS with the same bits as
+    the state dict loaded directly; the dry run lists every key with its
+    shape."""
+    import os
+    import tempfile
+
+    from transplat_tpu_torch.loss.vgg import LPIPS, load_lpips_weights
+
+    state = seeded_lpips_state()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({k: torch.from_numpy(v) for k, v in state.items()}, f"{tmp}/lpips.pth")
+
+        # Both command lines at once: each spends most of its time importing torch.
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-m", "transplat_tpu_torch.convert_weights", f"{tmp}/lpips.pth",
+                                   "--kind", "lpips", "--out", f"{tmp}/lpips.npy", *extra],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root)
+                 for extra in ([], ["--dry-run"])]
+        try:
+            (out, err), (dry, dry_err) = (p.communicate(timeout=300) for p in procs)
+        finally:
+            for p in procs:
+                p.kill()
+        command_s = time.perf_counter() - t0
+        require(procs[0].returncode == 0 and procs[1].returncode == 0, f"convert_weights: {err[-1000:]} {dry_err[-1000:]}")
+        require(out.strip() == f"wrote {tmp}/lpips.npy", f"convert_weights: {out!r}")
+        require(dry.splitlines() == [f"{k} {state[k].shape}" for k in sorted(state)], f"convert_weights --dry-run: {dry[:500]!r}")
+        tree = np.load(f"{tmp}/lpips.npy", allow_pickle=True).item()
+    converted = load_lpips_weights(LPIPS(device="cuda", seed=1), tree).state_dict()
+    direct = load_lpips_weights(LPIPS(device="cuda", seed=2), state).state_dict()
+    require(list(converted) == list(direct) and all(torch.equal(converted[k], direct[k]) for k in direct),
+            "convert_weights: the converted LPIPS differs from the state dict loaded directly")
+    emit({"phase": "convert_weights", "kind": "lpips", "keys": len(tree), "dry_run_lines": len(dry.splitlines()),
+          "lpips_tensors_bit_equal": len(direct), "both_commands_s": command_s})
 
 
 def fit_resume_deterministic(dev, records: list[dict]) -> None:
@@ -1813,6 +2034,7 @@ def main() -> int:
         emit({"phase": "oracle_check", "gaussians": 2048, "views": 2, "h": 64, "w": 64, "max_abs_err": err, "tolerance": 1e-5})
     check_binning_scenes(dev)
     decode_30_views(encoder, batch, dev, smi)
+    media_kernels = validation_media_kernels(encoder, dev, smi)
 
     # ---- the slice at a tiny width: card kernels vs CPU plain versions -----
     from transplat_tpu_torch.model.adapter import GaussianAdapterCfg
@@ -1864,8 +2086,11 @@ def main() -> int:
     tiny_train_vs_cpu(dev)
 
     # ---- fit -> validate -> checkpoint -> resume -> evaluate ----------------
-    fit_slice(dev, records)
+    fit_slice(dev, records, smi, media_kernels)
     fit_resume_deterministic(dev, records)
+
+    # ---- the checkpoint converter's command line ------------------------------
+    convert_weights_phase()
 
     # ---- the data path and the command line ----------------------------------
     data_cli_phase(dev, records, smi)

@@ -147,6 +147,11 @@ def test_tiny_train_validates_held_out_then_test_scores(data_root, tmp_path, mon
     seen = set(vals[0]["val_scenes"]) | {s for m in sanity for s in ("te_0", "te_1", "te_short") if f"'{s}'" in m}
     assert seen and seen <= {"te_0", "te_1", "te_short"}  # keys of the test split only
     assert (tmp_path / "outputs" / "latest-run").resolve() == run.resolve()
+    # each validation's media beside metrics.jsonl (the JAX Trainer writes them to ./outputs/local)
+    assert sorted(p.name for p in (run / "local").iterdir()) == sorted(
+        f"{kind}_{step:08d}.{ext}" for step in (0, 2)
+        for kind, ext in (("projections", "png"), ("validation", "png"), ("wobble", "mp4")))
+    assert not (tmp_path / "outputs" / "local").exists()
 
     index = tmp_path / "index.json"
     assert main(["generate-index", "--dataset-root", str(data_root), "--output", str(index), "--device", "cpu"]) == 0

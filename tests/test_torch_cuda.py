@@ -794,3 +794,25 @@ def test_thirty_view_decode_matches_plain(dev):
     plain, _, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
     torch.cuda.synchronize()
     require_composite(out.color, plain, "30-view decode")
+
+
+def test_orthographic_render_on_the_card_matches_the_cpu(dev):
+    """visualization/validation_3d.py's render (K1 and K3) at the Trainer's
+    looks, ~573x the cloud's extent away: the card against the plain
+    versions on the CPU on the same Gaussians (projection rounding may flip
+    an integer radius or the 1/255 alpha floor: 98% within 1e-4, all within
+    0.05, as tiny_slice_vs_cpu), and launches of K1 and K3."""
+    from transplat_tpu_torch.model.types import Gaussians
+    from transplat_tpu_torch.visualization.validation_3d import axis_looks, render_orthographic
+
+    cams, gs = scene(6000, 1, dev, 11)
+    looks, extent = axis_looks(gs[0][0].cpu().numpy())
+    looks_t = torch.as_tensor(np.stack([e for _, e in looks]), dtype=torch.float32)
+    g3 = Gaussians(*(x.expand(3, *x.shape[1:]).contiguous() for x in gs))
+    kernels.reset_launches()
+    card = render_orthographic(g3, looks_t.to(dev), extent, extent, 0.0, 2 * extent, (128, 128))
+    assert kernels.launches.get("composite", 0) == 1 and kernels.launches.get("bin_place", 0) == 1
+    cpu = render_orthographic(Gaussians(*(x.cpu() for x in g3)), looks_t, extent, extent, 0.0, 2 * extent, (128, 128))
+    diff = (card.cpu() - cpu).abs()
+    assert float(card.max()) > 0.05
+    assert float((diff > 1e-4).float().mean()) < 0.02 and float(diff.max()) < 0.05, float(diff.max())

@@ -143,7 +143,9 @@ def test_port_imports_nothing_of_jax():
     for name in ("dataset.types", "dataset.view_samplers", "dataset.shims", "dataset.re10k", "dataset.chunks",
                  "native", "geometry.overlap", "evaluation.index_generator", "main", "bench", "bench_train_step",
                  "training.pretrained", "evaluation.staged", "evaluation.metric_computer", "utils.analysis",
-                 "utils.image_io", "visualization.ply_export", "visualization.trajectory", "visualization.layout"):
+                 "utils.image_io", "visualization.ply_export", "visualization.trajectory", "visualization.layout",
+                 "visualization.validation_3d", "convert.common", "convert.backbone", "convert.dav2", "convert.unet",
+                 "convert.uv", "convert.depth_predictor", "convert.encoder", "convert_weights"):
         assert f"transplat_tpu_torch.{name}" in imported, name
     files = sorted((ROOT / "transplat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20

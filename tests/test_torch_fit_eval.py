@@ -401,6 +401,10 @@ def test_trainer_fit_resumes_to_the_same_parameters(tmp_path):
     assert [r["step"] for r in records if "loss" in r] == [2, 4, 6]
     assert [r["step"] for r in records if "val_psnr" in r] == [4]
     assert {"loss", "mse", "psnr", "grad_norm", "lr", "render_overflow", "s_per_it"} <= set(records[0])
+    # the sanity validation's and the step-4 validation's media, beside metrics.jsonl
+    assert sorted(p.name for p in (tmp_path / "a" / "local").iterdir()) == sorted(
+        f"{kind}_{step:08d}.{ext}" for step in (0, 4)
+        for kind, ext in (("projections", "png"), ("validation", "png"), ("wobble", "mp4")))
     assert logs[0].startswith("sanity validation: psnr=") and sum("sanity" in m for m in logs) == 1
     assert any(m.startswith("step 6: loss=") for m in logs)
 
@@ -420,8 +424,10 @@ def test_trainer_fit_resumes_to_the_same_parameters(tmp_path):
         assert torch.equal(full.opt_state.nu[k], resumed.opt_state.nu[k]), k
     assert full.opt_state.count == resumed.opt_state.count == 6
     # dropout was on: another seed gives other parameters after the same steps
-    other = Trainer(tiny_cfg(tmp_path / "c", seed=5), log_fn=lambda m: None, device="cpu").fit(_batches(), max_steps=2)
-    again = Trainer(tiny_cfg(tmp_path / "d", seed=5), log_fn=lambda m: None, device="cpu").fit(_batches(), max_steps=2)
+    other = Trainer(tiny_cfg(tmp_path / "c", seed=5, val_save_media=False), log_fn=lambda m: None,
+                    device="cpu").fit(_batches(), max_steps=2)
+    again = Trainer(tiny_cfg(tmp_path / "d", seed=5, val_save_media=False), log_fn=lambda m: None,
+                    device="cpu").fit(_batches(), max_steps=2)
     key = "depth_predictor.uv_matcher.fine_0.ffn.fc2.weight"
     assert torch.equal(other.encoder.state_dict()[key], again.encoder.state_dict()[key])
 
@@ -431,11 +437,12 @@ def test_trainer_fit_resumes_to_the_same_parameters(tmp_path):
 
 
 def test_trainer_warm_start_validate_and_refusals(tmp_path):
-    cfg_a = tiny_cfg(tmp_path / "a", num_sanity_val_steps=0)
+    cfg_a = tiny_cfg(tmp_path / "a", num_sanity_val_steps=0, val_save_media=False)  # media: test_torch_validation_media.py
     first = Trainer(cfg_a, log_fn=lambda m: None, device="cpu").fit(_batches(), max_steps=1)
     # a fresh run directory warm-starts from checkpointing.load
     cfg_b = port_config._apply_overrides(
-        tiny_cfg(tmp_path / "b", num_sanity_val_steps=0), dict(checkpointing=dict(load=cfg_a.checkpointing.save_dir))
+        tiny_cfg(tmp_path / "b", num_sanity_val_steps=0, val_save_media=False),
+        dict(checkpointing=dict(load=cfg_a.checkpointing.save_dir))
     )
     logs = []
     trainer = Trainer(cfg_b, log_fn=logs.append, device="cpu")
@@ -445,6 +452,7 @@ def test_trainer_warm_start_validate_and_refusals(tmp_path):
     assert torch.equal(first.encoder.state_dict()[key], warm.encoder.state_dict()[key])
     val = trainer.validate(warm, golden())
     assert set(val) == {"val_psnr"} and np.isfinite(val["val_psnr"]) and 3.0 < val["val_psnr"] < 40.0
+    assert [p.name for p in trainer.media_dir.iterdir()] == ["validation_00000001.png"]  # val_save_media off: the grid
     assert not warm.encoder.training  # validation and the step leave the encoder in eval mode
     with pytest.raises(FileNotFoundError, match="no training chunks"):  # fit(None) reads chunks: none here
         trainer.fit(None)
@@ -453,7 +461,7 @@ def test_trainer_warm_start_validate_and_refusals(tmp_path):
     with pytest.raises(FileNotFoundError, match="w.npy"):
         Trainer(port_config._apply_overrides(cfg_a, dict(checkpointing=dict(lpips_weights="w.npy"))), device="cpu")
     # a data iterator that ends stops the run and still saves
-    cfg_c = tiny_cfg(tmp_path / "c", num_sanity_val_steps=0)
+    cfg_c = tiny_cfg(tmp_path / "c", num_sanity_val_steps=0, val_save_media=False)
     short = Trainer(cfg_c, log_fn=lambda m: None, device="cpu").fit(iter([golden(), golden()]), max_steps=6)
     assert short.step == 2 and CheckpointManager(cfg_c.checkpointing.save_dir).latest_step() == 2
 

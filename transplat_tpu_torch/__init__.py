@@ -26,9 +26,14 @@ checkpoint -> evaluate), written for one H100:
                  the golden scene, seeded chunks for tests
   * native/      JPEG decode (host libjpeg or the card's nvJPEG) and the
                  image resizes, C++ built with the host compiler at first use
-  * utils/       Benchmarker (stage timer: CUDA events on the card),
-                 device_time, the workload analysis, image and video files
-  * visualization/  camera trajectories, PLY export, layout, colour map
+  * utils/       Benchmarker (stage timer: CUDA events on the card; a
+                 torch.profiler trace), device_time, the workload analysis,
+                 image and video files
+  * visualization/  camera trajectories, PLY export, layout, colour map,
+                 the validation's orthographic projections and camera wires
+  * convert/     JAX variable trees into the port's modules and back, and
+                 the reference's PyTorch checkpoints into those trees
+                 (convert_weights.py is its command line)
   * config.py    the typed configuration tree and the experiment presets
   * csrc/        CUDA C++ sources, built with nvcc for sm_90a at first use
   * inference.py the serving path (encoder -> decode_splatting -> colour)

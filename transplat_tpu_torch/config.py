@@ -69,7 +69,7 @@ class TrainerCfg:
     # <=1: fraction of max_steps between validations; >1: absolute steps.
     val_check_interval: float = 0.05
     num_sanity_val_steps: int = 2
-    val_save_media: bool = True  # accepted; the port's validation saves no media yet
+    val_save_media: bool = True  # validation also writes the projections and the wobble video
     batch_size: int = 2  # per device
     num_workers: int = 4  # forked data-loading worker processes (0: a prefetch thread)
     seed: int = 111123

@@ -15,7 +15,11 @@ Lightning / encoder-level tree (params under backbone, da_model,
 depth_predictor), a UniMatch tree (a BackboneMultiview subtree, nested under
 `backbone`) and a DAv2 tree (nested under `da_model`, which has no
 BatchNorm statistics). A Lightning tree may carry the LPIPS network it was
-trained with under `lpips_state`; it is taken out and returned.
+trained with under `lpips_state`; it is taken out and returned. Unlike the
+JAX package's loader, this one accepts the DAv2 and Lightning trees the
+converters write as they are: it drops the reference's unused refinenet4
+unit they carry (`_drop_unused_reference_unit`), which the JAX loader
+refuses as a key the model does not have.
 """
 
 from __future__ import annotations
@@ -68,6 +72,18 @@ def _nest_for_encoder(tree: dict) -> dict:
     }
 
 
+def _drop_unused_reference_unit(tree: dict) -> dict:
+    """Remove da_model/depth_head/refinenet4/resConfUnit1 from an encoder-level
+    tree. The reference's DPT head builds that residual unit but never runs
+    it (refinenet4 fuses no skip input), so no module here or in the JAX
+    package has it; the converters (convert/dav2.py) still carry it over
+    from a DAv2 or Lightning checkpoint, and the JAX package's loader then
+    refuses the file."""
+    refinenet4 = tree.get("params", {}).get("da_model", {}).get("depth_head", {}).get("refinenet4", {})
+    refinenet4.pop("resConfUnit1", None)
+    return tree
+
+
 def load_pretrained_variables(encoder: nn.Module, ckpt_cfg) -> dict | None:
     """Merge the `ckpt_cfg.pretrained_model` and `ckpt_cfg.dav2_weights` .npy
     trees into `encoder` (in place, in that order). Returns the raw LPIPS
@@ -81,7 +97,7 @@ def load_pretrained_variables(encoder: nn.Module, ckpt_cfg) -> dict | None:
         embedded = tree.pop("lpips_state", None)
         if embedded:
             lpips_state = embedded
-        tree = _nest_for_encoder(tree)
+        tree = _drop_unused_reference_unit(_nest_for_encoder(tree))
         variables = to_jax_tree(encoder)
         variables["params"] = merge_tree(variables.get("params", {}), tree.get("params", {}))
         if tree.get("batch_stats"):

@@ -8,9 +8,14 @@ held-out stream read from `<root>/test/*.torch` when there is one. The
 weight files of `checkpointing` load as in the JAX Trainer: the
 `pretrained_model` / `dav2_weights` trees merge over the initial parameters,
 and `lpips_weights` (or a Lightning tree's embedded LPIPS) puts the
-perceptual term into the loss. What the JAX Trainer has and this one does
-not yet: the device mesh and `shard_batch`, and the validation media
-(picture grid, orthographic projections, wobble video).
+perceptual term into the loss. Each validation writes the JAX Trainer's
+media: a context | target | prediction grid and, with
+`trainer.val_save_media`, the orthographic projections of the first
+example's Gaussians with the context cameras drawn on them and a 14-frame
+wobble video. They go to `<save_dir>/../local` (`outputs/local` for the
+default `save_dir`, where the JAX Trainer writes them), beside
+`metrics.jsonl`. What the JAX Trainer has and this one does not yet: the
+device mesh and `shard_batch`.
 """
 
 from __future__ import annotations
@@ -32,6 +37,10 @@ from ..dataset.view_samplers import ViewSamplerBounded
 from ..evaluation.metrics import compute_psnr
 from ..loss.vgg import LPIPS, init_lpips
 from ..model.decoder import decode_splatting
+from ..model.types import Gaussians
+from ..utils.image_io import save_image, save_video
+from ..visualization.layout import add_label, hcat, vcat
+from ..visualization.validation_3d import axis_looks, draw_cameras, render_orthographic, validation_wobble
 from .checkpointing import CheckpointManager
 from .schedule import make_lr_schedule
 from .step import TrainState, create_train_state, make_optimizer, make_train_step
@@ -75,24 +84,78 @@ class Trainer:
             deterministic_kernels=cfg.trainer.deterministic_kernels,
         )
         self.ckpt = CheckpointManager(ckpt.save_dir, ckpt.every_n_train_steps)
-        # Beside the checkpoints' directory: outputs/metrics.jsonl for the default save_dir.
+        # Beside the checkpoints' directory: outputs/metrics.jsonl and
+        # outputs/local/ for the default save_dir.
         self.metrics_path = Path(ckpt.save_dir).parent / "metrics.jsonl"
+        self.media_dir = Path(ckpt.save_dir).parent / "local"
         self._dropout = torch.Generator(device=self.device)
 
     @torch.no_grad()
-    def validate(self, state: TrainState, batch: dict) -> dict:
+    def validate(self, state: TrainState, batch: dict, out_dir: str | Path | None = None,
+                 save_media: bool | None = None) -> dict:
         """Render a validation batch in eval mode and return {"val_psnr"}: the
-        mean PSNR over its target views. (The JAX Trainer also saves a context
-        | target | prediction grid and 3D media; those wait for the port of
-        visualization/ and utils/image_io.py.)"""
+        mean PSNR over its target views. Saves the context | target |
+        prediction grid of the first example, `validation_<step>.png`, and
+        with `save_media` (default `trainer.val_save_media`) the projections
+        and the wobble video, into `out_dir` (default `media_dir`)."""
+        if save_media is None:
+            save_media = self.cfg.trainer.val_save_media
+        out_dir = Path(out_dir) if out_dir is not None else self.media_dir
         views = batch_to_device(batch, self.device)
         ctx, tgt = views["context"], views["target"]
         gaussians = state.encoder(*(ctx[k] for k in CONTEXT_KEYS))
         color = decode_splatting(
             gaussians, tgt["extrinsics"], tgt["intrinsics"], tgt["near"], tgt["far"], self.image_shape, cfg=self.cfg.decoder
         ).color
-        psnr = compute_psnr(tgt["image"].reshape(-1, *tgt["image"].shape[-3:]), color.reshape(-1, *color.shape[-3:]))
-        return {"val_psnr": float(psnr.mean())}
+        psnr = float(compute_psnr(tgt["image"].reshape(-1, *tgt["image"].shape[-3:]),
+                                  color.reshape(-1, *color.shape[-3:])).mean())
+        context_row, gt_row, pred_row = (hcat(*x[0].cpu().numpy()) for x in (ctx["image"], tgt["image"], color))
+        grid = vcat(
+            add_label(context_row, "context"),
+            add_label(gt_row, "target (gt)"),
+            add_label(pred_row, f"prediction (psnr {psnr:.2f})"),
+        )
+        save_image(grid, out_dir / f"validation_{self.global_step:08d}.png")
+        if save_media:
+            self._save_validation_media(ctx, gaussians, out_dir)
+        return {"val_psnr": psnr}
+
+    def _save_validation_media(self, ctx: dict, gaussians: Gaussians, out_dir: Path) -> None:
+        """The first example's Gaussians seen along three axes (a 128^2
+        orthographic render each, with the context cameras' frusta drawn
+        on), `projections_<step>.png`, and the 14-frame wobble around context
+        camera 0 at 7 fps, `wobble_<step>.mp4`. The JAX Trainer encodes the
+        context again for every wobble frame; in eval mode the Gaussians are
+        a function of the context alone, so here one decode of 14 target
+        views renders the frames from the Gaussians already made."""
+        g0 = Gaussians(*(x[:1] for x in gaussians))
+        looks, extent = axis_looks(g0.means[0].cpu().numpy())
+        ortho = render_orthographic(
+            Gaussians(*(x.expand(3, *x.shape[1:]).contiguous() for x in g0)),
+            torch.as_tensor(np.stack([e for _, e in looks]), dtype=torch.float32, device=self.device),
+            width=extent, height=extent, near=0.0, far=2.0 * extent, image_shape=(128, 128),
+            cfg=self.cfg.decoder.rasterize,
+        ).cpu().numpy()
+        cams = ctx["extrinsics"][0].cpu().numpy()
+        fx = 0.5 / np.tan(np.radians(0.05))
+        view_intr = np.array([[fx, 0, 0.5], [0, fx, 0.5], [0, 0, 1.0]])
+        panels = [
+            add_label(draw_cameras(ortho[i], cams, e, view_intr, frustum_depth=0.2 * extent), f"ortho {name}")
+            for i, (name, e) in enumerate(looks)
+        ]
+        save_image(hcat(*panels), out_dir / f"projections_{self.global_step:08d}.png")
+
+        wobble = torch.as_tensor(validation_wobble(cams), dtype=torch.float32, device=self.device)
+        n_frames = wobble.shape[0]
+
+        def first_view(x: torch.Tensor) -> torch.Tensor:
+            return x[:1, :1].expand(1, n_frames, *x.shape[2:]).contiguous()
+
+        frames = decode_splatting(
+            g0, wobble[None], first_view(ctx["intrinsics"]), first_view(ctx["near"]), first_view(ctx["far"]),
+            self.image_shape, cfg=self.cfg.decoder,
+        ).color[0].cpu().numpy()
+        save_video(list(frames), out_dir / f"wobble_{self.global_step:08d}.mp4", fps=7)
 
     def _log_metrics(self, record: dict, path: str | Path | None = None) -> None:
         """Append-only JSONL metric log."""

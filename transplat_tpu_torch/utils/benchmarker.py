@@ -4,9 +4,11 @@ Counterpart of transplat_tpu/utils/benchmarker.py: on the card `time(tag)`
 waits for the card (torch.cuda.synchronize) before it starts, so a stage's
 time is its own, and reads the device time between two CUDA events recorded
 around the stage; on the CPU it reads the host clock. `memory(tag)` records
-allocator bytes around a stage. The JAX package's `trace` and `compiled_memory_analysis`
-belong to XLA's profiler and compiler and have no counterpart here
-(profile_serving.py and profile_training.py trace with torch.profiler).
+allocator bytes around a stage. `trace(logdir)` is the counterpart of
+`jax.profiler.trace`: a torch.profiler trace (CPU activity, and the card's
+when on the card) written into `logdir` as a TensorBoard / Chrome trace. The
+JAX package's `compiled_memory_analysis` belongs to XLA's compiler and has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -67,6 +69,19 @@ class Benchmarker:
                 elapsed = time.perf_counter() - t0
             for _ in range(num_calls):
                 self.execution_times[tag].append(elapsed / num_calls)
+
+    @contextmanager
+    def trace(self, logdir: str | Path):
+        """Profile the block into `logdir` (`<host>_<pid>.<time>.pt.trace.json`,
+        readable by TensorBoard's profiler plugin and chrome://tracing);
+        yields the profiler, whose `key_averages()` tabulates the ops."""
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(logdir))) as prof:
+            yield prof
 
     @contextmanager
     def memory(self, tag: str):

@@ -55,6 +55,12 @@ WARMUP = 3
 ATTEMPTS = 3
 # The write before each call of a cold reading: 128 MiB, over twice the L2.
 FLUSH_BYTES = 128 * 2**20
+# Host time inside the profiler's window before the first call and after
+# the last. Late in a long process traces came back a few device events
+# short on every attempt, as if events stamped just outside the host's
+# capture window were dropped (the device and host clocks are not trusted
+# to agree, see above); a window wider than the calls keeps them inside.
+WINDOW_PAD_S = 0.05
 
 
 def device_time(fn, kernel: str | None = None, cold: bool = False) -> dict:
@@ -68,12 +74,14 @@ def device_time(fn, kernel: str | None = None, cold: bool = False) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
     for attempt in range(1, ATTEMPTS + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(WINDOW_PAD_S)
             for _ in range(CALLS):
                 if cold:
                     flush.fill_(1.0)
                     torch.cuda.synchronize()
                 fn()
                 torch.cuda.synchronize()
+            time.sleep(WINDOW_PAD_S)
         device = sorted(  # device work only: not the ranges that annotate it (autograd's, for one)
             (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
             if e.device_type == cuda and not getattr(e, "is_user_annotation", False)
