@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and fit -> checkpoint ->
-evaluate paths (validation media included), its data path, command line and
-checkpoint converter, on one NVIDIA card and check them.
+evaluate paths (validation media included), its data path, command line,
+checkpoint converter and multi-rank training, on one NVIDIA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -103,6 +104,20 @@ checkpoint converter, on one NVIDIA card and check them.
    transplat_tpu_torch.convert_weights --kind lpips` and its --dry-run on a
    seeded LPIPS state dict; the .npy must load into LPIPS with the bits of
    the state dict loaded directly.
+12. DTU's PNG chunks (`dtu_phase`): a chunk packed as scripts/convert_dtu.py
+   packs it and `transplat_tpu_torch.main test --experiment dtu` at 3
+   context views (launch counts read around it; `launches_dtu`).
+13. Data parallelism and the view-sharded decode (`parallel_phase`, last):
+   `transplat_tpu_torch.main train --dp 1 --sp 1` on one rank spawned by
+   the port's launch (torchrun's environment), NCCL at world size 1,
+   PARALLEL_STEPS_NCCL full-width steps over seeded chunks (launch counts
+   read in that rank: all twelve kernels); dp = 2 x sp = 1 and dp = 1 x
+   sp = 2, one full-width step each on two processes sharing the card over
+   gloo (b = 1 a rank), against the one-process step on the joined batch
+   within PARALLEL_TOL, a record per run with each rank's tile pairs, K1-K4
+   launches, ms per step, peak bytes and the gradient all-reduce's bytes
+   and ms (the sp run's launches per rank join the kernels line as
+   `launches_sp`); `dryrun_multichip(2)` on the card.
 
 Prints JSON records, then the card's name and power limit as nvidia-smi
 gives them, a `kernels` record, and as the last line
@@ -1904,6 +1919,210 @@ def data_cli_phase(dev, records: list[dict], smi: str) -> None:
                                                                         "test": [TEST_SCENES, TEST_FRAMES]}})
 
 
+DTU_SCANS, DTU_FRAMES = 2, 6
+
+
+def dtu_phase(records: list[dict], smi: str) -> None:
+    """DTU's PNG chunks on the card: a chunk packed as scripts/convert_dtu.py
+    packs it (DTU_SCANS scans of DTU_FRAMES PNG frames at the dtu config's
+    360x640, and one 512x640 scan its shape check skips), then
+    `main test --experiment dtu` with 3 context views (the dtu_nctx3 index's
+    count) from seed-initialised full-width weights: launch counts reset
+    just before and read just after (K1, K3, K5 at P = 1 and 4, K7; they
+    join the kernels line as `launches_dtu`), a finite PSNR / SSIM / LPIPS
+    for each 360x640 scan and none for the skipped one."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from transplat_tpu_torch import kernels
+    from transplat_tpu_torch.dataset import chunks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = [f"scan{i}" for i in range(DTU_SCANS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "dtu"
+        scenes = [chunks.make_png_scene(k, DTU_FRAMES, SEED + i, (360, 640)) for i, k in enumerate(keys)]
+        chunks.write_chunk(root / "test" / "000000.torch", [*scenes, chunks.make_png_scene("scan_big", DTU_FRAMES, SEED, (512, 640))])
+        index = Path(tmp) / "evaluation_index_dtu_nctx3.json"
+        index.write_text(json.dumps({k: {"context": [0, 2, 4], "target": [1, 3]} for k in [*keys, "scan_big"]}))
+        out = Path(tmp) / "scores"
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rc, printed = _main_quiet(["test", "--experiment", "dtu", "--dataset-root", str(root), "--evaluation-index",
+                                       str(index), "--output", str(out), "encoder.num_context_views=3"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(kernels.launches)
+        finally:
+            os.chdir(cwd)
+        require(rc == 0, f"dtu: main test exited {rc}: {printed[-2000:]}")
+        per_scene = json.loads((out / "scores_per_scene.json").read_text())
+    require(sorted(per_scene) == keys, f"dtu: scored {sorted(per_scene)}")
+    require(all(np.isfinite(v[k]) for v in per_scene.values() for k in ("psnr", "ssim", "lpips")), "dtu: scores")
+    for name in ("deform_scores_p1", "deform_scores_p4", "deform_vectors", "bin_count", "bin_scan", "bin_place",
+                 "composite"):
+        require(launches.get(name, 0) > 0, f"dtu: kernel {name} was not launched by main test")
+    for rec in records:
+        rec["launches_dtu"] = launches.get(rec["name"], 0)
+    emit({"phase": "dtu", "card": smi, "scans": keys, "skipped": ["scan_big"], "context_views": 3, "frames": "PNG 360x640",
+          "seconds": seconds, "launches": launches, "scores": per_scene})
+
+
+# The parallel phase (parallel_phase). A dp x sp step on two gloo ranks that
+# share the card against the one-process step on the joined batch, from the
+# same seeded state (parallel.dryrun.step_errors): loss, gradient norm and
+# the clipped gradient (whole, relative L2; its worst leaf among those that
+# carry 1e-6 of its norm, relative), the update's cosine (parameters after
+# the step less before), BatchNorm statistics, and an sp rank's colours from
+# the sharded decode against the unsharded decode of its views. An sp
+# rank's encoder forward is the one-process forward, so sp is held near
+# float32's rounding. A dp rank's encoder runs each example in a batch of
+# one where the joined step runs a batch of two, which rounds otherwise;
+# the same step in float64 agrees within 1e-12 (tests/test_torch_parallel.py),
+# so dp is held at a few times its float32 readings. Readings on an H100
+# 80GB HBM3 at 700 W (PERF.md, section 6): dp norm 3.8e-6, gradient
+# 1.9e-5, worst leaf 1.7e-3, update cosine 1 - 7.1e-6; sp norm 0, gradient
+# 7.7e-7, worst leaf 1.7e-5, update cosine 1 - 5e-10.
+_PARALLEL_COMMON = {"loss_rtol": 1e-5, "stats_atol": 1e-5, "color_atol": 1e-5}
+PARALLEL_TOL = {
+    "dp": {**_PARALLEL_COMMON, "grad_norm_rtol": 1e-5, "clipped_grad_rel_l2": 1e-4, "worst_leaf_rel": 1e-2,
+           "update_cos_min": 1 - 5e-5},
+    "sp": {**_PARALLEL_COMMON, "grad_norm_rtol": 1e-5, "clipped_grad_rel_l2": 1e-5, "worst_leaf_rel": 1e-4,
+           "update_cos_min": 1 - 1e-6},
+}
+PARALLEL_STEPS_NCCL = 2
+RASTER_KERNELS = ("bin_count", "bin_scan", "bin_place", "composite", "composite_bwd", "bin_bwd")
+
+
+def _main_train_rank(argv: list[str]) -> dict:
+    """One rank of `transplat_tpu_torch.main train` (spawned by parallel.launch):
+    its exit code, the kernels it launched, seconds and peak bytes."""
+    from transplat_tpu_torch import kernels
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc, out = _main_quiet(argv)
+    torch.cuda.synchronize()
+    return {"rc": rc, "launches": dict(kernels.launches), "seconds": time.perf_counter() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "out": out[-2000:]}
+
+
+def require_parallel(errs: dict, kind: str, label: str) -> None:
+    """Fail unless `errs` (parallel.dryrun.step_errors) is within PARALLEL_TOL[kind] ("dp" or "sp")."""
+    tol = PARALLEL_TOL[kind]
+    require(errs["finite"] and errs["same_metrics_on_every_rank"] and errs["same_keys"],
+            f"parallel {label}: metrics differ or not finite")
+    for key, bound in (("loss_rel_err", "loss_rtol"), ("grad_norm_rel_err", "grad_norm_rtol"),
+                       ("clipped_grad_rel_l2", "clipped_grad_rel_l2"), ("clipped_grad_worst_leaf_rel", "worst_leaf_rel"),
+                       ("batch_norm_max_abs_err", "stats_atol"), ("color_max_abs_err", "color_atol")):
+        require(errs[key] <= tol[bound], f"parallel {label}: {key} {errs[key]} > {tol[bound]}")
+    require(errs["update_cosine"] >= tol["update_cos_min"], f"parallel {label}: update cosine {errs['update_cosine']}")
+
+
+def _parallel_step_run(dp: int, sp: int, smi: str) -> dict:
+    """A full-width dp x sp step on two gloo ranks of the card against the
+    one-process step (taken twice: the card's floor) on the joined batch."""
+    from transplat_tpu_torch.parallel import dryrun, launch
+
+    kind = "sp" if sp > 1 else "dp"
+    spec = dryrun.StepSpec(dp=dp, sp=sp, device="cuda", backend="gloo", full_width=True, num_target=NUM_TARGET,
+                           dropout=sp > 1, return_params=True, decode_check=True)
+    t0 = time.perf_counter()
+    ranks = launch.spawn(dryrun.step_rank, dp * sp, spec, timeout_s=600, threads=4, local_ranks=False)
+    ranks_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs = [dryrun.reference_step(spec) for _ in range(2)]
+    errs = dryrun.step_errors(ranks, refs[0])
+    errs["floor_grad_norm_rel"] = abs(refs[1]["metrics"]["grad_norm"] - refs[0]["metrics"]["grad_norm"]) / refs[0]["metrics"]["grad_norm"]
+    ref, m, mr = refs[0], ranks[0]["metrics"], refs[0]["metrics"]
+    rec = {"phase": "parallel", "run": f"dp{dp}_sp{sp}", "card": smi, "backend": "gloo", "ranks_on_one_card": dp * sp,
+           "batch_per_rank": 1, "context": 2, "target_views": NUM_TARGET, "image": list(IMAGE),
+           "loss": m["loss"], "loss_reference": mr["loss"], "grad_norm": m["grad_norm"],
+           "grad_norm_reference": mr["grad_norm"], **errs, "tolerance": PARALLEL_TOL[kind],
+           "ranks_seconds": ranks_s, "reference_ms_per_step": ref["ms_per_step"],
+           "reference_peak_bytes": ref["peak_bytes"],
+           "ranks": [{"rank": r["rank"], "dp_rank": r["dp_rank"], "sp_rank": r["sp_rank"],
+                      "pairs": r["decode"]["pairs"], "views": r["decode"]["views"],
+                      "gaussians_local": r["decode"]["gaussians_local"],
+                      "k1_k4_launches": {k: r["launches"].get(k, 0) for k in RASTER_KERNELS},
+                      "launches": r["launches"], "ms_per_step": r["ms_per_step"], "peak_bytes": r["peak_bytes"],
+                      "all_reduce_bytes": r["all_reduce"]["bytes"], "all_reduce_ms": r["all_reduce"]["ms"],
+                      "traffic": r["traffic"]} for r in ranks]}
+    emit(rec)
+    require_parallel(errs, kind, rec["run"])
+    for r in ranks:
+        for name in FORWARD_KERNELS + BACKWARD_KERNELS:
+            require(r["launches"].get(name, 0) > 0, f"parallel {rec['run']}: rank {r['rank']} did not launch {name}")
+    return rec
+
+
+def parallel_phase(records: list[dict], smi: str) -> None:
+    """Data parallelism and the view-sharded decode on the one card:
+    (a) `main train --dp 1 --sp 1` at full width over seeded chunks, one rank
+    spawned by the port's launch (torchrun's environment), NCCL at world size
+    1, PARALLEL_STEPS_NCCL steps, every kernel launched; (b) dp = 2 x sp = 1
+    and dp = 1 x sp = 2, one full-width step each on two processes sharing
+    the card over gloo, against the one-process step (`_parallel_step_run`);
+    (c) `dryrun_multichip(2)` on the card. The sp run's K1-K4 launches per
+    rank join the kernels line (`launches_sp`)."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from transplat_tpu_torch.dataset import chunks
+    from transplat_tpu_torch.parallel import dryrun, launch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "re10k"
+        for i in range(TRAIN_SCENES):
+            chunks.write_chunk(data / "train" / f"{i:06d}.torch",
+                               [chunks.make_scene(f"train_{i}", TRAIN_FRAMES, seed=SEED + i)])
+        run = Path(tmp) / "run"
+        argv = ["train", "--dp", "1", "--sp", "1", "--dataset-root", str(data), "--max-steps", str(PARALLEL_STEPS_NCCL),
+                "--output", str(run), "trainer.num_workers=0", "trainer.num_sanity_val_steps=0",
+                "trainer.val_check_interval=1000"]
+        cwd = os.getcwd()
+        os.chdir(tmp)  # main train writes outputs/latest-run under the working directory
+        try:
+            (res,) = launch.spawn(_main_train_rank, 1, argv, timeout_s=600, threads=4)
+        finally:
+            os.chdir(cwd)
+        require(res["rc"] == 0, f"parallel: main train --dp 1 --sp 1 exited {res['rc']}: {res['out']}")
+        for name in FORWARD_KERNELS + BACKWARD_KERNELS:
+            require(res["launches"].get(name, 0) > 0, f"parallel: main train --dp 1 --sp 1 did not launch {name}")
+        ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
+        require(f"step_{PARALLEL_STEPS_NCCL:08d}.pt" in ckpts, f"parallel: checkpoints {ckpts}")
+        emit({"phase": "parallel", "run": "main_train_nccl_world1", "card": smi, "backend": "nccl", "steps": PARALLEL_STEPS_NCCL,
+              "seconds": res["seconds"], "peak_bytes": res["peak_bytes"], "launches": res["launches"],
+              "checkpoints": ckpts})
+
+    runs = [_parallel_step_run(2, 1, smi), _parallel_step_run(1, 2, smi)]
+    sp_launches = runs[1]["ranks"][0]["launches"]
+    for rec in records:
+        rec["launches_sp"] = sp_launches.get(rec["name"], 0)
+
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(2, "cuda", timeout_s=600)
+    for r in dry:
+        require(r["decode"]["grad_norm"] > 0 and all(r["decode"]["launches"].get(k, 0) > 0 for k in RASTER_KERNELS),
+                f"parallel: dryrun_multichip(2) decode launches {r['decode']['launches']}")
+    emit({"phase": "parallel", "run": "dryrun_multichip_2", "card": smi, "backend": "gloo", "dp": dry[0]["dp"],
+          "sp": dry[0]["sp"], "seconds": time.perf_counter() - t0, "loss": dry[0]["step"]["metrics"]["loss"],
+          "ranks": [{"step_launches": r["step"]["launches"], "decode_launches": r["decode"]["launches"],
+                     "decode_grad_norm": r["decode"]["grad_norm"], "ms_per_step": r["step"]["ms_per_step"],
+                     "peak_bytes": r["step"]["peak_bytes"], "all_reduce_bytes": r["step"]["all_reduce"]["bytes"],
+                     "all_reduce_ms": r["step"]["all_reduce"]["ms"]} for r in dry]})
+
+
 def tiny_train_vs_cpu(dev) -> None:
     """One training step's loss and gradients (dropout off) at a tiny width:
     the kernels on the card against the plain versions on the CPU, from the
@@ -2094,6 +2313,12 @@ def main() -> int:
 
     # ---- the data path and the command line ----------------------------------
     data_cli_phase(dev, records, smi)
+
+    # ---- DTU's PNG chunks ----------------------------------------------------------
+    dtu_phase(records, smi)
+
+    # ---- data parallelism and the view-sharded decode -------------------------
+    parallel_phase(records, smi)
 
     print(smi, flush=True)
     emit({"kernels": records})

@@ -121,7 +121,8 @@ def test_train_without_data_fails_fast(tmp_path, monkeypatch):
     # the run directory and the latest-run link come before the guard
     assert (tmp_path / "outputs" / "latest-run").is_symlink()
     assert (tmp_path / "outputs" / "latest-run").resolve().parent == (tmp_path / "outputs" / "runs").resolve()
-    with pytest.raises(NotImplementedError, match="device mesh"):
+    # --dp / --sp train over ranks under torchrun (tests/test_torch_parallel.py); alone, one process is not two ranks
+    with pytest.raises(SystemExit, match=r"dp \* sp must equal the number of ranks \(1\); run under torchrun"):
         main(["train", "--dp", "2", "--device", "cpu"])
     if not torch.cuda.is_available():  # no card and no --device cpu: the port does not carry on on the CPU
         with pytest.raises(SystemExit, match="no CUDA card"):

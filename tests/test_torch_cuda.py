@@ -816,3 +816,39 @@ def test_orthographic_render_on_the_card_matches_the_cpu(dev):
     diff = (card.cpu() - cpu).abs()
     assert float(card.max()) > 0.05
     assert float((diff > 1e-4).float().mean()) < 0.02 and float(diff.max()) < 0.05, float(diff.max())
+
+
+@pytest.mark.parametrize("dp,sp", [(2, 1), (1, 2)])
+def test_parallel_step_of_two_ranks_on_the_card_matches_one_process(dev, dp, sp):
+    """chip_smoke.py's parallel phase at the tiny width: two gloo ranks
+    sharing the card take one step (dp: the joined batch split over the
+    ranks, dropout off; sp: the views split, dropout on), held against the
+    one-process step on the card; every rank launched K1-K4 in its step, and
+    an sp rank's sharded decode equals the unsharded one within 1e-5. The
+    step's bounds: sp as tests/test_torch_parallel.py's STEP_TOL; dp a few
+    times its readings at this width on an H100 (norm 2.3e-5, gradient
+    1.5e-4, worst leaf 1.1e-2, update cosine 1 - 1.4e-4), which round
+    further from the joined batch than the CPU's; the loss and BatchNorm
+    statistics 1e-5."""
+    from chip_smoke import RASTER_KERNELS
+    from test_torch_parallel import STEP_TOL
+    from transplat_tpu_torch.parallel import dryrun, launch
+
+    card_tol = {"sp": STEP_TOL["sp"], "dp": {**STEP_TOL["dp"], "clipped_grad_rel_l2": 5e-4, "worst_leaf_rel": 5e-2,
+                                             "update_cos_min": 1 - 5e-4}}
+
+    spec = dryrun.StepSpec(dp=dp, sp=sp, device="cuda", backend="gloo", dropout=sp > 1, return_params=True,
+                           decode_check=True)
+    ranks = launch.spawn(dryrun.step_rank, 2, spec, timeout_s=300, local_ranks=False)
+    ref = dryrun.reference_step(spec)
+    errs = dryrun.step_errors(ranks, ref)
+    tol = card_tol["sp" if sp > 1 else "dp"]
+    assert errs["finite"] and errs["same_metrics_on_every_rank"] and errs["same_keys"], errs
+    assert errs["loss_rel_err"] <= 1e-5 and errs["batch_norm_max_abs_err"] <= 1e-5, errs
+    assert errs["grad_norm_rel_err"] <= tol["grad_norm_rtol"], errs
+    assert errs["clipped_grad_rel_l2"] <= tol["clipped_grad_rel_l2"], errs
+    assert errs["clipped_grad_worst_leaf_rel"] <= tol["worst_leaf_rel"], errs
+    assert errs["update_cosine"] >= tol["update_cos_min"] and errs["color_max_abs_err"] <= 1e-5, errs
+    for rec in ranks:
+        assert rec["backend"] == "gloo" and all(rec["launches"].get(k, 0) > 0 for k in RASTER_KERNELS)
+        assert rec["decode"]["pairs"] > 0

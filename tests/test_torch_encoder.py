@@ -145,7 +145,8 @@ def test_port_imports_nothing_of_jax():
                  "training.pretrained", "evaluation.staged", "evaluation.metric_computer", "utils.analysis",
                  "utils.image_io", "visualization.ply_export", "visualization.trajectory", "visualization.layout",
                  "visualization.validation_3d", "convert.common", "convert.backbone", "convert.dav2", "convert.unet",
-                 "convert.uv", "convert.depth_predictor", "convert.encoder", "convert_weights"):
+                 "convert.uv", "convert.depth_predictor", "convert.encoder", "convert_weights", "parallel.mesh",
+                 "parallel.launch", "parallel.dryrun", "tools.test_splatter", "tools.visualize_epipolar_lines"):
         assert f"transplat_tpu_torch.{name}" in imported, name
     files = sorted((ROOT / "transplat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20

@@ -21,16 +21,24 @@ checkpoint -> evaluate), written for one H100:
   * evaluation/  PSNR / SSIM, the Evaluator (scores, timing JSONs, renders,
                  videos, PLY, analysis), the staged encoder, the offline
                  MetricComputer and the evaluation-index generator
-  * dataset/     numpy batches: the RE10K chunk reader, view samplers and
-                 shims, DataLoader and MultiWorkerLoader, synthetic batches,
-                 the golden scene, seeded chunks for tests
-  * native/      JPEG decode (host libjpeg or the card's nvJPEG) and the
-                 image resizes, C++ built with the host compiler at first use
+  * dataset/     numpy batches: the RE10K / ACID / DTU chunk reader (JPEG
+                 frames, or DTU's PNG frames), view samplers and shims,
+                 DataLoader and MultiWorkerLoader, synthetic batches, the
+                 golden scene, seeded chunks for tests
+  * native/      JPEG decode (host libjpeg or the card's nvJPEG), PNG decode
+                 (Pillow) and the image resizes, C++ built with the host
+                 compiler at first use
+  * parallel/    data parallelism (dp) and the view-sharded decode (sp) on
+                 torch.distributed, one process per rank: the mesh, the
+                 collectives, rank launching and dryrun_multichip
   * utils/       Benchmarker (stage timer: CUDA events on the card; a
                  torch.profiler trace), device_time, the workload analysis,
                  image and video files
   * visualization/  camera trajectories, PLY export, layout, colour map,
                  the validation's orthographic projections and camera wires
+  * tools/       the reference's visual tools: test_splatter (a camera
+                 spinning around random Gaussians) and
+                 visualize_epipolar_lines (plane-sweep samples in view B)
   * convert/     JAX variable trees into the port's modules and back, and
                  the reference's PyTorch checkpoints into those trees
                  (convert_weights.py is its command line)
@@ -38,8 +46,8 @@ checkpoint -> evaluate), written for one H100:
   * csrc/        CUDA C++ sources, built with nvcc for sm_90a at first use
   * inference.py the serving path (encoder -> decode_splatting -> colour)
   * overfit_golden.py  the golden-scene convergence gate
-  * main.py      the command line: train, test, generate-index, bench,
-                 compute-metrics
+  * main.py      the command line: train (over ranks with --dp / --sp under
+                 torchrun), test, generate-index, bench, compute-metrics
   * bench.py     the rasterizer and training-step benchmark
 
 The entry points are exported here: render_novel_views, make_train_step,

@@ -9,7 +9,8 @@ that the view overlap falls with the frame distance as
 `main generate-index` needs; the frames are a smooth random panorama seen
 through a window that moves with the pan. The JPEGs are written with the
 library of the machine's JPEG route (`native.encode_jpeg_batch`), the one
-that decodes them.
+that decodes them. `make_png_scene` packs PNG frames as the DTU converter
+does.
 """
 
 from __future__ import annotations
@@ -54,6 +55,29 @@ def make_scene(key: str, num_frames: int, seed: int, hw: tuple[int, int] = (360,
         "key": key,
         "cameras": torch.from_numpy(orbit_poses(num_frames, yaw_deg_per_frame)),
         "images": [torch.frombuffer(bytearray(b), dtype=torch.uint8) for b in blobs],
+    }
+
+
+def make_png_scene(key: str, num_frames: int, seed: int, hw: tuple[int, int] = (512, 640),
+                   yaw_deg_per_frame: float = 3.0, focal: float = 1.2) -> dict:
+    """One scene as scripts/convert_dtu.py packs a DTU scan: the raw bytes of
+    PNG files (Pillow's encoder), pose rows, `url` and `timestamps`."""
+    import io
+
+    from PIL import Image
+
+    def png(frame: np.ndarray) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(frame).save(buf, format="PNG")
+        return buf.getvalue()
+
+    frames = panorama_frames(num_frames, hw, seed, pan_px_per_frame=6)
+    return {
+        "url": "",
+        "timestamps": torch.arange(num_frames, dtype=torch.int64),
+        "cameras": torch.from_numpy(orbit_poses(num_frames, yaw_deg_per_frame, focal=focal)),
+        "images": [torch.frombuffer(bytearray(png(f)), dtype=torch.uint8) for f in frames],
+        "key": key,
     }
 
 

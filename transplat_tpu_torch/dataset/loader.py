@@ -97,6 +97,8 @@ class DataLoader:
                 yield item
         finally:
             stop.set()
+            # Wait for the thread: a process that exits while it decodes in native code can abort.
+            t.join(timeout=60)
 
 
 class MultiWorkerLoader:

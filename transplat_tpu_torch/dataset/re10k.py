@@ -1,14 +1,15 @@
 """RE10K / ACID / DTU chunk reader.
 
 Own copy of transplat_tpu/dataset/re10k.py: iterates `.torch` chunk files
-(lists of scenes, each with JPEG bytes and 18-float poses), samples context
+(lists of scenes, each with JPEG bytes, or PNG bytes in the DTU chunks
+that scripts/convert_dtu.py writes, and 18-float poses), samples context
 and target views, decodes them and applies the shims. Everything it yields is
 numpy NHWC; torch only loads the chunks on the host.
 
 An example is built in two halves. `ChunkDataset._sample_example` makes every
 random draw in the JAX package's order (views, then the reflection) and
 every skip (too few frames, FOV, shape, baseline; the shape is read from the
-JPEG headers), and keeps the views' JPEG bytes. `finish_example` decodes,
+PNG or JPEG headers), and keeps the views' bytes. `finish_example` decodes,
 reflects, rescales and crops. The host route ("libjpeg") finishes an example
 where it is sampled, in a forked loader worker too; the card route
 ("nvjpeg", transplat_tpu_torch/native) finishes it in the process that owns
@@ -50,7 +51,11 @@ def convert_poses(poses: np.ndarray):
 
 
 def _decode_images(blobs: list[bytes], jpeg_route: str | None = None) -> np.ndarray:
-    """JPEG bytes -> (n, h, w, 3) float32 in [0, 1]."""
+    """PNG or JPEG bytes -> (n, h, w, 3) float32 in [0, 1]: PNG frames (the
+    DTU chunks) with Pillow, as the JAX reader decodes them, JPEGs on the
+    native route, which raises for a blob that is no JPEG."""
+    if all(native.is_png(b) for b in blobs):
+        return native.decode_png_batch(blobs).astype(np.float32) / 255.0
     return native.decode_jpeg_batch(blobs, route=jpeg_route).astype(np.float32) / 255.0
 
 
@@ -63,7 +68,7 @@ def _fov_deg(intrinsics: np.ndarray) -> np.ndarray:
 
 
 def finish_example(pending: dict, image_shape: tuple[int, int], jpeg_route: str | None = None) -> Example:
-    """Decode a sampled example's JPEGs, reflect it if its draw said so, and
+    """Decode a sampled example's frames, reflect it if its draw said so, and
     rescale and crop it to `image_shape`."""
     example = {"scene": pending["scene"]}
     for key in ("context", "target"):
@@ -150,7 +155,7 @@ class ChunkDataset:
             )
 
     def _sample_example(self, raw, run_sub_idx: int, global_step: int) -> dict | None:
-        """The views of one scene with their JPEG bytes, or None if it is skipped."""
+        """The views of one scene with their image bytes, or None if it is skipped."""
         poses = np.asarray(raw["cameras"], dtype=np.float32)
         extrinsics, intrinsics = convert_poses(poses)
         scene = raw["key"]
@@ -170,7 +175,7 @@ class ChunkDataset:
 
         if self.cfg.skip_bad_shape and self.cfg.expected_shape is not None:
             exp = tuple(self.cfg.expected_shape)
-            if any(native.jpeg_shape(b) != exp for b in ctx_blobs + tgt_blobs):
+            if any(native.image_shape(b) != exp for b in ctx_blobs + tgt_blobs):
                 return None
 
         scale = 1.0

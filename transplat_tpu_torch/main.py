@@ -7,7 +7,10 @@ Counterpart of transplat_tpu/main.py, with its parser and every flag, plus
   train           fit on the configured dataset (<root>/train/*.torch),
                   validating on <root>/test/*.torch; a run directory under
                   outputs/runs/<stamp> (or --output) and the outputs/latest-run
-                  link; `--checkpoint latest` follows the previous run
+                  link; `--checkpoint latest` follows the previous run. With
+                  --dp N --sp M under `torchrun --nproc-per-node N*M`, every
+                  rank trains (parallel/mesh.py): NCCL, a card per rank
+                  (cuda:LOCAL_RANK), or gloo on the CPU with --device cpu
   test            evaluate a checkpoint (--checkpoint, a run's checkpoints
                   directory) or weight files (checkpointing.pretrained_model,
                   .dav2_weights, .lpips_weights: .npy trees in the JAX
@@ -51,8 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max-scenes", type=int, default=None)
     parser.add_argument("--evaluation-index", default=None)
     parser.add_argument("--output", default=None)
-    parser.add_argument("--dp", type=int, default=None, help="data-parallel size (1 only)")
-    parser.add_argument("--sp", type=int, default=1, help="splat-parallel size (1 only)")
+    parser.add_argument("--dp", type=int, default=None, help="train: data-parallel size (under torchrun)")
+    parser.add_argument("--sp", type=int, default=1, help="train: splat-parallel size (under torchrun)")
     parser.add_argument("--dataset-root", default=None)
     parser.add_argument("--method", action="append", default=[], help="compute-metrics: name=render_dir (repeatable)")
     parser.add_argument("--ground-truth", default=None, help="compute-metrics: GT render dir")
@@ -97,39 +100,71 @@ def _device(name: str) -> torch.device:
     return device
 
 
+def _mesh(args, device: torch.device):
+    """The dp x sp mesh of `--dp/--sp` under torchrun (WORLD_SIZE ranks,
+    each on cuda:LOCAL_RANK over NCCL, or on the CPU over gloo with
+    --device cpu); None for one process with no flags, as before."""
+    import os
+
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if args.dp is None and args.sp == 1 and "WORLD_SIZE" not in os.environ:
+        return None
+    dp = args.dp if args.dp is not None else world // args.sp
+    if dp < 1 or dp * args.sp != world:
+        raise SystemExit(
+            f"--dp {args.dp} --sp {args.sp}: dp * sp must equal the number of ranks ({world}); run under "
+            f"torchrun --nproc-per-node {max(dp, 1) * args.sp} -m transplat_tpu_torch.main train --dp ... --sp ..."
+        )
+    from .parallel import make_mesh
+
+    return make_mesh(dp, args.sp, device="cpu" if device.type == "cpu" else None)
+
+
 def _train(cfg, args, device: torch.device) -> int:
     import datetime
     from pathlib import Path
 
+    import torch.distributed as dist
+
     from .training.trainer import Trainer
 
+    mesh = _mesh(args, device)
+    writer = mesh is None or mesh.is_writer
     # A run directory per run (--output resumes into an existing one) and the
-    # outputs/latest-run link to it.
-    if args.output:
-        run_dir = Path(args.output)
-    else:
-        stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-        run_dir = Path("outputs/runs") / stamp
-    run_dir.mkdir(parents=True, exist_ok=True)
-    cfg.checkpointing.save_dir = str(run_dir / "checkpoints")
-    latest = Path("outputs/latest-run")
-    latest.parent.mkdir(parents=True, exist_ok=True)
-    # `--checkpoint latest` follows the previous run: resolve it before the link moves.
-    if cfg.checkpointing.load == "latest":
-        cfg.checkpointing.load = str(latest.resolve() / "checkpoints") if latest.exists() else None
-    if latest.is_symlink() or latest.exists():
-        latest.unlink()
-    latest.symlink_to(run_dir.resolve())
-    print(f"run dir: {run_dir}", flush=True)
+    # outputs/latest-run link to it; under a mesh rank 0 names and links it.
+    run_dir = load = None
+    if writer:
+        if args.output:
+            run_dir = Path(args.output)
+        else:
+            stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+            run_dir = Path("outputs/runs") / stamp
+        run_dir.mkdir(parents=True, exist_ok=True)
+        latest = Path("outputs/latest-run")
+        latest.parent.mkdir(parents=True, exist_ok=True)
+        # `--checkpoint latest` follows the previous run: resolve it before the link moves.
+        load = cfg.checkpointing.load
+        if load == "latest":
+            load = str(latest.resolve() / "checkpoints") if latest.exists() else None
+        if latest.is_symlink() or latest.exists():
+            latest.unlink()
+        latest.symlink_to(run_dir.resolve())
+        print(f"run dir: {run_dir}", flush=True)
+    if mesh is not None and mesh.world > 1:
+        shared = [run_dir, load]
+        dist.broadcast_object_list(shared, src=0)
+        run_dir, load = shared
+    cfg.checkpointing.save_dir = str(Path(run_dir) / "checkpoints")
+    cfg.checkpointing.load = load
 
-    if args.dp not in (None, 1) or args.sp != 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} --sp {args.sp}: the device mesh (transplat_tpu/parallel/mesh.py) is not ported yet; "
-            "the port trains on one card"
-        )
-    trainer = Trainer(cfg, device=device, log_fn=lambda m: print(m, flush=True))
-    state = trainer.fit(max_steps=args.max_steps)
-    print(f"trained to step {state.step}; checkpoints in {cfg.checkpointing.save_dir}", flush=True)
+    try:
+        trainer = Trainer(cfg, mesh=mesh, device=device, log_fn=lambda m: print(m, flush=True))
+        state = trainer.fit(max_steps=args.max_steps)
+        if writer:
+            print(f"trained to step {state.step}; checkpoints in {cfg.checkpointing.save_dir}", flush=True)
+    finally:
+        if mesh is not None:
+            mesh.close()
     return 0
 
 

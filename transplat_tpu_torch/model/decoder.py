@@ -1,8 +1,15 @@
 """Splatting decoder: Gaussians + target cameras -> rendered views.
 
 Counterpart of transplat_tpu/model/decoder.py (`decode_splatting`): all
-(batch x target view) cameras are rendered in one batched call. The JAX
-package's view-sharded multi-device branch is not ported yet.
+(batch x target view) cameras are rendered in one batched call.
+
+With a mesh of sp > 1 (parallel/mesh.py), as the JAX package's shard_map
+branch: each rank holds its slice of the Gaussian axis, all-gathers the four
+fields once over its sp group (the only collective of the decode; its
+backward sums the Gaussians' gradient over sp and keeps the rank's slice),
+and renders its own tv / sp target views through the unchanged `render`.
+Front-to-back compositing needs every Gaussian in each camera's depth order,
+so the views are split and the Gaussians are not.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.rasterizer.api import RasterizeConfig, render, render_depth
+from ..parallel.mesh import gather_gaussians, view_slice
 from .types import Gaussians
 
 
@@ -39,9 +47,19 @@ def decode_splatting(
     cfg: DecoderCfg = DecoderCfg(),
     depth_mode: str | None = None,
     deterministic_kernels: bool = False,
+    mesh=None,
 ) -> DecoderOutput:
     """Render the Gaussians into every target camera; `deterministic_kernels`
-    makes the colour's backward repeat its bits (K2's sorted mode)."""
+    makes the colour's backward repeat its bits (K2's sorted mode).
+
+    mesh: with sp > 1, `gaussians` is this rank's slice of the Gaussian axis
+    (`parallel.constrain`). They are gathered, and the outputs hold the
+    rank's own target views (`parallel.view_slice`: its tv / sp block when
+    tv % sp == 0, else every view)."""
+    if mesh is not None and mesh.sp > 1:
+        gaussians = gather_gaussians(gaussians, mesh)
+        views = view_slice(extrinsics.shape[1], mesh)
+        extrinsics, intrinsics, near, far = (x[:, views] for x in (extrinsics, intrinsics, near, far))
     b, tv = extrinsics.shape[:2]
     g = gaussians.means.shape[1]
 

@@ -6,10 +6,14 @@ and attribute names follow the Flax modules so weights map mechanically
 and a plain GroupNorm 1e-6, the U-Net `group_norm` 1e-5, BatchNorm 1e-5.
 
 Modules honour train() / eval(). Dropout masks are drawn from a
-`torch.Generator` the caller hands down, never from the global RNG.
+`torch.Generator` the caller hands down, never from the global RNG. Under a
+dp mesh the BatchNorms' training statistics are joined over the ranks
+(`batch_stats_over`).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -78,18 +82,57 @@ class _FlaxBatchNorm:
     (PyTorch's own update feeds the unbiased variance to the running one;
     Flax feeds the biased one, and the port follows Flax.)"""
 
+    stats_over = None  # (process group, mesh) whose ranks share the batch statistics; see batch_stats_over
+    batch_stats = None  # (mean, biased variance) of the latest training forward, detached
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         dims = [0, *range(2, x.ndim)]
-        mean = x.mean(dim=dims)
-        var = x.var(dim=dims, unbiased=False)
+        if self.stats_over is None:
+            mean = x.mean(dim=dims)
+            var = x.var(dim=dims, unbiased=False)
+        else:
+            mean, var = self._stats_over_ranks(x, dims)
+        self.batch_stats = (mean.detach(), var.detach())
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         scale = self.weight * torch.rsqrt(var + self.eps)
         return (x - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+
+
+    def _stats_over_ranks(self, x: torch.Tensor, dims: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+        """The mean and biased variance of the batch joined over the ranks
+        of `stats_over` (SyncBatchNorm-like), in two passes: the sums and
+        the count, then the squared deviations from the joined mean. The
+        all-reduces are differentiable (parallel/mesh.py AllReduceSum)."""
+        from ..parallel.mesh import AllReduceSum
+
+        group, mesh = self.stats_over
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        count = x.new_full((1,), x.numel() // x.shape[1])
+        sums = AllReduceSum.apply(torch.cat([x.sum(dim=dims), count]), group, mesh)
+        mean = sums[:-1] / sums[-1]
+        var = AllReduceSum.apply(((x - mean.view(shape)) ** 2).sum(dim=dims), group, mesh) / sums[-1]
+        return mean, var
+
+
+@contextlib.contextmanager
+def batch_stats_over(module: nn.Module, group, mesh):
+    """Inside, every BatchNorm of `module` takes its training statistics
+    over the batch joined across the ranks of `group` (the dp group: under
+    GSPMD the JAX step's statistics are those of the global batch). With
+    group None nothing changes."""
+    norms = [m for m in module.modules() if isinstance(m, _FlaxBatchNorm)]
+    for m in norms:
+        m.stats_over = None if group is None else (group, mesh)
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.stats_over = None
 
 
 class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):

@@ -18,7 +18,9 @@ host CPU's flags>/ (a copy of the tree on another machine builds anew).
 compiler finds jpeglib.h, else "nvjpeg" where the CUDA toolkit has nvJPEG and
 a card is present, else it raises and names both. Nothing falls back to
 another decoder (the JAX package falls back to Pillow; the port does not),
-and a stream that does not decode raises.
+and a stream that does not decode raises. PNG frames (the DTU chunks) are
+no JPEG: `decode_png_batch` decodes them with Pillow on the host, as the
+JAX reader does, and `image_shape` reads either format's header.
 """
 
 from __future__ import annotations
@@ -208,6 +210,52 @@ def jpeg_shape(blob: bytes) -> tuple[int, int]:
             return int.from_bytes(blob[i + 5 : i + 7], "big"), int.from_bytes(blob[i + 7 : i + 9], "big")
         i += 2 + int.from_bytes(blob[i + 2 : i + 4], "big")
     raise ValueError("corrupt JPEG: no frame header")
+
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def is_png(blob: bytes) -> bool:
+    return blob[:8] == PNG_SIGNATURE
+
+
+def png_shape(blob: bytes) -> tuple[int, int]:
+    """(height, width) from a PNG's IHDR chunk, without decoding it."""
+    if not is_png(blob):
+        raise ValueError("not a PNG: no signature")
+    # The IHDR chunk comes first: length (4), type (4), width (4), height (4).
+    if len(blob) < 24 or blob[12:16] != b"IHDR":
+        raise ValueError("corrupt PNG: no IHDR chunk after the signature")
+    return int.from_bytes(blob[20:24], "big"), int.from_bytes(blob[16:20], "big")
+
+
+def image_shape(blob: bytes) -> tuple[int, int]:
+    """(height, width) of a PNG or a JPEG from its header; raises ValueError for any other blob."""
+    if is_png(blob):
+        return png_shape(blob)
+    if blob[:2] == b"\xff\xd8":
+        return jpeg_shape(blob)
+    raise ValueError("neither a PNG nor a JPEG: no PNG signature and no JPEG start-of-image marker")
+
+
+def decode_png_batch(blobs: list[bytes]) -> np.ndarray:
+    """Decode PNGs of one shape into (n, h, w, 3) uint8 RGB with Pillow, as
+    the JAX reader decodes the DTU chunks' frames. Pillow holds no CUDA
+    context, so this runs on the host on both JPEG routes, in forked loader
+    workers too."""
+    import io
+
+    from PIL import Image
+
+    out = []
+    for i, blob in enumerate(blobs):
+        if not is_png(blob):
+            raise ValueError(f"image {i} of {len(blobs)} is not a PNG")
+        with Image.open(io.BytesIO(blob)) as img:
+            out.append(np.asarray(img.convert("RGB"), dtype=np.uint8))
+    if any(x.shape != out[0].shape for x in out):
+        raise ValueError(f"PNGs of different shapes: {sorted({x.shape for x in out})}")
+    return np.stack(out)
 
 
 def _threads(num_threads: int | None) -> int:

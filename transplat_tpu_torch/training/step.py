@@ -1,9 +1,10 @@
 """Training step: forward (encoder -> decoder -> losses), backward, clip + Adam.
 
-Counterpart of transplat_tpu/training/step.py on a single device: the JAX
-`mesh`, `constrain` and `donate` arguments have no counterpart yet. The
-encoder module holds the parameters and the BatchNorm statistics, and the
-step updates them in place. On the card the gradients of the deformable
+Counterpart of transplat_tpu/training/step.py. The encoder module holds the
+parameters and the BatchNorm statistics, and the step updates them in place
+(JAX's `donate` has no counterpart). With a `mesh` (parallel/mesh.py) a step
+runs on every rank of a dp x sp mesh and equals the one-process step on the
+joined batch; see `make_train_step`. On the card the gradients of the deformable
 sampler and of the rasterizer come from the hand-written backward kernels
 (ops/deform.py, ops/rasterizer/composite.py); everything else is autograd.
 The stages of a step are marked with record_function spans (`train.*`),
@@ -31,7 +32,8 @@ from ..model.encoder import EncoderCfg, EncoderTranSplat
 from ..dataset.loader import CONTEXT_KEYS
 from ..evaluation.metrics import compute_psnr
 from ..model.init import init_parameters
-from ..model.layers import Dropout
+from ..model.layers import Dropout, batch_stats_over
+from ..parallel.mesh import all_reduce_mean_, constrain, view_slice
 
 
 @dataclass
@@ -164,34 +166,43 @@ def loss_and_grads(
     generator: torch.Generator | None = None,
     deterministic: bool = False,
     deterministic_kernels: bool = False,
+    mesh=None,
 ):
     """One forward and backward of the training loss in training mode (batch
     statistics in BatchNorm, which move their running ones; dropout from
     `generator` unless `deterministic`; with `deterministic_kernels` the
     same bits on every run, see the module docstring). Returns (metrics,
     gradients by parameter name), the loss under metrics["loss"]; the encoder
-    is back in eval mode afterwards."""
+    is back in eval mode afterwards.
+
+    mesh: this rank's part of a dp x sp step (`make_train_step`): BatchNorm
+    statistics joined over the dp group, the rank's slice of the Gaussians
+    up to the decode boundary, the loss on the rank's own target views. The
+    gradients and metrics returned are this rank's, not yet reduced."""
     encoder = state.encoder
     params = state.trainable()
     encoder.train()
     for m in encoder.modules():
         if isinstance(m, Dropout):
             m.train(not deterministic)
+    stats_group = mesh.dp_group if mesh is not None and mesh.dp > 1 else None
     try:
         ctx, tgt = batch["context"], batch["target"]
-        with repeatable_ops(deterministic_kernels):
+        with repeatable_ops(deterministic_kernels), batch_stats_over(encoder, stats_group, mesh):
             with record_function("train.encoder"):
                 gaussians = encoder(
                     *(ctx[k] for k in CONTEXT_KEYS), global_step=state.step, generator=generator,
                     deterministic_kernels=deterministic_kernels,
                 )
+                gaussians = constrain(gaussians, mesh)
             with record_function("train.decoder"):
                 out = decode_splatting(
                     gaussians, tgt["extrinsics"], tgt["intrinsics"], tgt["near"], tgt["far"], image_shape,
-                    cfg=decoder_cfg, deterministic_kernels=deterministic_kernels,
+                    cfg=decoder_cfg, deterministic_kernels=deterministic_kernels, mesh=mesh,
                 )
+                target = tgt["image"][:, view_slice(tgt["image"].shape[1], mesh)]
             with record_function("train.loss"):
-                loss, parts = compute_losses(loss_cfg, out.color, tgt["image"], state.step, lpips_fn=state.lpips)
+                loss, parts = compute_losses(loss_cfg, out.color, target, state.step, lpips_fn=state.lpips)
             with record_function("train.backward"):
                 grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     finally:
@@ -201,10 +212,27 @@ def loss_and_grads(
         metrics["loss"] = loss.detach()
         metrics["render_overflow"] = out.overflow.sum().to(torch.float32)
         # One PSNR over the whole batch (every view in one mean), as the JAX step reports it.
-        metrics["psnr"] = compute_psnr(tgt["image"].reshape(1, -1, 3), out.color.reshape(1, -1, 3))
+        metrics["psnr"] = compute_psnr(target.reshape(1, -1, 3), out.color.reshape(1, -1, 3))
+        if mesh is not None:  # the rank's share of the world's PSNR (_world_metrics)
+            metrics["psnr_mse"] = torch.mean((target.clamp(0.0, 1.0) - out.color.clamp(0.0, 1.0)) ** 2)
     # A parameter the loss does not reach has gradient 0, as in JAX.
     grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), grads)}
     return metrics, grads
+
+
+@torch.no_grad()
+def _world_metrics(metrics: dict, target_mse: torch.Tensor, mesh) -> dict:
+    """The metrics of the whole step: means over the world (every rank's
+    shard is the same size, so the mean of the ranks' means is the global
+    mean), the overflow summed, and the PSNR of the world's mean squared
+    error, as the one-process step takes it over the joined batch."""
+    names = sorted(k for k in metrics if k != "psnr")
+    values = torch.stack([metrics[k].to(target_mse.dtype).reshape(()) for k in names] + [target_mse])
+    all_reduce_mean_([values], mesh, name="metrics")
+    out = dict(zip(names, values[:-1]))
+    out["render_overflow"] = out["render_overflow"] * mesh.world
+    out["psnr"] = -10.0 * torch.log10(values[-1:] + 1e-12)
+    return out
 
 
 def make_train_step(
@@ -215,6 +243,7 @@ def make_train_step(
     image_shape: tuple[int, int],
     deterministic: bool = False,
     deterministic_kernels: bool = False,
+    mesh=None,
 ):
     """Returns train_step(state, batch, generator) -> (state, metrics).
 
@@ -225,14 +254,36 @@ def make_train_step(
     the same bits on every run (the module docstring). The state is updated in
     place. Metrics are 0-dim tensors (lr a float), so a step does not wait
     for the card: loss, mse, lpips, psnr, grad_norm, lr, render_overflow
-    (always 0: the port drops nothing)."""
+    (always 0: the port drops nothing).
+
+    mesh (parallel/mesh.py): every rank calls the step with its own batch
+    (its dp slice; the ranks of one sp group the same batch), the same state
+    and a generator seeded alike within a dp group (Trainer._step_generator),
+    so that the ranks of a dp group compute one encoder forward. Each keeps
+    its slice of the Gaussians, the decode gathers them and renders the
+    rank's views, and the rank's loss L_r is the mean over its views. The
+    JAX step's loss under GSPMD is the mean over the global batch and views,
+    L = (1 / W) sum_r L_r over the W ranks (every shard the same size). Each
+    rank differentiates its own L_r with its own copy of the parameters;
+    the collectives' backwards are their adjoints (the gather's a
+    reduce-scatter over sp, BatchNorm's all-reduce an all-reduce over dp),
+    so rank r's gradient is d(sum_r' L_r') / d(theta_r), the world loss's
+    derivative through rank r's copy. Summed over the ranks that is
+    d(sum_r L_r) / d(theta) at equal copies, and the mean over the world
+    is dL / d(theta): the gradient of the JAX step. It is all-reduced before
+    the clip, so the clip and `grad_norm` see the global gradient as JAX's
+    do. The metrics are the world's (`_world_metrics`)."""
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None):
         if state.encoder.cfg != encoder_cfg:
             raise ValueError("the state's encoder was built from another EncoderCfg")
         metrics, grads = loss_and_grads(
-            state, batch, loss_cfg, decoder_cfg, image_shape, generator, deterministic, deterministic_kernels
+            state, batch, loss_cfg, decoder_cfg, image_shape, generator, deterministic, deterministic_kernels, mesh
         )
+        if mesh is not None:
+            with record_function("train.all_reduce"):
+                all_reduce_mean_(list(grads.values()), mesh, name="gradients")
+                metrics = _world_metrics(metrics, metrics.pop("psnr_mse"), mesh)
         with record_function("train.optimizer"):
             metrics["grad_norm"] = optimizer.update(state.trainable(), grads, state.opt_state)
         metrics["lr"] = optimizer.lr_schedule(state.step)

@@ -1,10 +1,9 @@
 """Training loop: data -> train step -> logging -> validation -> checkpoints.
 
-Counterpart of transplat_tpu/training/trainer.py on one device, in one
-process (shard 0 of 1). With no `data_iter`, `fit` reads the training chunks
-(`<root>/train/*.torch`) through the bounded view sampler, in
-`trainer.num_workers` forked workers or a prefetch thread, and validates on a
-held-out stream read from `<root>/test/*.torch` when there is one. The
+Counterpart of transplat_tpu/training/trainer.py. With no `data_iter`,
+`fit` reads the training chunks (`<root>/train/*.torch`) through the
+bounded view sampler, in `trainer.num_workers` forked workers or a prefetch
+thread, and validates on a held-out stream read from `<root>/test/*.torch` when there is one. The
 weight files of `checkpointing` load as in the JAX Trainer: the
 `pretrained_model` / `dav2_weights` trees merge over the initial parameters,
 and `lpips_weights` (or a Lightning tree's embedded LPIPS) puts the
@@ -14,8 +13,19 @@ media: a context | target | prediction grid and, with
 example's Gaussians with the context cameras drawn on them and a 14-frame
 wobble video. They go to `<save_dir>/../local` (`outputs/local` for the
 default `save_dir`, where the JAX Trainer writes them), beside
-`metrics.jsonl`. What the JAX Trainer has and this one does not yet: the
-device mesh and `shard_batch`.
+`metrics.jsonl`.
+
+With a `mesh` (parallel/mesh.py; one process per rank, `main train --dp
+--sp` under torchrun) every rank runs `fit`: the chunks are striped by dp
+rank, each rank's batch is `trainer.batch_size` examples, and the step is
+the dp x sp step of training/step.py. The ranks of one sp group must train
+on the same batch, and two loaders of one shard need not yield it in one
+order (the workers share a queue; the prefetch thread reads the live step),
+so sp rank 0 of each dp group alone loads and broadcasts each batch over
+its sp group (`_sp_shared`). Rank 0 alone writes checkpoints, `metrics.jsonl`,
+`config.json` and the validation media (the port's CheckpointManager has no
+multi-process save, which Orbax gives the JAX Trainer); the other ranks wait
+at a barrier where it writes. A restored state is broadcast from rank 0.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from ..evaluation.metrics import compute_psnr
 from ..loss.vgg import LPIPS, init_lpips
 from ..model.decoder import decode_splatting
 from ..model.types import Gaussians
+from ..parallel.mesh import Mesh, replicated
 from ..utils.image_io import save_image, save_video
 from ..visualization.layout import add_label, hcat, vcat
 from ..visualization.validation_3d import axis_looks, draw_cameras, render_orthographic, validation_wobble
@@ -46,22 +57,36 @@ from .schedule import make_lr_schedule
 from .step import TrainState, create_train_state, make_optimizer, make_train_step
 
 
+def dropout_seed(seed: int, step: int, dp_rank: int = 0) -> int:
+    """The dropout masks' seed of a step: from (seed + 1, step, dp_rank). The
+    ranks of one dp group draw the same masks (they compute one encoder
+    forward and keep different slices of its Gaussians); dp groups draw
+    their own. dp rank 0 draws what a one-process run draws. (The CPU
+    generator keeps the seed's low 32 bits only: the dp rank moves them by
+    1_000_000_007 a rank, which no run of fewer steps reaches.)"""
+    return (seed + 1) * 1_000_003 + step + dp_rank * 1_000_000_007
+
+
 class Trainer:
     def __init__(
         self,
         cfg: RootCfg,
+        mesh: Mesh | None = None,
         log_fn: Callable[[str], None] = print,
         device: str | torch.device = "cuda",
         lpips: LPIPS | None = None,
         log_every: int = 50,
     ):
-        """`lpips`: a loaded (frozen) LPIPS module on `device`, or None to
-        train without the perceptual term (`checkpointing.lpips_weights`, when
-        set, loads one in its place). `log_every`: steps between log lines and
-        metric records."""
+        """`mesh`: this rank's dp x sp mesh (its device replaces `device`), or
+        None for one process. `lpips`: a loaded (frozen) LPIPS module on the
+        device, or None to train without the perceptual term
+        (`checkpointing.lpips_weights`, when set, loads one in its place).
+        `log_every`: steps between log lines and metric records."""
         ckpt = cfg.checkpointing
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
+        self.writer = mesh is None or mesh.is_writer
         self.log = log_fn
         self.log_every = log_every
         if ckpt.lpips_weights:
@@ -81,7 +106,7 @@ class Trainer:
         self.image_shape = tuple(cfg.dataset.image_shape)
         self.step_fn = make_train_step(
             cfg.encoder, cfg.loss, cfg.decoder, self.optimizer, self.image_shape,
-            deterministic_kernels=cfg.trainer.deterministic_kernels,
+            deterministic_kernels=cfg.trainer.deterministic_kernels, mesh=mesh,
         )
         self.ckpt = CheckpointManager(ckpt.save_dir, ckpt.every_n_train_steps)
         # Beside the checkpoints' directory: outputs/metrics.jsonl and
@@ -167,9 +192,11 @@ class Trainer:
     def _step_generator(self) -> torch.Generator:
         """The dropout masks' generator for the step about to run. The JAX
         Trainer splits one key stream from PRNGKey(seed + 1) and starts it
-        anew after a resume; here every step seeds from (seed + 1, step), so
-        a resumed run draws the masks the uninterrupted run would have."""
-        return self._dropout.manual_seed((self.cfg.trainer.seed + 1) * 1_000_003 + self.global_step)
+        anew after a resume; here every step seeds from (seed + 1, step, dp
+        rank) (`dropout_seed`), so a resumed run draws the masks the
+        uninterrupted run would have."""
+        dp_rank = self.mesh.dp_rank if self.mesh is not None else 0
+        return self._dropout.manual_seed(dropout_seed(self.cfg.trainer.seed, self.global_step, dp_rank))
 
     def make_dataset(self, stage: str = "train", seed_offset: int = 0, shard_id: int = 0, num_shards: int = 1,
                      jpeg_route: str | None = None) -> ChunkDataset:
@@ -182,10 +209,24 @@ class Trainer:
             shard_id=shard_id, num_shards=num_shards, jpeg_route=jpeg_route,
         )
 
+    def train_shard(self, worker_id: int = 0, num_workers: int = 0) -> dict:
+        """make_dataset's striping of the training chunks for this rank (the
+        main thread) or one of its loader workers: shard dp_rank of dp, or
+        dp_rank * workers + worker of dp * workers with the worker's seed
+        offset, as the JAX Trainer stripes by process and worker. The ranks
+        of an sp group get the same shard (only sp rank 0 reads it: `fit`)."""
+        dp, dp_rank = (self.mesh.dp, self.mesh.dp_rank) if self.mesh is not None else (1, 0)
+        if num_workers <= 0:
+            return {"shard_id": dp_rank, "num_shards": dp}
+        return {"seed_offset": worker_id, "shard_id": dp_rank * num_workers + worker_id,
+                "num_shards": dp * num_workers}
+
     def train_batches(self) -> Iterator[dict]:
         """Endless training batches from the chunks. The curriculum reads the
         live global step: through a shared multiprocessing.Value in forked
-        workers (`trainer.num_workers` > 0), directly in the prefetch thread."""
+        workers (`trainer.num_workers` > 0), directly in the prefetch thread.
+        Under a mesh the chunks are striped by dp rank: shard dp_rank of dp
+        here, dp_rank * workers + worker of dp * workers in the workers."""
         import multiprocessing as mp
 
         cfg = self.cfg
@@ -197,10 +238,14 @@ class Trainer:
             )
         route = native.jpeg_route()  # decided here, before any worker forks
         nw = cfg.trainer.num_workers
+        mine = sum(len(self.make_dataset("train", **self.train_shard(w, nw)).chunks) for w in range(max(nw, 1)))
         self.log(f"data: {len(probe.chunks)} training chunk(s) under {cfg.dataset.roots}, JPEG route {route}, "
-                 f"{nw} worker process(es)")
+                 f"{nw} worker process(es)" + (f"; {mine} for dp rank {self.mesh.dp_rank}" if self.mesh else ""))
+        if not mine:  # a rank with nothing to read would leave the others waiting in the step's collectives
+            raise FileNotFoundError(f"dp rank {self.mesh.dp_rank} of {self.mesh.dp} has no training chunk to read: "
+                                    f"{len(probe.chunks)} chunk(s) striped over {max(nw, 1)} loader(s) per rank")
         if nw <= 0:
-            dataset = self.make_dataset("train", jpeg_route=route)
+            dataset = self.make_dataset("train", **self.train_shard(), jpeg_route=route)
 
             def epochs():
                 while True:
@@ -213,7 +258,7 @@ class Trainer:
         in_workers = native.route_runs_in_workers(route)
 
         def make_worker_iter(worker_id: int):
-            ds = self.make_dataset("train", seed_offset=worker_id, shard_id=worker_id, num_shards=nw, jpeg_route=route)
+            ds = self.make_dataset("train", **self.train_shard(worker_id, nw), jpeg_route=route)
             if not ds.chunks:  # more workers than chunks: this one has nothing to read
                 return iter(())
 
@@ -228,6 +273,51 @@ class Trainer:
             def finish(pending):
                 return finish_example(pending, cfg.dataset.image_shape, route)
         return iter(MultiWorkerLoader(make_worker_iter, nw, cfg.trainer.batch_size, finish=finish))
+
+    def _sp_shared(self, batches: Iterator[dict] | None) -> Iterator[dict] | None:
+        """Under a mesh with sp > 1, the batches of sp rank 0 of this rank's
+        dp group on every rank of the group (the other ranks' `batches` go
+        unread and may be None): each batch's views move as one float32
+        buffer on the device, its scene names and view indices as an object.
+        The batches as they are otherwise."""
+        mesh = self.mesh
+        if mesh is None or mesh.sp == 1:
+            return batches
+        import torch.distributed as dist
+
+        src = mesh.dp_rank * mesh.sp  # sp rank 0 of the group, by its global rank
+
+        def shared():
+            while True:
+                head, views = [None], None
+                if mesh.sp_rank == 0:
+                    batch = next(batches, None)
+                    if batch is not None:
+                        views = batch_to_device(batch, self.device)
+                        head = [{"scene": list(batch["scene"]),
+                                 "index": {side: batch[side].get("index") for side in views},
+                                 "shapes": {side: {k: tuple(v.shape) for k, v in views[side].items()}
+                                            for side in views}}]
+                dist.broadcast_object_list(head, src=src, group=mesh.sp_group)
+                if head[0] is None:
+                    return
+                if views is None:
+                    views = {side: {k: torch.empty(shape, device=self.device) for k, shape in shapes.items()}
+                             for side, shapes in head[0]["shapes"].items()}
+                leaves = [views[side][k] for side in sorted(views) for k in sorted(views[side])]
+                flat = torch.cat([t.reshape(-1) for t in leaves])  # elsewhere only its size matters
+                dist.broadcast(flat, src=src, group=mesh.sp_group)
+                mesh.traffic["batch"] += flat.numel() * flat.element_size()
+                offset = 0
+                for t in leaves:
+                    t.copy_(flat[offset : offset + t.numel()].view_as(t))
+                    offset += t.numel()
+                for side, index in head[0]["index"].items():
+                    if index is not None:
+                        views[side]["index"] = index
+                yield {**views, "scene": head[0]["scene"]}
+
+        return shared()
 
     def val_batches(self) -> Iterator[dict] | None:
         """Endless one-example batches of the held-out `val` stage (the test
@@ -244,7 +334,9 @@ class Trainer:
 
     def fit(self, data_iter: Iterator[dict] | None = None, max_steps: int | None = None) -> TrainState:
         """Train on the batches of `data_iter` (numpy or tensor batches as the
-        loaders make them; default: the training chunks) until `max_steps` or
+        loaders make them, under a mesh this rank's, and with sp > 1 only sp
+        rank 0's is read; default: the training chunks, striped by dp rank)
+        until `max_steps` or
         the iterator's end; returns the state. Validates on the held-out
         stream when test chunks exist, else on the current training batch.
         Resumes from `checkpointing.save_dir` when it holds a checkpoint, else
@@ -253,22 +345,24 @@ class Trainer:
         max_steps = max_steps if max_steps is not None else cfg.trainer.max_steps
         self._shared_step = None
         own_iter = data_iter is None
-        if own_iter:
+        if own_iter and (self.mesh is None or self.mesh.sp_rank == 0):  # one loader per sp group
             data_iter = self.train_batches()
-        val_iter = self.val_batches()
+        val_iter = self.val_batches() if self.writer else None
         try:
-            return self._fit(data_iter, val_iter, max_steps)
+            return self._fit(self._sp_shared(data_iter), val_iter, max_steps)
         finally:  # stop the loaders this call started (worker processes, prefetch threads)
             for it in ((data_iter,) if own_iter else ()) + ((val_iter,) if val_iter is not None else ()):
-                it.close()
+                if it is not None:
+                    it.close()
 
     def _fit(self, data_iter: Iterator[dict], val_iter: Iterator[dict] | None, max_steps: int) -> TrainState:
         cfg = self.cfg
+        mesh = self.mesh
 
-        # Run-config snapshot, next to the run's checkpoints.
-        snapshot = Path(cfg.checkpointing.save_dir) / "config.json"
-        snapshot.parent.mkdir(parents=True, exist_ok=True)
-        snapshot.write_text(json.dumps(dataclasses.asdict(cfg), default=str, indent=1))
+        if self.writer:  # run-config snapshot, next to the run's checkpoints
+            snapshot = Path(cfg.checkpointing.save_dir) / "config.json"
+            snapshot.parent.mkdir(parents=True, exist_ok=True)
+            snapshot.write_text(json.dumps(dataclasses.asdict(cfg), default=str, indent=1))
 
         first = next(data_iter)
         state = create_train_state(cfg.encoder, self.optimizer, self.lpips, device=self.device, seed=cfg.trainer.seed,
@@ -276,16 +370,22 @@ class Trainer:
         if cfg.checkpointing.pretrained_model or cfg.checkpointing.dav2_weights:
             self.log(f"loaded pretrained weights: model={cfg.checkpointing.pretrained_model} "
                      f"dav2={cfg.checkpointing.dav2_weights}")
-        restored = self.ckpt.restore(state)
-        if restored is None and cfg.checkpointing.load:
-            # Warm start from another run's checkpoints when this run's directory is fresh.
-            restored = CheckpointManager(cfg.checkpointing.load).restore(state)
+        restored = None
+        if self.writer:
+            restored = self.ckpt.restore(state)
+            if restored is None and cfg.checkpointing.load:
+                # Warm start from another run's checkpoints when this run's directory is fresh.
+                restored = CheckpointManager(cfg.checkpointing.load).restore(state)
         if restored is not None:
             state = restored
+        if mesh is not None:  # rank 0's state, restored or fresh, on every rank
+            state = replicated(state, mesh)
+        if state.step:
             self.global_step = state.step
             if self._shared_step is not None:
                 self._shared_step.value = self.global_step
-            self.log(f"resumed from step {self.global_step}")
+            rank = f" (rank {mesh.rank} of {mesh.world})" if mesh is not None and mesh.world > 1 else ""
+            self.log(f"resumed from step {self.global_step}{rank}")
 
         def validate(fallback: dict) -> dict:
             batch = next(val_iter) if val_iter is not None else fallback
@@ -293,9 +393,11 @@ class Trainer:
 
         v = cfg.trainer.val_check_interval
         val_interval = max(1, int(v if v > 1 else v * max_steps))
-        for _ in range(max(0, cfg.trainer.num_sanity_val_steps)):
-            metrics = validate(first)
-            self.log(f"sanity validation: psnr={metrics['val_psnr']:.2f} scenes={metrics['val_scenes']}")
+        every = self.ckpt.every_n_steps
+        if self.writer:
+            for _ in range(max(0, cfg.trainer.num_sanity_val_steps)):
+                metrics = validate(first)
+                self.log(f"sanity validation: psnr={metrics['val_psnr']:.2f} scenes={metrics['val_scenes']}")
 
         batch = first
         t_last = time.perf_counter()
@@ -305,7 +407,7 @@ class Trainer:
             if self._shared_step is not None:
                 self._shared_step.value = self.global_step
 
-            if self.global_step % self.log_every == 0:
+            if self.writer and self.global_step % self.log_every == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}  # reads the values: waits for the device
                 dt = time.perf_counter() - t_last
                 t_last = time.perf_counter()
@@ -314,14 +416,21 @@ class Trainer:
                     f"psnr={metrics.get('psnr', 0):.2f} ({dt / self.log_every:.3f}s/it)"
                 )
                 self._log_metrics({"step": self.global_step, "s_per_it": dt / self.log_every, **metrics})
-            if self.global_step % val_interval == 0:
-                self._log_metrics({"step": self.global_step, **validate(batch)})
-            self.ckpt.maybe_save(self.global_step, state)
+            validating = self.global_step % val_interval == 0
+            if self.writer:
+                if validating:
+                    self._log_metrics({"step": self.global_step, **validate(batch)})
+                self.ckpt.maybe_save(self.global_step, state)
+            if mesh is not None and (validating or (every > 0 and self.global_step % every == 0)):
+                mesh.barrier()  # the others wait while rank 0 writes
 
             try:
                 batch = next(data_iter)
             except StopIteration:
                 break
 
-        self.ckpt.save(self.global_step, state)
+        if self.writer:
+            self.ckpt.save(self.global_step, state)
+        if mesh is not None:
+            mesh.barrier()
         return state
