@@ -48,7 +48,15 @@ them.
    from one state must give the same loss, gradients and parameters bit for
    bit, through the sorted modes of K2 and K8 and no atomic mode; the
    warnings of torch.use_deterministic_algorithms during such a step are
-   recorded.
+   recorded. `precision_remat`: the same step with s2d_unet off in four
+   settings (float32; compute_dtype bfloat16; remat_unet + remat_matching;
+   both), each from one state with a warm-up and three timed steps: ms per
+   step, peak bytes, launches per step (K5 at P = 4 and K7 exactly 2, and 4
+   under remat_matching), no bfloat16 tensor at any kernel wrapper; the bf16
+   step's loss and update against the float32 step's; the checkpointed
+   forward and backward bit for bit the plain one under
+   trainer.deterministic_kernels, in float32 and bf16; a bf16 request
+   against the float32 one (ms, the Gaussians' gap).
 6. `tiny_train_vs_cpu`: one training step's loss and gradients at a tiny
    width, kernels on the card against plain versions on the CPU.
 7. Fit (`fit_slice`): the same configuration on the 256x256 golden scene.
@@ -122,7 +130,8 @@ them.
 Prints JSON records, then the card's name and power limit as nvidia-smi
 gives them, a `kernels` record, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero if there is no CUDA card or
-any check fails. Float32 throughout, TF32 off.
+any check fails. Float32 throughout (but the bf16 settings of
+precision_remat), TF32 off.
 """
 
 from __future__ import annotations
@@ -1014,6 +1023,176 @@ def train_deterministic(dev, records: list[dict]) -> None:
     emit({"phase": "train_deterministic", "steps": 2, "from_one_state": True, "bit_identical": True,
           "loss": m0["loss"], "ms_per_step": [r[3] for r in runs], "launches": launches,
           "warnings_use_deterministic_algorithms": warned, "dropout": True})
+
+
+# precision_remat: the encoder's compute dtype and gradient checkpointing at full width.
+PRECISION_SETTINGS = {
+    "float32": {},
+    "bfloat16": {"compute_dtype": "bfloat16"},
+    "remat": {"remat_unet": True, "remat_matching": True},
+    "bfloat16_remat": {"compute_dtype": "bfloat16", "remat_unet": True, "remat_matching": True},
+}
+# The bf16 step against the float32 step from one state (past Adam's first,
+# sign-like update), dropout masks alike: the loss within PRECISION_LOSS_RTOL
+# relative, the update's cosine at least PRECISION_MIN_COSINE. The tiny
+# configuration on the CPU reads 3e-4 and 0.99 against JAX's bf16 step
+# (tests/test_torch_training.py); at full width the random LPIPS and 131,072
+# Gaussians average more values, so the same bounds leave room.
+PRECISION_LOSS_RTOL = 1e-2
+PRECISION_MIN_COSINE = 0.9
+
+
+def _state_as(state, cfg, dev):
+    """A copy of `state` whose encoder is built from `cfg`: the same
+    parameters, BatchNorm statistics, Adam moments and step."""
+    import copy
+
+    from transplat_tpu_torch.model.encoder import EncoderTranSplat
+    from transplat_tpu_torch.training.step import TrainState
+
+    encoder = EncoderTranSplat(cfg, device=dev)
+    encoder.load_state_dict(state.encoder.state_dict())
+    return TrainState(step=state.step, encoder=encoder, lpips=state.lpips, opt_state=copy.deepcopy(state.opt_state))
+
+
+def _flat_update(state, before: dict) -> torch.Tensor:
+    return torch.cat([(p.detach() - before[k]).reshape(-1) for k, p in state.trainable().items()])
+
+
+def precision_remat(dev, records: list[dict], encoder_cfg=None, image=IMAGE, steps: int = TRAIN_STEPS) -> None:
+    """The re10k training step of train_slice with s2d_unet off in four
+    settings (PRECISION_SETTINGS), each from one state (one step past
+    initialisation) with one warm-up and `steps` timed steps: ms per step,
+    peak bytes, every kernel counter's launches (K5 at P = 4 and K7 twice a
+    step, four times under remat_matching, where the backward runs each fine
+    layer again), and the dtypes of every tensor a kernel wrapper checked
+    (float32 only: a bf16 tensor that reached a kernel would raise). The
+    warm-up steps start alike (state, batch, dropout seed), so the bf16
+    step's loss and update are held against the float32 step's. With
+    trainer.deterministic_kernels the checkpointed forward and backward
+    equal the plain one bit for bit (loss, every gradient, the dropout
+    generator's state), in float32 and in bf16. One bf16 request against the
+    float32 request of the same weights: ms and the Gaussians' gap."""
+    import dataclasses
+
+    from transplat_tpu_torch import kernels
+    from transplat_tpu_torch.inference import re10k_decoder_cfg, re10k_encoder_cfg, render_novel_views
+    from transplat_tpu_torch.loss import LossCfg
+    from transplat_tpu_torch.train_demo import RE10K_LR, RE10K_MAX_STEPS, build
+    from transplat_tpu_torch.training import make_lr_schedule, make_optimizer, make_train_step
+    from transplat_tpu_torch.training.step import loss_and_grads
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = dataclasses.replace(encoder_cfg or re10k_encoder_cfg(), s2d_unet=False)
+    state0, step0, batch, gen = build(base, image, dev, SEED, num_target=NUM_TARGET)
+    state0, _ = step0(state0, batch, gen.manual_seed(SEED))  # past Adam's first update
+    before = {k: p.detach().clone() for k, p in state0.trainable().items()}
+    optimizer = make_optimizer(make_lr_schedule(RE10K_LR, RE10K_MAX_STEPS), grad_clip=0.5)
+    checked = kernels.check_cuda_tensor
+    seen_dtypes = set()
+
+    def spy(name, t, dtype, ndim=None):
+        seen_dtypes.add(str(t.dtype).replace("torch.", ""))
+        return checked(name, t, dtype, ndim)
+
+    settings, warm = {}, {}
+    for name, fields in PRECISION_SETTINGS.items():
+        cfg = dataclasses.replace(base, **fields)
+        state = _state_as(state0, cfg, dev)
+        step = make_train_step(cfg, LossCfg(), re10k_decoder_cfg(), optimizer, image)
+        state, metrics = step(state, batch, gen.manual_seed(SEED + 1))  # warm-up, from state0 alike
+        torch.cuda.synchronize()
+        warm[name] = (float(metrics["loss"]), _flat_update(state, before))
+        seen_dtypes.clear()
+        kernels.check_cuda_tensor = spy
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            times = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch, gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(kernels.launches)
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            kernels.check_cuda_tensor = checked
+        require(np.isfinite(float(metrics["loss"])), f"precision_remat {name}: loss {float(metrics['loss'])}")
+        require(seen_dtypes and "bfloat16" not in seen_dtypes, f"precision_remat {name}: kernel inputs {seen_dtypes}")
+        fine = 4 if fields.get("remat_matching") else 2
+        for counter in ("deform_scores_p4", "deform_vectors"):
+            require(launches.get(counter, 0) == fine * steps,
+                    f"precision_remat {name}: {counter} launched {launches.get(counter, 0)} times in {steps} steps")
+        for counter in FORWARD_KERNELS + BACKWARD_KERNELS:
+            require(launches.get(counter, 0) > 0, f"precision_remat {name}: kernel {counter} was not launched")
+        settings[name] = {"fields": fields, "ms_per_step": float(np.median(times)), "ms_all": times,
+                          "peak_mem_bytes": peak, "launches_per_step": {k: v / steps for k, v in launches.items()},
+                          "kernel_input_dtypes": sorted(seen_dtypes), "loss_last": float(metrics["loss"])}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # bf16 against float32: the warm-up steps from one state.
+    comparisons = {}
+    for name in ("bfloat16", "bfloat16_remat"):
+        loss_rel = abs(warm[name][0] / warm["float32"][0] - 1.0)
+        cosine = float(torch.nn.functional.cosine_similarity(warm[name][1], warm["float32"][1], dim=0))
+        comparisons[name] = {"loss_rel": loss_rel, "update_cosine": cosine}
+        require(loss_rel <= PRECISION_LOSS_RTOL and cosine >= PRECISION_MIN_COSINE,
+                f"precision_remat {name} vs float32: loss rel {loss_rel}, update cosine {cosine}")
+    del warm
+
+    # Checkpointed against plain, repeatable kernels: bit for bit.
+    bits = {}
+    for dtype in ("float32", "bfloat16"):
+        runs = []
+        for fields in ({}, {"remat_unet": True, "remat_matching": True}):
+            cfg = dataclasses.replace(base, compute_dtype=dtype, **fields)
+            g = torch.Generator(device=dev).manual_seed(SEED + 2)
+            metrics, grads = loss_and_grads(_state_as(state0, cfg, dev), batch, LossCfg(), re10k_decoder_cfg(), image,
+                                            g, deterministic_kernels=True)
+            runs.append((float(metrics["loss"]), grads, g.get_state()))
+        (l0, g0, r0), (l1, g1, r1) = runs
+        differ = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+        gap = max((float((g0[k] - g1[k]).abs().max()) for k in differ), default=0.0)
+        bits[dtype] = {"loss_equal": l0 == l1, "gradients_differ": len(differ), "max_abs_gap": gap,
+                       "generator_equal": bool(torch.equal(r0, r1)), "leaves": len(g0)}
+        require(l0 == l1 and not differ and torch.equal(r0, r1),
+                f"precision_remat: checkpointed step ({dtype}) differs from the plain one: {bits[dtype]}, {differ[:5]}")
+        del runs, g0, g1
+
+    # One full-width request at bf16 against float32, the same weights.
+    ctx, tgt = batch["context"], batch["target"]
+    encoders = {dtype: _state_as(state0, dataclasses.replace(base, compute_dtype=dtype), dev).encoder
+                for dtype in ("float32", "bfloat16")}
+    for encoder in encoders.values():
+        render_novel_views(encoder, ctx, tgt, image, device=dev)  # warm-up
+    request_ms = {dtype: [] for dtype in encoders}
+    for _ in range(3):
+        for dtype, encoder in encoders.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render_novel_views(encoder, ctx, tgt, image, device=dev)
+            torch.cuda.synchronize()
+            request_ms[dtype].append((time.perf_counter() - t0) * 1e3)
+            require(bool(torch.isfinite(out).all()), f"precision_remat: {dtype} request not finite")
+    with torch.no_grad():
+        gs = {dtype: enc(*(ctx[k] for k in ("image", "intrinsics", "extrinsics", "near", "far")))
+              for dtype, enc in encoders.items()}
+    gap = {field: {"max_abs": float((getattr(gs["bfloat16"], field) - getattr(gs["float32"], field)).abs().max()),
+                   "rms": float((getattr(gs["bfloat16"], field) - getattr(gs["float32"], field)).pow(2).mean().sqrt()),
+                   "rms_float32": float(getattr(gs["float32"], field).pow(2).mean().sqrt())}
+           for field in ("means", "opacities", "harmonics")}
+    emit({"phase": "precision_remat", "steps": steps, "settings": settings, "bf16_vs_float32_step": comparisons,
+          "loss_rtol": PRECISION_LOSS_RTOL, "min_update_cosine": PRECISION_MIN_COSINE,
+          "checkpointed_vs_plain_deterministic": bits,
+          "request_ms": {k: float(np.median(v)) for k, v in request_ms.items()}, "request_ms_all": request_ms,
+          "gaussians_bf16_vs_float32": gap, "s2d_unet": False, "dropout": True})
+    for rec in records:
+        rec["launches_precision_remat"] = {name: st["launches_per_step"].get(rec["name"], 0.0)
+                                           for name, st in settings.items()}
 
 
 def fit_slice(dev, records: list[dict], smi: str, media_kernels: dict) -> None:
@@ -2302,6 +2481,7 @@ def main() -> int:
     # ---- the training path -------------------------------------------------
     train_slice(dev, records)
     train_deterministic(dev, records)
+    precision_remat(dev, records)
     tiny_train_vs_cpu(dev)
 
     # ---- fit -> validate -> checkpoint -> resume -> evaluate ----------------

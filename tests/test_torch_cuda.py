@@ -672,6 +672,17 @@ def test_two_full_width_steps_with_the_switch_repeat_their_bits(dev):
     train_deterministic(dev, [])
 
 
+def test_precision_and_checkpointing_at_a_tiny_width(dev):
+    """chip_smoke.py's precision_remat at the tiny width, one step a
+    setting: K5 at P = 4 and K7 twice a step, four times under
+    remat_matching; float32 at every kernel; the bf16 step near the float32
+    step; the checkpointed step bit for bit the plain one under the switch."""
+    from chip_smoke import precision_remat
+    from transplat_tpu_torch.train_demo import tiny_encoder_cfg
+
+    precision_remat(dev, [], encoder_cfg=tiny_encoder_cfg(), image=(64, 64), steps=1)
+
+
 def test_fit_resume_with_the_switch_is_exact(dev):
     """chip_smoke.py's fit_resume_deterministic: a Trainer resumed from the
     middle checkpoint repeats the first run's losses and parameters exactly."""

@@ -180,13 +180,13 @@ def test_load_config_matches_jax_field_by_field(experiment):
     for path, va, vb in _walk_common(port, ref):
         assert va == vb, (path, va, vb)
         seen.append(path)
-    # every section is walked, and the known JAX-only fields are the only ones missing
+    # every section is walked, and no JAX field is missing but the rasterizer's capacity (below)
     assert {p.split(".")[0] for p in seen} >= {
         "mode", "dataset", "view_sampler", "encoder", "decoder", "loss", "optimizer", "trainer", "checkpointing", "test",
     }
     assert len(seen) > 80
     port_names = lambda c: {f.name for f in dataclasses.fields(c)}  # noqa: E731
-    assert port_names(ref.encoder) - port_names(port.encoder) == {"compute_dtype", "remat_unet", "remat_matching"}
+    assert port_names(ref.encoder) - port_names(port.encoder) == set()
     for section in ("dataset", "view_sampler", "loss", "optimizer", "checkpointing", "test"):
         assert port_names(getattr(ref, section)) == port_names(getattr(port, section)), section
     # The port's one field of its own: training steps that repeat their bits

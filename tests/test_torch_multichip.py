@@ -47,7 +47,7 @@ def scene():
 
 @pytest.fixture(scope="module")
 def port_ranks(scene):
-    return launch.spawn(dryrun.decode_rank, 2, scene, 1, 2, IMAGE, timeout_s=300)
+    return launch.spawn(dryrun.decode_rank, 2, scene, 1, 2, IMAGE, "cpu", timeout_s=300)
 
 
 def _jax_args(scene):

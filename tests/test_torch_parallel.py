@@ -83,6 +83,21 @@ def test_make_mesh_layout_and_asserts():
         assert rec["refusal"] == "dp(5) * sp(1) != devices(4)"
 
 
+def test_entry_points_default_to_the_card(monkeypatch):
+    """make_mesh() without a card raises, naming device="cpu", before it
+    touches a process group; the dry run's entry points default to the card."""
+    import inspect
+
+    from transplat_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA card; pass device="cpu"'):
+        make_mesh()
+    assert dryrun.StepSpec().device == "cuda"
+    for fn in (dryrun.decode_rank, dryrun.dryrun_multichip):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_spawn_returns_each_rank_and_reports_a_failure():
     """launch.spawn returns the ranks' results in rank order; a rank that
     raises fails the call with its traceback; ranks that outlast the
@@ -139,7 +154,7 @@ def _assert_step_matches(ranks: list, ref: dict, tol: dict) -> None:
 def test_dp2_step_equals_the_joined_batch_step(float64):
     """Two dp ranks, dropout off, against the joined batch's step; in
     float64 (the witness that the float32 gap is rounding) within 1e-12."""
-    spec = dryrun.StepSpec(dp=2, return_params=True, float64=float64)
+    spec = dryrun.StepSpec(dp=2, return_params=True, float64=float64, device="cpu")
     ranks = launch.spawn(dryrun.step_rank, 2, spec, timeout_s=300)
     ref = dryrun.reference_step(spec)
     _assert_step_matches(ranks, ref, STEP_TOL_F64 if float64 else STEP_TOL["dp"])
@@ -151,7 +166,7 @@ def test_sp2_step_equals_the_one_rank_step():
     step's masks): the same step as one process on the same batch; each
     rank's sharded decode of the eval-mode Gaussians equals the unsharded
     decode of its views (measured: equal)."""
-    spec = dryrun.StepSpec(sp=2, dropout=True, return_params=True, decode_check=True)
+    spec = dryrun.StepSpec(sp=2, dropout=True, return_params=True, decode_check=True, device="cpu")
     ranks = launch.spawn(dryrun.step_rank, 2, spec, timeout_s=300)
     ref = dryrun.reference_step(spec)
     _assert_step_matches(ranks, ref, STEP_TOL["sp"])
@@ -162,7 +177,7 @@ def test_sp2_step_equals_the_one_rank_step():
 
 
 def test_dp2_sp2_step_over_four_ranks():
-    spec = dryrun.StepSpec(dp=2, sp=2, return_params=True)
+    spec = dryrun.StepSpec(dp=2, sp=2, return_params=True, device="cpu")
     ranks = launch.spawn(dryrun.step_rank, 4, spec, timeout_s=300)
     ref = dryrun.reference_step(spec)
     _assert_step_matches(ranks, ref, STEP_TOL["dp"])

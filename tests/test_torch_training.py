@@ -9,6 +9,7 @@ the JAX loss itself from the package's own parts with `deterministic=True`.
 """
 
 import copy
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -205,9 +206,23 @@ def test_clip_adam_matches_optax(grad_scale):
 #                   sign, so a rounding-noise gradient entry can flip a whole
 #                   lr, and the second step starts from those parameters.
 STEP_TOL = dict(loss=1e-4, leaf=0.05, leaf_floor=5e-4, whole=0.01, norm=2e-3, stats=1e-4, cosine=0.99)
+# compute_dtype="bfloat16": the depth predictor and the loss's LPIPS in
+# bfloat16 in both packages (JAX compiled with each bfloat16 value rounded
+# where the program rounds it, tests/test_torch_precision.py). The two round
+# alike op for op, but the float32 stages before them differ by ~1e-6 and
+# bfloat16 turns that into last-bit flips that spread (measured end to end
+# there), so the step agrees to bfloat16's spread, not to float32's
+# (measured, step 0 / step 1): loss 4.9e-4 / 3.9e-4,
+# norm 1.7e-3 / 3.7e-4, worst leaf 0.17 / 0.17 (of its norm plus 1/60 of the
+# whole's), whole gradient 1.6e-2 / 3.0e-2, update cosine
+# 0.966 / 0.986 (Adam's first update is the gradient's sign, so it
+# amplifies the flips most); BatchNorm statistics as in float32 (the CNN
+# before the depth predictor is float32).
+STEP_TOL_BF16 = dict(loss=2e-3, leaf=0.6, leaf_floor=1e-2, whole=0.08, norm=5e-3, stats=1e-4, cosine=0.93)
 
 
-def test_train_step_matches_jax_composition():
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_train_step_matches_jax_composition(compute_dtype):
     from transplat_tpu.loss.losses import LossCfg as JLossCfg
     from transplat_tpu.loss.losses import compute_losses as jcompute
     from transplat_tpu.loss.vgg import LPIPS as JLPIPS
@@ -217,12 +232,14 @@ def test_train_step_matches_jax_composition():
     from transplat_tpu.ops.rasterizer.api import RasterizeConfig as JRC
     from transplat_tpu.training.step import make_optimizer as jmake_optimizer
 
-    jcfg, tcfg = _tiny_cfgs()
+    jcfg, tcfg = (dataclasses.replace(c, compute_dtype=compute_dtype) for c in _tiny_cfgs())
+    tol = STEP_TOL if compute_dtype == "float32" else STEP_TOL_BF16
     shape = (64, 64)
     batch = synthetic_batch(0, image_shape=shape, num_target=2)
     ctx = [batch["context"][k] for k in CONTEXT_KEYS]
     tgt = batch["target"]
-    jm, jl = JEnc(jcfg), JLPIPS()
+    # LPIPS in the loss at the encoder's compute dtype, as the JAX make_train_step builds it
+    jm, jl = JEnc(jcfg), JLPIPS(dtype=jnp.bfloat16 if compute_dtype == "bfloat16" else None)
     variables = random_variables(jm, *ctx, seed=11)
     variables["params"]["depth_predictor"]["to_disparity_2"]["kernel"][..., 0] *= 0.01  # see test_torch_encoder.py
     # (random_variables also draws the cross-attention offsets and weights,
@@ -237,27 +254,31 @@ def test_train_step_matches_jax_composition():
     jctx = [jnp.asarray(a) for a in ctx]
     jcams = [jnp.asarray(tgt[k]) for k in ("extrinsics", "intrinsics", "near", "far")]
 
-    def jloss(params, batch_stats, step):
+    def jloss(params, batch_stats, step, lpips_params, target):
         gaussians, updates = jm.apply(
             {"params": params, "batch_stats": batch_stats}, *jctx, global_step=step, train=True,
             deterministic=True, mutable=["batch_stats"],
         )
         out = jdecode(gaussians, *jcams, shape, cfg=JDC(rasterize=JRC(mode="reference")))
         total, _ = jcompute(
-            JLossCfg(), out.color, jnp.asarray(tgt["image"]), step,
-            lpips_fn=lambda a, b: jl.apply({"params": lpips_params}, a, b),
+            JLossCfg(), out.color, target, step, lpips_fn=lambda a, b: jl.apply({"params": lpips_params}, a, b),
         )
         return total, updates["batch_stats"]
 
-    @jax.jit
-    def jstep(params, batch_stats, opt_state, step):
-        (loss, new_stats), grads = jax.value_and_grad(jloss, has_aux=True)(params, batch_stats, step)
+    # LPIPS's weights and the target images are arguments: as constants XLA
+    # would evaluate the target's VGG features while compiling, for minutes.
+    def jstep_fn(params, batch_stats, opt_state, step, lpips_params, target):
+        (loss, new_stats), grads = jax.value_and_grad(jloss, has_aux=True)(params, batch_stats, step, lpips_params, target)
         updates, opt_state = jopt.update(grads, opt_state, params)
         return loss, grads, new_stats, optax.apply_updates(params, updates), opt_state
 
     jparams = jax.tree.map(jnp.asarray, variables["params"])
     jstats = jax.tree.map(jnp.asarray, variables["batch_stats"])
     jopt_state = jopt.init(jparams)
+    # Each bfloat16 value rounded where the program rounds it (no effect in float32).
+    fixed = (jax.tree.map(jnp.asarray, lpips_params), jnp.asarray(tgt["image"]))
+    jstep = jax.jit(jstep_fn).lower(jparams, jstats, jopt_state, jnp.asarray(0), *fixed).compile(
+        compiler_options={"xla_allow_excess_precision": False})
 
     # The port: make_train_step with dropout off.
     lpips = LPIPS(device="cpu")
@@ -273,7 +294,7 @@ def test_train_step_matches_jax_composition():
     }
 
     for i in range(2):
-        loss_j, grads_j, jstats, new_jparams, jopt_state = jstep(jparams, jstats, jopt_state, jnp.asarray(i))
+        loss_j, grads_j, jstats, new_jparams, jopt_state = jstep(jparams, jstats, jopt_state, jnp.asarray(i), *fixed)
         # The gradients of this step, on a copy: a forward in training mode moves the BatchNorm statistics.
         _, grads_t = loss_and_grads(copy.deepcopy(state), tbatch, LossCfg(), re10k_decoder_cfg(), shape, deterministic=True)
         before = to_jax_tree(encoder)
@@ -281,9 +302,9 @@ def test_train_step_matches_jax_composition():
         after = to_jax_tree(encoder)
         assert state.step == i + 1 and not encoder.training
 
-        np.testing.assert_allclose(float(metrics["loss"]), float(loss_j), rtol=STEP_TOL["loss"], err_msg=f"step {i}")
+        np.testing.assert_allclose(float(metrics["loss"]), float(loss_j), rtol=tol["loss"], err_msg=f"step {i}")
         np.testing.assert_allclose(
-            float(metrics["grad_norm"]), float(optax.global_norm(grads_j)), rtol=STEP_TOL["norm"], err_msg=f"step {i}"
+            float(metrics["grad_norm"]), float(optax.global_norm(grads_j)), rtol=tol["norm"], err_msg=f"step {i}"
         )
         assert float(metrics["lr"]) == pytest.approx(make_lr_schedule(lr, max_steps)(i))
         assert float(metrics["render_overflow"]) == 0.0
@@ -299,14 +320,14 @@ def test_train_step_matches_jax_composition():
             d = float(np.linalg.norm((gt[k] - gj[k]).astype(np.float64)))
             diff2 += d * d
             norm = float(np.linalg.norm(gj[k]))
-            worst_leaf = max(worst_leaf, d / (norm + STEP_TOL["leaf_floor"] / STEP_TOL["leaf"] * whole))
-            assert d <= STEP_TOL["leaf"] * norm + STEP_TOL["leaf_floor"] * whole, (i, "/".join(k), d, norm, whole)
-        assert np.sqrt(diff2) <= STEP_TOL["whole"] * whole, (i, np.sqrt(diff2) / whole)
+            worst_leaf = max(worst_leaf, d / (norm + tol["leaf_floor"] / tol["leaf"] * whole))
+            assert d <= tol["leaf"] * norm + tol["leaf_floor"] * whole, (i, "/".join(k), d, norm, whole)
+        assert np.sqrt(diff2) <= tol["whole"] * whole, (i, np.sqrt(diff2) / whole)
 
         sj, st = flat(jstats), flat(after["batch_stats"])
         assert set(sj) == set(st) and len(sj) == 8
         for k in sj:
-            np.testing.assert_allclose(st[k], sj[k], rtol=STEP_TOL["stats"], atol=STEP_TOL["stats"], err_msg="/".join(k))
+            np.testing.assert_allclose(st[k], sj[k], rtol=tol["stats"], atol=tol["stats"], err_msg="/".join(k))
         assert any(not np.array_equal(st[k], flat(before["batch_stats"])[k]) for k in st)  # they moved
 
         pj_old, pj_new = flat(jparams), flat(new_jparams)
@@ -318,9 +339,10 @@ def test_train_step_matches_jax_composition():
             uj = (pj_new[k] - pj_old[k]).astype(np.float64).ravel()
             ut = (pt_new[k] - pt_old[k]).astype(np.float64).ravel()
             dot, nj, nt = dot + float(uj @ ut), nj + float(uj @ uj), nt + float(ut @ ut)
-        assert dot / np.sqrt(nj * nt) >= STEP_TOL["cosine"], (i, dot / np.sqrt(nj * nt))
+        assert dot / np.sqrt(nj * nt) >= tol["cosine"], (i, dot / np.sqrt(nj * nt))
         print(  # shown with pytest -s: what the bounds above leave room for
-            f"step {i}: loss rel {abs(float(metrics['loss']) / float(loss_j) - 1):.2e}, worst leaf {worst_leaf:.2e}, "
+            f"step {i}: loss rel {abs(float(metrics['loss']) / float(loss_j) - 1):.2e}, "
+            f"norm rel {abs(float(metrics['grad_norm']) / float(optax.global_norm(grads_j)) - 1):.2e}, worst leaf {worst_leaf:.2e}, "
             f"whole gradient {np.sqrt(diff2) / whole:.2e}, update cosine {dot / np.sqrt(nj * nt):.4f}"
         )
         for k in gj:

@@ -3,9 +3,9 @@
 Counterpart of transplat_tpu/config.py: plain dataclasses, optional YAML
 overrides (yaml is imported only when a YAML path is given). Fields the JAX
 package has for the TPU and the port has no use for are left out
-(`RasterizeConfig.capacity`: the port's tile lists drop nothing;
-`EncoderCfg.compute_dtype`, `remat_*`), or accepted and ignored
-(`EncoderCfg.s2d_unet`, see model/encoder.py). One field is the port's own:
+(`RasterizeConfig.capacity`: the port's tile lists drop nothing), or
+accepted and ignored (`EncoderCfg.s2d_unet`, see model/encoder.py; with
+`compute_dtype="bfloat16"` refused in both packages). One field is the port's own:
 `TrainerCfg.deterministic_kernels`, which the JAX package needs no switch
 for (a Pallas grid runs in order, so its steps repeat their bits). `DatasetCfg` and `BoundedCfg`
 carry the JAX fields and defaults; their readers are dataset/re10k.py and

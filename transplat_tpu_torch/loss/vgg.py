@@ -1,9 +1,12 @@
-"""VGG16 feature extractor + LPIPS perceptual distance, float32.
+"""VGG16 feature extractor + LPIPS perceptual distance.
 
 Counterpart of transplat_tpu/loss/vgg.py (the lpips package's VGG variant):
 five conv stages tapped after relu1_2 / relu2_2 / relu3_3 / relu4_3 /
 relu5_3, unit-normalised over channels, non-negative 1x1 heads, spatial mean.
-Plain convolutions, no hand-written kernel. Module and parameter names
+Plain convolutions, no hand-written kernel. `dtype` (forward's argument, the
+JAX modules' attribute) runs the convolution stack in bfloat16 with float32
+parameters, as the training loss does under the encoder's compute_dtype;
+the scores are float32 either way, and the evaluator's LPIPS is float32. Module and parameter names
 follow the Flax modules (`vgg.conv{i}`, `lin{i}`), so
 convert.load_jax_variables fills them from {"params": lpips_params}.
 
@@ -22,6 +25,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..model.layers import Conv2d, at_least_f32
+
 # VGG16 conv plan: (channels, number of convs) per stage.
 _STAGES = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
 
@@ -36,19 +41,20 @@ class VGG16Features(nn.Module):
         cin, idx = 3, 0
         for ch, n_convs in _STAGES:
             for _ in range(n_convs):
-                self.add_module(f"conv{idx}", nn.Conv2d(cin, ch, 3, padding=1))
+                self.add_module(f"conv{idx}", Conv2d(cin, ch, 3, padding=1))
                 cin = ch
                 idx += 1
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        """x (N, H, W, 3) in [-1, 1] -> the 5 taps, each (N, C, h, w)."""
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> list[torch.Tensor]:
+        """x (N, H, W, 3) in [-1, 1] -> the 5 taps, each (N, C, h, w), the
+        convolutions computed in `dtype` (None: float32)."""
         shift = torch.tensor(_SHIFT, dtype=x.dtype, device=x.device)
         scale = torch.tensor(_SCALE, dtype=x.dtype, device=x.device)
         h = ((x - shift) / scale).permute(0, 3, 1, 2)
         taps, idx = [], 0
         for stage, (_, n_convs) in enumerate(_STAGES):
             for _ in range(n_convs):
-                h = F.relu(getattr(self, f"conv{idx}")(h))
+                h = F.relu(getattr(self, f"conv{idx}").at(h, dtype))
                 idx += 1
             taps.append(h)
             if stage != len(_STAGES) - 1:
@@ -77,12 +83,14 @@ class LPIPS(nn.Module):
         self.requires_grad_(False)  # frozen: a fixed part of the loss
         self.to(device)
 
-    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """a, b (N, H, W, 3) in [0, 1]."""
-        fa = self.vgg(2.0 * a - 1.0)
-        fb = self.vgg(2.0 * b - 1.0)
+    def forward(self, a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """a, b (N, H, W, 3) in [0, 1]; `dtype`: the VGG convolutions' compute
+        dtype (None: float32); the scores are float32."""
+        fa = self.vgg(2.0 * a - 1.0, dtype)
+        fb = self.vgg(2.0 * b - 1.0, dtype)
         total = 0.0
         for i, (xa, xb) in enumerate(zip(fa, fb)):
+            xa, xb = at_least_f32(xa), at_least_f32(xb)
             na = xa / (torch.linalg.norm(xa, dim=1, keepdim=True) + 1e-10)
             nb = xb / (torch.linalg.norm(xb, dim=1, keepdim=True) + 1e-10)
             diff = (na - nb) ** 2

@@ -4,6 +4,15 @@ cost-volume U-Net, coarse-to-fine depth, and Gaussian heads.
 Counterpart of transplat_tpu/model/depth_predictor.py (stages 4a-4f). The
 JAX `nn.vmap` of UVMatcher over directed view pairs becomes a written-out
 pair dim. Public tensors are NHWC like the JAX module; convolutions run NCHW.
+
+`dtype` (the encoder's compute_dtype; None: float32) runs the convolutions,
+norms and U-Nets of stages 4c-4f in it with float32 parameters; the cam
+encoder and the UV matcher stay float32. The casts to float32 sit where the
+JAX module has them (the pdf's softmax, the Gaussian head's input, the raw
+Gaussians and the disparity head's output) or where its type promotion puts
+them (the resize of the upsampler's output, the refine U-Net's input).
+`remat_unet` / `remat_matching` checkpoint both U-Nets / each fine layer
+of the matcher.
 """
 
 from __future__ import annotations
@@ -18,7 +27,7 @@ from ..geometry.epipolar import epipolar_sample_grid, inverse_depth_candidates, 
 from ..geometry.projection import unnormalize_intrinsics
 from ..ops.interpolate import resize_bilinear_nchw, upsample_nearest_nchw
 from .cam_encoder import CamParamEncoder
-from .layers import LN_EPS, conv, gelu, group_norm, to_nchw, to_nhwc
+from .layers import LN_EPS, GroupNorm, at_least_f32, conv, gelu, group_norm, to_nchw, to_nhwc
 from .unet import UNetModel
 from .uv_transformer import UVMatcher
 
@@ -52,6 +61,9 @@ class DepthPredictor(nn.Module):
         depth_unet_attn_res: Sequence[int] = (16,),
         depth_unet_channel_mult: Sequence[int] = (1, 1, 1, 1, 1),
         dino_channels: int = 64,
+        dtype: torch.dtype | None = None,
+        remat_unet: bool = False,
+        remat_matching: bool = False,
     ):
         super().__init__()
         c, d = feature_channels, num_depth_candidates
@@ -64,27 +76,29 @@ class DepthPredictor(nn.Module):
         self.num_views = num_views
 
         self.cam_param_encoder = CamParamEncoder(dino_channels, 128, c)
-        self.uv_matcher = UVMatcher(c, d)
-        self.corr_conv_in = conv(2 * c, cf, 3)
-        self.corr_norm_in = group_norm(cf)
+        self.uv_matcher = UVMatcher(c, d, remat=remat_matching)
+        self.corr_conv_in = conv(2 * c, cf, 3, dtype=dtype)
+        self.corr_norm_in = group_norm(cf, dtype)
         self.corr_unet = UNetModel(
-            cf, cf, cf, 1, tuple(costvolume_unet_attn_res), tuple(costvolume_unet_channel_mult), num_frames=num_views
+            cf, cf, cf, 1, tuple(costvolume_unet_attn_res), tuple(costvolume_unet_channel_mult), num_frames=num_views,
+            dtype=dtype, remat=remat_unet,
         )
-        self.corr_conv_out = conv(cf, d, 3)
-        self.regressor_residual = conv(2 * c, d, 1)
-        self.depth_head_0 = conv(d, 2 * d, 3)
-        self.depth_head_2 = conv(2 * d, d, 3)
-        self.upsampler_conv = conv(2 * c, c, 3)
-        self.proj_feature = conv(c, df, 3)
-        self.refine_conv_in = conv(df + 6, df, 3)
-        self.refine_norm_in = nn.GroupNorm(4, df, eps=LN_EPS)
+        self.corr_conv_out = conv(cf, d, 3, dtype=dtype)
+        self.regressor_residual = conv(2 * c, d, 1, dtype=dtype)
+        self.depth_head_0 = conv(d, 2 * d, 3, dtype=dtype)
+        self.depth_head_2 = conv(2 * d, d, 3, dtype=dtype)
+        self.upsampler_conv = conv(2 * c, c, 3, dtype=dtype)
+        self.proj_feature = conv(c, df, 3, dtype=dtype)
+        self.refine_conv_in = conv(df + 6, df, 3, dtype=dtype)
+        self.refine_norm_in = GroupNorm(4, df, eps=LN_EPS, compute_dtype=dtype)
         self.refine_unet = UNetModel(
-            df, df, df, 1, tuple(depth_unet_attn_res), tuple(depth_unet_channel_mult), num_frames=num_views
+            df, df, df, 1, tuple(depth_unet_attn_res), tuple(depth_unet_channel_mult), num_frames=num_views,
+            dtype=dtype, remat=remat_unet,
         )
-        self.to_gaussians_0 = conv(df + 3 + c, gaussian_raw_channels * 2, 3)
-        self.to_gaussians_2 = conv(gaussian_raw_channels * 2, gaussian_raw_channels, 3)
-        self.to_disparity_0 = conv(df, df * 2, 3)
-        self.to_disparity_2 = conv(df * 2, gaussians_per_pixel * 2, 3)
+        self.to_gaussians_0 = conv(df + 3 + c, gaussian_raw_channels * 2, 3, dtype=dtype)
+        self.to_gaussians_2 = conv(gaussian_raw_channels * 2, gaussian_raw_channels, 3, dtype=dtype)
+        self.to_disparity_0 = conv(df, df * 2, 3, dtype=dtype)
+        self.to_disparity_2 = conv(df * 2, gaussians_per_pixel * 2, 3, dtype=dtype)
 
     def prep(self, features, intrinsics, extrinsics, near, far, dino_feature):
         """Per-view geometry + directed-pair tensors (encoder_4a)."""
@@ -144,7 +158,8 @@ class DepthPredictor(nn.Module):
         """Softmax-expectation coarse disparity + upsampling (encoder_4d), NCHW."""
         d = self.num_depth_candidates
         bv = raw_corr.shape[0]
-        pdf = torch.softmax(self.depth_head_2(gelu(self.depth_head_0(raw_corr))), dim=1)  # (bv, D, hf, wf)
+        logits = self.depth_head_2(gelu(self.depth_head_0(raw_corr)))
+        pdf = torch.softmax(at_least_f32(logits), dim=1)  # (bv, D, hf, wf), float32 whatever the compute dtype
         coarse_disps = torch.sum(disp_candidates.reshape(bv, d, 1, 1) * pdf, dim=1, keepdim=True)
         pdf_max = torch.max(pdf, dim=1, keepdim=True).values
         return {
@@ -161,13 +176,14 @@ class DepthPredictor(nn.Module):
         proj_in = torch.cat(
             [to_nchw(features.reshape(b * v, hf, wf, c)), to_nchw(cnn_features.reshape(b * v, hf, wf, c))], dim=1
         )
-        up = resize_bilinear_nchw(self.upsampler_conv(proj_in), (big_h, big_w), align_corners=True)
+        # JAX resizes with float32 matrices: the product is float32 whatever the conv's dtype.
+        up = resize_bilinear_nchw(at_least_f32(self.upsampler_conv(proj_in)), (big_h, big_w), align_corners=True)
         proj_feat_fullres = gelu(up)
-        refine_in = torch.cat(
+        refine_in = torch.cat(  # float32, as JAX's concatenation promotes it
             [
                 to_nchw(images.reshape(b * v, big_h, big_w, 3)),
                 to_nchw(da_depth.reshape(b * v, big_h, big_w, 1)),
-                self.proj_feature(proj_feat_fullres),
+                self.proj_feature(proj_feat_fullres).to(images.dtype),
                 coarse["fullres_disps"],
                 coarse["pdf_max_full"],
             ],
@@ -180,10 +196,11 @@ class DepthPredictor(nn.Module):
         """Raw Gaussians + fine disparity/density heads (encoder_4f)."""
         b, v, big_h, big_w = images.shape[:4]
         imgs = to_nchw(images.reshape(b * v, big_h, big_w, 3))
-        gau_in = torch.cat([refine_out, imgs, proj_feat_fullres], dim=1)
-        raw = self.to_gaussians_2(gelu(self.to_gaussians_0(gau_in)))
+        gau_in = torch.cat([refine_out.to(imgs.dtype), imgs, proj_feat_fullres.to(imgs.dtype)], dim=1)
+        raw = at_least_f32(self.to_gaussians_2(gelu(self.to_gaussians_0(gau_in))))
         raw_gaussians = to_nhwc(raw).reshape(b, v, big_h * big_w, -1)
-        dd = self.to_disparity_2(gelu(self.to_disparity_0(refine_out)))
+        # The disparity deltas and densities in float32: depth = 1 / disparity amplifies rounding.
+        dd = at_least_f32(self.to_disparity_2(gelu(self.to_disparity_0(refine_out))))
         gpp = self.gaussians_per_pixel
         delta_disps, raw_densities = dd[:, :gpp], dd[:, gpp:]
         densities = to_nhwc(torch.sigmoid(raw_densities)).reshape(b, v, big_h * big_w, 1, gpp)

@@ -43,6 +43,9 @@ STAGES = [
 ]
 
 
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
 @dataclass(frozen=True)
 class OpacityMappingCfg:
     initial: float = 0.0
@@ -69,10 +72,35 @@ class EncoderCfg:
     dav2_input_size: int = 252
     gaussian_adapter: GaussianAdapterCfg = field(default_factory=GaussianAdapterCfg)
     opacity_mapping: OpacityMappingCfg = field(default_factory=OpacityMappingCfg)
+    # "float32" or "bfloat16": mixed-precision compute of the depth
+    # predictor's convolutions, norms, U-Nets and heads (stages 4c-4f), with
+    # float32 parameters; every softmax, the disparity expectation and the
+    # disparity / density head stay float32 (model/depth_predictor.py). The
+    # training loss's LPIPS runs its convolutions at this dtype too.
+    compute_dtype: str = "float32"
+    # Gradient checkpointing: recompute both U-Nets / each UV fine layer in
+    # the backward instead of keeping their activations.
+    remat_unet: bool = False
+    remat_matching: bool = False
     # Accepted for config compatibility with the JAX package, where it picks
     # a space-to-depth U-Net with the same function and parameters; the port
-    # has one U-Net path and ignores it.
+    # has one U-Net path and ignores it. The JAX package refuses it with
+    # bfloat16, and so does the port, so that one config means the same in both.
     s2d_unet: bool = False
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: expected one of {sorted(COMPUTE_DTYPES)}")
+        if self.s2d_unet and self.compute_dtype == "bfloat16":
+            raise ValueError(
+                "s2d_unet=True requires compute_dtype='float32': the JAX package's s2d U-Net tower only builds "
+                "when its dtype is None, so bf16 would silently disable it. Pick one."
+            )
+
+    @property
+    def torch_dtype(self) -> torch.dtype | None:
+        """The modules' compute dtype: None (float32) or torch.bfloat16."""
+        return COMPUTE_DTYPES[self.compute_dtype]
 
 
 def map_pdf_to_opacity(pdf: torch.Tensor, cfg: OpacityMappingCfg, global_step: int = 0) -> torch.Tensor:
@@ -105,6 +133,9 @@ class EncoderTranSplat(nn.Module):
             depth_unet_attn_res=cfg.depth_unet_attn_res,
             depth_unet_channel_mult=cfg.depth_unet_channel_mult,
             dino_channels=DAV2_CONFIGS[cfg.dav2_encoder]["features"] // 2,
+            dtype=cfg.torch_dtype,
+            remat_unet=cfg.remat_unet,
+            remat_matching=cfg.remat_matching,
         )
         self.da_model.requires_grad_(False)
         self.to(device)

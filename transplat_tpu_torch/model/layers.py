@@ -9,6 +9,13 @@ Modules honour train() / eval(). Dropout masks are drawn from a
 `torch.Generator` the caller hands down, never from the global RNG. Under a
 dp mesh the BatchNorms' training statistics are joined over the ranks
 (`batch_stats_over`).
+
+`Conv2d`, `Linear` and `GroupNorm` carry Flax's per-module compute dtype
+(`compute_dtype`, the Flax modules' `dtype`): the parameters stay float32
+and are cast inside forward, so the optimiser and convert.load_jax_variables
+see float32 leaves. The casts are explicit, where Flax puts them, not
+torch.autocast's: autocast keeps GroupNorm's output in float32, Flax's
+GroupNorm(dtype=bfloat16) returns bfloat16.
 """
 
 from __future__ import annotations
@@ -22,18 +29,102 @@ from torch.nn import functional as F
 LN_EPS = 1e-6  # flax.linen.LayerNorm / GroupNorm default
 
 
-def conv(cin: int, cout: int, kernel: int = 3, stride: int = 1, bias: bool = True) -> nn.Conv2d:
-    """Conv with torch "padding = (k - 1) // 2" semantics (the JAX `conv`)."""
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=bias)
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d with flax.linen.Conv's `dtype`. None: the input and the
+    parameters promoted to one type (a bfloat16 input meets float32
+    parameters in float32). A dtype: input, kernel and bias cast to it, the
+    bias added after the convolution, the result in that dtype."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.at(x, self.compute_dtype)
+
+    def at(self, x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+        """The convolution computed in `dtype` (None: promoted)."""
+        if dtype is None:
+            return super().forward(x.to(torch.promote_types(x.dtype, self.weight.dtype)))
+        y = self._conv_forward(x.to(dtype), self.weight.to(dtype), None)
+        return y if self.bias is None else y + self.bias.to(dtype).view(1, -1, 1, 1)
+
+
+class Linear(nn.Linear):
+    """nn.Linear with flax.linen.Dense's `dtype` (as Conv2d)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x.to(torch.promote_types(x.dtype, self.weight.dtype)))
+        dt = self.compute_dtype
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm as flax.linen.GroupNorm computes it: statistics and
+    normalisation in at least float32 (`force_float32_reductions`), the
+    result cast to `compute_dtype` (None: the type it was computed in)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(torch.promote_types(x.dtype, torch.float32), self.weight.dtype)
+        y = F.group_norm(x.to(dt), self.num_groups, self.weight.to(dt), self.bias.to(dt), self.eps)
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
+
+
+def conv(cin: int, cout: int, kernel: int = 3, stride: int = 1, bias: bool = True,
+         dtype: torch.dtype | None = None) -> Conv2d:
+    """Conv with torch "padding = (k - 1) // 2" semantics (the JAX `conv`);
+    `dtype` its compute dtype."""
+    return Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=bias, compute_dtype=dtype)
 
 
 def layer_norm(channels: int) -> nn.LayerNorm:
     return nn.LayerNorm(channels, eps=LN_EPS)
 
 
-def group_norm(channels: int) -> nn.GroupNorm:
-    """The LDM-UNet normalization: GN(8) if divisible else GN(4), eps 1e-5."""
-    return nn.GroupNorm(8 if channels % 8 == 0 else 4, channels, eps=1e-5)
+def group_norm(channels: int, dtype: torch.dtype | None = None) -> GroupNorm:
+    """The LDM-UNet normalization: GN(8) if divisible else GN(4), eps 1e-5;
+    float32 statistics, the result in `dtype` (None: float32)."""
+    return GroupNorm(8 if channels % 8 == 0 else 4, channels, eps=1e-5, compute_dtype=dtype)
+
+
+def checkpointed(fn, *args, replay: torch.Generator | None = None):
+    """fn(*args) under gradient checkpointing (torch.utils.checkpoint,
+    non-reentrant): its activations are dropped after the forward and
+    recomputed in the backward, as flax.linen.remat does. checkpoint keeps
+    only the global generators' states, and the regions the port checkpoints
+    draw from none of them (preserve_rng_state off). They draw their dropout
+    masks from `replay`: the recomputation starts it from its state at the
+    forward's entry, so it draws the forward's masks again, and puts it back
+    where the backward found it, so that it stands where a forward without
+    checkpointing leaves it."""
+    from torch.utils.checkpoint import checkpoint
+
+    entry = None if replay is None else replay.get_state()
+    first = True
+
+    def run(*a):
+        nonlocal first
+        if first or entry is None:
+            first = False
+            return fn(*a)
+        now = replay.get_state()
+        replay.set_state(entry)
+        try:
+            return fn(*a)
+        finally:
+            replay.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -43,8 +134,30 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x - mean) / torch.sqrt(var + eps)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or in its own type where that is wider (float64 runs):
+    the JAX model's `.astype(jnp.float32)` on a bfloat16 or float32 value."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="none")
+    """Exact GELU. In bfloat16 it is jax.nn.gelu's expression op by op,
+    0.5 x erfc(-x sqrt(1/2)) with sqrt(1/2) in bfloat16, so that it rounds
+    where the JAX model's rounds; otherwise PyTorch's fused GELU."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="none")
+    sqrt_half = torch.tensor(0.5**0.5, dtype=x.dtype)  # a CPU scalar, as an operand of a card tensor too
+    return 0.5 * x * torch.special.erfc(-x * sqrt_half)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU. In bfloat16 it is jax.nn.silu as XLA evaluates it, x * (1 / (1 +
+    exp(-x))), each op rounded to bfloat16 as in the JAX model (PyTorch's
+    sigmoid rounds once and gives other bits in a third of the values);
+    otherwise PyTorch's fused SiLU."""
+    if x.dtype != torch.bfloat16:
+        return F.silu(x)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:

@@ -3,6 +3,12 @@
 Counterpart of transplat_tpu/model/unet.py, plain path, NCHW. The JAX
 package's space-to-depth tower (s2d=True) computes the same function with the
 same parameters, so the port has only this path.
+
+`dtype` is the Flax modules' compute dtype (None: float32): convolutions,
+dense layers and the GroupNorms' results in it, the attention's softmax in
+float32, and the final GroupNorm and SiLU in float32 whatever it is (the
+JAX `out_norm` takes no dtype). `remat` checkpoints the whole U-Net, as
+`nn.remat(UNetModel)` does: its activations are recomputed in the backward.
 """
 
 from __future__ import annotations
@@ -11,43 +17,45 @@ from typing import Sequence
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from ..ops.interpolate import upsample_nearest_nchw
-from .layers import conv, group_norm
+from .layers import Linear, checkpointed, conv, group_norm, silu
 
 
 class ResBlock(nn.Module):
     """Postnorm residual block."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.in_conv = conv(cin, cout, 3)
-        self.in_norm = group_norm(cout)
-        self.out_conv = conv(cout, cout, 3)
-        self.out_norm = group_norm(cout)
-        self.skip = conv(cin, cout, 1) if cin != cout else None
+        self.dtype = dtype
+        self.in_conv = conv(cin, cout, 3, dtype=dtype)
+        self.in_norm = group_norm(cout, dtype)
+        self.out_conv = conv(cout, cout, 3, dtype=dtype)
+        self.out_norm = group_norm(cout, dtype)
+        self.skip = conv(cin, cout, 1, dtype=dtype) if cin != cout else None
 
     def forward(self, x):
-        h = F.silu(self.in_norm(self.in_conv(x)))
-        h = F.silu(self.out_norm(self.out_conv(h)))
+        h = silu(self.in_norm(self.in_conv(x)))
+        h = silu(self.out_norm(self.out_conv(h)))
         if self.skip is not None:
             x = self.skip(x)
-        return x + h
+        return (x + h).to(self.dtype or x.dtype)
 
 
 class AttentionBlock(nn.Module):
     """Self-attention over spatial tokens of all views jointly; postnorm
     (qkv -> attention -> proj -> GN, residual)."""
 
-    def __init__(self, channels: int, num_head_channels: int = 32, num_frames: int = 2, cross_view: bool = True):
+    def __init__(self, channels: int, num_head_channels: int = 32, num_frames: int = 2, cross_view: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.heads = max(1, channels // num_head_channels)
         self.num_frames = num_frames
         self.cross_view = cross_view
-        self.qkv = nn.Linear(channels, 3 * channels)
-        self.proj_out = nn.Linear(channels, channels)
-        self.norm = group_norm(channels)
+        self.dtype = dtype
+        self.qkv = Linear(channels, 3 * channels, compute_dtype=dtype)
+        self.proj_out = Linear(channels, channels, compute_dtype=dtype)
+        self.norm = group_norm(channels, dtype)
 
     def forward(self, x):
         n, c, h, w = x.shape
@@ -59,12 +67,14 @@ class AttentionBlock(nn.Module):
         bs, length, _ = qkv.shape
         qkv = qkv.reshape(bs, length, heads, 3, c // heads)
         q, k, v = (qkv[..., i, :].transpose(1, 2) for i in range(3))  # (bs, heads, L, ch)
-        scale = 1.0 / ((c // heads) ** 0.25)
-        weight = torch.softmax(torch.matmul(q * scale, (k * scale).transpose(-1, -2)), dim=-1)
+        # The scale in the compute dtype, as JAX's weakly typed constant is.
+        scale = torch.tensor(1.0 / ((c // heads) ** 0.25), dtype=q.dtype)
+        weight = torch.matmul(q * scale, (k * scale).transpose(-1, -2))
+        weight = torch.softmax(weight.to(torch.float32), dim=-1).to(q.dtype)
         out = torch.matmul(weight, v).transpose(1, 2).reshape(bs, length, c)
         out = out.reshape(n, t, c)
         out = self.norm(self.proj_out(out).transpose(1, 2))  # GN over (n, c, t)
-        return x + out.reshape(n, c, h, w)
+        return (x + out.reshape(n, c, h, w)).to(self.dtype or x.dtype)
 
 
 class UNetModel(nn.Module):
@@ -79,49 +89,57 @@ class UNetModel(nn.Module):
         num_head_channels: int = 32,
         num_frames: int = 2,
         cross_view: bool = True,
+        dtype: torch.dtype | None = None,
+        remat: bool = False,
     ):
         super().__init__()
         mc = model_channels
         attn_res = set(attention_resolutions)
         self.channel_mult = tuple(channel_mult)
         self.num_res_blocks = num_res_blocks
+        self.remat = remat
 
         def attn(ch, ds, name):
             if ds in attn_res:
-                self.add_module(name, AttentionBlock(ch, num_head_channels, num_frames, cross_view))
+                self.add_module(name, AttentionBlock(ch, num_head_channels, num_frames, cross_view, dtype))
 
-        self.in_conv = conv(in_channels, mc, 3)
+        self.in_conv = conv(in_channels, mc, 3, dtype=dtype)
         chans = [mc]
         ch, ds = mc, 1
         for level, mult in enumerate(channel_mult):
             for i in range(num_res_blocks):
-                self.add_module(f"down_{level}_{i}", ResBlock(ch, mult * mc))
+                self.add_module(f"down_{level}_{i}", ResBlock(ch, mult * mc, dtype))
                 ch = mult * mc
                 attn(ch, ds, f"down_{level}_{i}_attn")
                 chans.append(ch)
             if level != len(channel_mult) - 1:
-                self.add_module(f"downsample_{level}", conv(ch, ch, 3, stride=2))
+                self.add_module(f"downsample_{level}", conv(ch, ch, 3, stride=2, dtype=dtype))
                 chans.append(ch)
                 ds *= 2
-        self.middle_0 = ResBlock(ch, ch)
-        self.middle_1 = ResBlock(ch, ch)
+        self.middle_0 = ResBlock(ch, ch, dtype)
+        self.middle_1 = ResBlock(ch, ch, dtype)
         for level, mult in reversed(list(enumerate(channel_mult))):
             for i in range(num_res_blocks + 1):
-                self.add_module(f"up_{level}_{i}", ResBlock(ch + chans.pop(), mult * mc))
+                self.add_module(f"up_{level}_{i}", ResBlock(ch + chans.pop(), mult * mc, dtype))
                 ch = mult * mc
                 attn(ch, ds, f"up_{level}_{i}_attn")
                 if level and i == num_res_blocks:
-                    self.add_module(f"upsample_{level}", conv(ch, ch, 3))
+                    self.add_module(f"upsample_{level}", conv(ch, ch, 3, dtype=dtype))
                     ds //= 2
-        self.out_conv = conv(ch, out_channels, 3)
-        self.out_norm = group_norm(out_channels)
+        self.out_conv = conv(ch, out_channels, 3, dtype=dtype)
+        self.out_norm = group_norm(out_channels)  # float32 whatever `dtype` is, as in JAX
 
     def _attn(self, h, name):
         block = getattr(self, name, None)
         return h if block is None else block(h)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (N, C_in, H, W) with N = b * num_frames."""
+        """x (N, C_in, H, W) with N = b * num_frames; float32 out."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpointed(self._forward, x)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         hs = []
         h = self.in_conv(x)
         hs.append(h)
@@ -140,4 +158,4 @@ class UNetModel(nn.Module):
                 h = self._attn(h, f"up_{level}_{i}_attn")
                 if level and i == self.num_res_blocks:
                     h = getattr(self, f"upsample_{level}")(upsample_nearest_nchw(h, 2))
-        return F.silu(self.out_norm(self.out_conv(h)))
+        return silu(self.out_norm(self.out_conv(h)))

@@ -14,6 +14,12 @@ Dropout (rate 0.1) sits where the Flax modules have it: on the outputs of
 the self- and cross-attention and twice in the FFN. `deterministic_kernels`
 makes the samplers' backward kernels repeat their bits from run to run (K8's
 sorted mode; K6 refuses a shape it cannot sum in a fixed order).
+
+The matcher runs in float32 under every compute dtype (the JAX
+DepthPredictor gives it none). `remat` checkpoints each fine layer, as the
+JAX matcher's `nn.remat(UVFineLayer)`: the backward runs the layer's
+forward again, K7 and K5 (P = 4) included, with the forward's dropout masks
+(layers.checkpointed).
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch
 from torch import nn
 
 from ..ops.deform import deform_sample_scores, deform_sample_vectors
-from .layers import FFN, Dropout, layer_norm
+from .layers import FFN, Dropout, checkpointed, layer_norm
 
 
 def coarse_correlation(key_feat, value_feat, grid, hw: tuple[int, int], deterministic_kernels: bool = False):
@@ -107,11 +113,12 @@ class UVFineLayer(nn.Module):
 class UVMatcher(nn.Module):
     """Coarse + fine matching for directed view pairs."""
 
-    def __init__(self, embed_dims: int = 128, num_depth: int = 128, num_fine_layers: int = 2):
+    def __init__(self, embed_dims: int = 128, num_depth: int = 128, num_fine_layers: int = 2, remat: bool = False):
         super().__init__()
         if num_depth != embed_dims:
             raise ValueError("num_depth must equal embed_dims (the query channels are the depth slots)")
         self.num_fine_layers = num_fine_layers
+        self.remat = remat
         for i in range(num_fine_layers):
             self.add_module(f"fine_{i}", UVFineLayer(embed_dims, num_depth))
 
@@ -122,7 +129,10 @@ class UVMatcher(nn.Module):
         repeat their bits. Returns (N, Q, C)."""
         query = coarse_correlation(key_feat, value_feat, grid, hw, deterministic_kernels)
         for i in range(self.num_fine_layers):
-            query = getattr(self, f"fine_{i}")(
-                query, bev_pos, key_feat, value_feat, grid, ref_2d, hw, generator, deterministic_kernels
-            )
+            layer = getattr(self, f"fine_{i}")
+            args = (query, bev_pos, key_feat, value_feat, grid, ref_2d, hw, generator, deterministic_kernels)
+            if self.remat and torch.is_grad_enabled():
+                query = checkpointed(layer, *args, replay=generator)
+            else:
+                query = layer(*args)
         return query

@@ -50,11 +50,11 @@ class StepSpec:
     tiny configuration of __graft_entry__.py at 64^2); the global batch holds
     dp examples of 2 context and `num_target` target views. `dropout` off
     makes a dp step comparable with the joined batch's (each dp group draws
-    its own masks)."""
+    its own masks). `device` "cuda" (the default) or "cpu"."""
 
     dp: int = 1
     sp: int = 1
-    device: str = "cpu"
+    device: str = "cuda"
     backend: str | None = None  # default: NCCL on a card, gloo on the CPU
     full_width: bool = False
     num_target: int = 2
@@ -225,7 +225,7 @@ def step_errors(ranks: list[dict], ref: dict, carrying: float = CARRYING_LEAF) -
     }
 
 
-def decode_rank(scene: dict, dp: int, sp: int, image: tuple[int, int], device: str = "cpu",
+def decode_rank(scene: dict, dp: int, sp: int, image: tuple[int, int], device: str = "cuda",
                 backend: str | None = None) -> dict:
     """One rank of a dp x sp decode of a numpy scene ({means, covariances,
     harmonics, opacities}: (dp * b, g, ...); {extrinsics, intrinsics, near,
@@ -284,12 +284,13 @@ def _dryrun_rank(n: int, device: str) -> dict:
     return out
 
 
-def dryrun_multichip(n: int, device: str = "cpu", timeout_s: float = 600.0) -> list[dict]:
+def dryrun_multichip(n: int, device: str = "cuda", timeout_s: float = 600.0) -> list[dict]:
     """n ranks, sp = 2 when n is even and dp = n // sp: one full training
     step of the tiny configuration (two target views, dropout on), then K1 ->
     K3 and K4 -> K2 through the sharded decode of 4096 Gaussians at 64^2.
-    Ranks are spawned on the CPU over gloo, or on the card (`device="cuda"`,
-    every rank on it, over gloo). Returns the ranks' records."""
+    Ranks are spawned on the card (the default: every rank on it, over
+    gloo), or on the CPU over gloo with device="cpu". Returns the ranks'
+    records."""
     recs = launch.spawn(_dryrun_rank, n, n, device, timeout_s=timeout_s, local_ranks=False)
     loss = recs[0]["step"]["metrics"]["loss"]
     msg = f"dryrun_multichip ok: {n} ranks (dp={recs[0]['dp']}, sp={recs[0]['sp']}) on {device}, loss={loss:.4f}"

@@ -117,13 +117,15 @@ def make_mesh(dp: int | None = None, sp: int = 1, device: str | torch.device | N
               backend: str | None = None) -> Mesh:
     """Build this rank's (dp, sp) mesh; dp defaults to world // sp.
 
-    device: default `cuda:<LOCAL_RANK>` when there is a card, else the CPU.
-    backend: default NCCL on a card, gloo on the CPU. Joins the process
-    group of torchrun's environment if none is initialised (a group of one
-    without that environment)."""
+    device: default `cuda:<LOCAL_RANK>`; without a card that raises, and a
+    run on the CPU passes device="cpu". backend: default NCCL on a card,
+    gloo on the CPU. Joins the process group of torchrun's environment if
+    none is initialised (a group of one without that environment)."""
     local_rank = int(os.environ.get("LOCAL_RANK", 0))
     if device is None:
-        device = f"cuda:{local_rank}" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA card; pass device=\"cpu\" to run the ranks on the CPU")
+        device = f"cuda:{local_rank}"
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", local_rank)

@@ -10,6 +10,11 @@ sampler and of the rasterizer come from the hand-written backward kernels
 The stages of a step are marked with record_function spans (`train.*`),
 which profile_training.py reads.
 
+Under the encoder's `compute_dtype="bfloat16"` the depth predictor and the
+loss's LPIPS compute in bfloat16; the parameters, their gradients and the
+Adam moments stay float32. `remat_unet` / `remat_matching` recompute the
+U-Nets / the UV fine layers in the backward (model/layers.py `checkpointed`).
+
 `deterministic_kernels` makes a step on the card repeat its bits, as the JAX
 step does by construction: K2 and K8 take their sorted modes, K6 refuses a
 shape it cannot sum in a fixed order (K4 and the forward kernels repeat
@@ -157,6 +162,15 @@ def repeatable_ops(on: bool = True):
         torch.utils.deterministic.fill_uninitialized_memory = saved[4]
 
 
+def _loss_lpips(state: TrainState):
+    """The training loss's LPIPS: its convolutions at the encoder's compute
+    dtype, as in the JAX step (the evaluator's LPIPS stays float32)."""
+    lpips, dtype = state.lpips, state.encoder.cfg.torch_dtype
+    if lpips is None or dtype is None:
+        return lpips
+    return lambda a, b: lpips(a, b, dtype=dtype)
+
+
 def loss_and_grads(
     state: TrainState,
     batch: dict,
@@ -202,7 +216,7 @@ def loss_and_grads(
                 )
                 target = tgt["image"][:, view_slice(tgt["image"].shape[1], mesh)]
             with record_function("train.loss"):
-                loss, parts = compute_losses(loss_cfg, out.color, target, state.step, lpips_fn=state.lpips)
+                loss, parts = compute_losses(loss_cfg, out.color, target, state.step, lpips_fn=_loss_lpips(state))
             with record_function("train.backward"):
                 grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     finally:
