@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and fit -> checkpoint ->
-evaluate paths (validation media included), its data path, command line,
-checkpoint converter and multi-rank training, on one NVIDIA card and check
-them.
+evaluate paths (validation media included), its stage tools, data path,
+command line, checkpoint converter and multi-rank training, on one NVIDIA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -59,7 +59,21 @@ them.
    against the float32 one (ms, the Gaussians' gap).
 6. `tiny_train_vs_cpu`: one training step's loss and gradients at a tiny
    width, kernels on the card against plain versions on the CPU.
-7. Fit (`fit_slice`): the same configuration on the 256x256 golden scene.
+7. Stage attribution (`stage_attribution`): the stage tools in process at
+   full width, STAGE_ITERS timed calls a row (host ms, device ms between
+   CUDA events, the card's busy ms under torch.profiler, launches, the
+   allocator's peak): profile_stages (per-stage device ms, FLOPs, bytes;
+   its staged Gaussians equal to the fused encoder's bit for bit, its
+   peak_memory.json's lifetime peak at least every stage's peak),
+   bench_encoder_stages, bench_dp_stages in float32 and bfloat16,
+   bench_train_stages (its largest sub-graph peak at most the train_slice
+   step's) and bench_dataloader against the train_slice step's median.
+   Every row launches exactly the kernels STAGE_KERNELS names (the
+   matching rows K5 at P = 1 and 4 and K7, with the backward K6 and K8, K6
+   at P = 1 only where the backbone's parameters are in the sub-graph; the
+   render rows K1 and K3, with the backward K4 and K2; other rows none).
+   One record per tool.
+8. Fit (`fit_slice`): the same configuration on the 256x256 golden scene.
    Evaluator.evaluate_batch; Trainer.fit for FIT_STEPS steps from an
    in-memory iterator (lr 4e-4 cosine, MSE + random-init LPIPS, one sanity
    validation, a validation and a checkpoint in the middle and at the end,
@@ -71,7 +85,7 @@ them.
    trainer.deterministic_kernels on for FIT_DET_STEPS steps; the resumed
    run's losses and final parameters must equal the first run's exactly.
 
-8. The data path and the command line (`data_cli_phase`, in a temporary
+9. The data path and the command line (`data_cli_phase`, in a temporary
    directory, each part under a time budget): the native library and the
    JPEG route (nvJPEG on a host without libjpeg), a 360x640 batch decoded
    against its source and LANCZOS-rescaled; RE10K-format chunks from a seed
@@ -83,7 +97,7 @@ them.
    (PSNR, SSIM, LPIPS for both scenes), bench (its JSON line printed as it
    is; its peak memory and tile pairs on an earlier line), and the
    loader's examples per second with 0 and 4 workers.
-9. Evaluation from weight files (`eval_artifacts`, inside the data phase's
+10. Evaluation from weight files (`eval_artifacts`, inside the data phase's
    directory, on its test chunks and index, under its own budget): a seeded
    encoder tree in the JAX layout and a seeded LPIPS state dict;
    `transplat_tpu_torch.main test` with both, --save-image, stage timing,
@@ -96,7 +110,7 @@ them.
    renders (the run against itself at PSNR_SATURATION_DB). Before the data
    phase, `decode_30_views` times K1 and K3 at the shape of a video's
    decode (30 views x 131,072 Gaussians) on the serving request's Gaussians.
-10. Validation media (`validation_media`, inside `fit_slice`): every
+11. Validation media (`validation_media`, inside `fit_slice`): every
    validation of the fit writes its grid, orthographic projections and
    14-frame wobble video; on the fitted state, a validation with and one
    without media are timed; launch counts reset just before a validation
@@ -108,14 +122,14 @@ them.
    render (3 x 128^2) and the wobble's decode (14 x 256^2), their device
    times taken early, beside decode_30_views (`validation_media_kernels`,
    on the serving encoder's Gaussians of the golden scene).
-11. The checkpoint converter (`convert_weights_phase`): `python -m
+12. The checkpoint converter (`convert_weights_phase`): `python -m
    transplat_tpu_torch.convert_weights --kind lpips` and its --dry-run on a
    seeded LPIPS state dict; the .npy must load into LPIPS with the bits of
    the state dict loaded directly.
-12. DTU's PNG chunks (`dtu_phase`): a chunk packed as scripts/convert_dtu.py
+13. DTU's PNG chunks (`dtu_phase`): a chunk packed as scripts/convert_dtu.py
    packs it and `transplat_tpu_torch.main test --experiment dtu` at 3
    context views (launch counts read around it; `launches_dtu`).
-13. Data parallelism and the view-sharded decode (`parallel_phase`, last):
+14. Data parallelism and the view-sharded decode (`parallel_phase`, last):
    `transplat_tpu_torch.main train --dp 1 --sp 1` on one rank spawned by
    the port's launch (torchrun's environment), NCCL at world size 1,
    PARALLEL_STEPS_NCCL full-width steps over seeded chunks (launch counts
@@ -888,8 +902,9 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
     return recs
 
 
-def train_slice(dev, records: list[dict]) -> None:
-    """Three full-width re10k training steps through make_train_step."""
+def train_slice(dev, records: list[dict]) -> dict:
+    """Three full-width re10k training steps through make_train_step; returns
+    {"ms_per_step": median, "peak_mem_bytes": peak} of the timed steps."""
     from transplat_tpu_torch import kernels
     from transplat_tpu_torch.inference import re10k_decoder_cfg, re10k_encoder_cfg
     from transplat_tpu_torch.loss import LossCfg
@@ -954,6 +969,7 @@ def train_slice(dev, records: list[dict]) -> None:
           "loss_fixed_batch_before": loss_before, "loss_fixed_batch_after": loss_after,
           "trainable_parameters": len(state.trainable()), "metrics": metrics_all, "dropout": True,
           "lpips": "random-init weights", "gaussians": 2 * IMAGE[0] * IMAGE[1]})
+    return {"ms_per_step": float(np.median(times)), "peak_mem_bytes": peak}
 
 
 def train_deterministic(dev, records: list[dict]) -> None:
@@ -2302,6 +2318,123 @@ def parallel_phase(records: list[dict], smi: str) -> None:
                      "all_reduce_ms": r["step"]["all_reduce"]["ms"]} for r in dry]})
 
 
+# The stage tools' rows and the hand-written kernels each must launch, no other.
+# The depth predictor's rows take the backbone's features as constants: the
+# epipolar matching (K5 at P = 1) has no parameter before it there, so its
+# backward (K6 at P = 1) runs only in the encoder's.
+MATCHING_FWD = frozenset({"deform_scores_p1", "deform_scores_p4", "deform_vectors"})
+MATCHING_PARAMS_BWD = MATCHING_FWD | {"deform_scores_bwd_p4", "deform_vectors_bwd"}
+MATCHING_BWD = MATCHING_PARAMS_BWD | {"deform_scores_bwd_p1"}
+RENDER_FWD = frozenset({"bin_count", "bin_scan", "bin_place", "composite"})
+RENDER_BWD = RENDER_FWD | {"composite_bwd", "bin_bwd"}
+STAGE_KERNELS = {
+    "encoder_4b_cost_volume_matching": MATCHING_FWD, "decoder": RENDER_FWD,
+    "depth_pred fwd": MATCHING_FWD, "depth_pred fwd+bwd": MATCHING_PARAMS_BWD,
+    "4b matching fwd": MATCHING_FWD, "4b matching fwd+bwd": MATCHING_PARAMS_BWD,
+    "encoder fwd": MATCHING_FWD, "encoder fwd+bwd": MATCHING_BWD,
+    "render fwd": RENDER_FWD, "render fwd+bwd": RENDER_BWD,
+}
+STAGE_ITERS = 2
+LOADER_CHUNKS = 8  # one for each of 8 workers
+LOADER_MEASURE_BATCHES = 6
+
+
+def require_stage_launches(tool: str, rows: list[dict]) -> None:
+    for row in rows:
+        got = {k for k, v in row["launches"].items() if v > 0}
+        want = STAGE_KERNELS.get(row["stage"], frozenset())
+        require(got == want, f"{tool} {row['stage']}: launched {sorted(got)}, expected {sorted(want)}")
+
+
+def stage_attribution(dev, smi: str, train: dict) -> None:
+    """The stage tools in process at full re10k width, STAGE_ITERS timed calls
+    a row: profile_stages (its staged Gaussians equal the fused encoder's bit
+    for bit; its peak_memory.json's lifetime peak at least every stage's
+    peak), bench_encoder_stages, bench_dp_stages in float32 and bfloat16,
+    bench_train_stages (its largest sub-graph peak at most the train_slice
+    step's) and bench_dataloader against the train_slice step's median. Each
+    row's hand-written kernel launches must be STAGE_KERNELS' (none for a row
+    not named there). One record per tool."""
+    import tempfile
+    from pathlib import Path
+
+    from transplat_tpu_torch import (
+        bench_dataloader,
+        bench_dp_stages,
+        bench_encoder_stages,
+        bench_train_stages,
+        kernels,
+        profile_stages,
+    )
+    from transplat_tpu_torch.loss import LPIPS
+    from transplat_tpu_torch.utils.stage_timing import time_rows
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()  # each row reads its own launches as a difference of the counts
+    seconds = {}
+
+    def record(tool: str, rows: list[dict], t0: float, **extra) -> None:
+        require_stage_launches(tool, rows)
+        seconds[tool] = time.perf_counter() - t0
+        emit({"phase": "stage_attribution", "tool": tool, "iters": STAGE_ITERS, "nvidia_smi": smi,
+              "seconds": seconds[tool], "rows": rows, **extra})
+
+    t0 = time.perf_counter()
+    encoder, batch = profile_stages.build(False, dev, SEED)
+    result = profile_stages.profile(encoder, batch, STAGE_ITERS, dev)
+    with torch.no_grad():
+        fused = encoder(*(torch.as_tensor(batch["context"][k], device=dev)
+                          for k in ("image", "intrinsics", "extrinsics", "near", "far")))
+    require(all(torch.equal(a, b) for a, b in zip(result["gaussians"], fused)),
+            "stage_attribution: the staged Gaussians are not the fused encoder's bit for bit")
+    with tempfile.TemporaryDirectory() as tmp:
+        mem_path = profile_stages.write(result, Path(tmp) / "stage_profile.json", STAGE_ITERS)
+        dump = json.loads(mem_path.read_text())
+    stage_peaks = {t: r["peak_bytes_in_use"] for t, r in dump["stages"].items()}
+    lifetime = dump["device"]["peak_bytes_in_use"]
+    require(lifetime >= max(stage_peaks.values()), f"stage_attribution: dump's lifetime peak {lifetime} under "
+            f"a stage's {max(stage_peaks.values())}")
+    record("profile_stages", result["rows"], t0, staged_equals_fused=True, lifetime_peak_bytes=lifetime,
+           stage_peak_bytes=stage_peaks)
+    del result, fused
+
+    t0 = time.perf_counter()
+    rows = time_rows(bench_encoder_stages.subgraphs(encoder, batch, dev).items(), dev, STAGE_ITERS)
+    record("bench_encoder_stages", rows, t0)
+
+    t0 = time.perf_counter()
+    rows = time_rows(bench_dp_stages.subgraphs(encoder, batch, dev).items(), dev, STAGE_ITERS)
+    record("bench_dp_stages", rows, t0, compute_dtype="float32")
+
+    t0 = time.perf_counter()
+    lpips = LPIPS(device=dev, seed=SEED)
+    rows = time_rows(bench_train_stages.subgraphs(encoder, lpips, batch, dev).items(), dev, STAGE_ITERS)
+    largest = max(r["peak_bytes"] for r in rows)
+    require(largest <= train["peak_mem_bytes"], f"stage_attribution: a train sub-graph's peak {largest} over "
+            f"the train_slice step's {train['peak_mem_bytes']}")
+    record("bench_train_stages", rows, t0, largest_peak_bytes=largest, train_step_peak_bytes=train["peak_mem_bytes"])
+    del encoder, lpips
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    encoder, batch = bench_dp_stages.build(False, dev, "bf16", SEED)
+    rows = time_rows(bench_dp_stages.subgraphs(encoder, batch, dev).items(), dev, STAGE_ITERS)
+    record("bench_dp_stages_bf16", rows, t0, compute_dtype="bfloat16")
+    del encoder
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    loader = bench_dataloader.run(train["ms_per_step"], dev, chunks=LOADER_CHUNKS,
+                                  measure_batches=LOADER_MEASURE_BATCHES)
+    require(all(v > 0 for v in loader["examples_per_s"].values()), f"stage_attribution: loader {loader}")
+    seconds["bench_dataloader"] = time.perf_counter() - t0
+    emit({"phase": "stage_attribution", "nvidia_smi": smi, "seconds": seconds["bench_dataloader"], **loader})
+    emit({"phase": "stage_attribution", "seconds": seconds, "seconds_total": sum(seconds.values())})
+
+
 def tiny_train_vs_cpu(dev) -> None:
     """One training step's loss and gradients (dropout off) at a tiny width:
     the kernels on the card against the plain versions on the CPU, from the
@@ -2479,10 +2612,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- the training path -------------------------------------------------
-    train_slice(dev, records)
+    train = train_slice(dev, records)
     train_deterministic(dev, records)
     precision_remat(dev, records)
     tiny_train_vs_cpu(dev)
+
+    # ---- stage attribution: the stage tools at full width ----------------------
+    stage_attribution(dev, smi, train)
 
     # ---- fit -> validate -> checkpoint -> resume -> evaluate ----------------
     fit_slice(dev, records, smi, media_kernels)

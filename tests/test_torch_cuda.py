@@ -863,3 +863,78 @@ def test_parallel_step_of_two_ranks_on_the_card_matches_one_process(dev, dp, sp)
     for rec in ranks:
         assert rec["backend"] == "gloo" and all(rec["launches"].get(k, 0) > 0 for k in RASTER_KERNELS)
         assert rec["decode"]["pairs"] > 0
+
+
+# The stage tools: the allocator's dump and the host clock against the device's.
+
+
+def test_dump_keeps_the_lifetime_peak_through_memory_resets(dev, tmp_path):
+    """`Benchmarker.memory` resets the allocator's peak for each stage; the
+    dump's device record still holds the highest peak of the Benchmarker's
+    life, at least every stage's peak, with JAX's keys."""
+    import json
+
+    from transplat_tpu_torch.utils.benchmarker import Benchmarker, device_memory_stats
+
+    bench = Benchmarker(dev)
+    with bench.memory("big"):
+        big = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        del big
+    with bench.memory("small"):
+        small = torch.empty(1 << 20, dtype=torch.uint8, device=dev)
+    bench.dump_memory(tmp_path / "peak_memory.json", extra={"note": 1})
+    dump = json.loads((tmp_path / "peak_memory.json").read_text())
+    assert set(dump) == {"device", "stages", "note"}
+    stages = dump["stages"]
+    assert stages["big"]["peak_bytes_in_use"] >= stages["big"]["bytes_in_use_before"] + (64 << 20)
+    assert device_memory_stats(dev)["peak_bytes_in_use"] < stages["big"]["peak_bytes_in_use"]  # reset since
+    assert dump["device"]["peak_bytes_in_use"] >= max(s["peak_bytes_in_use"] for s in stages.values())
+    assert stages["small"]["peak_bytes_in_use_cumulative"] == stages["big"]["peak_bytes_in_use_cumulative"]
+    assert {"bytes_in_use", "bytes_limit"} <= set(dump["device"])
+    del small
+
+
+def test_time_blocking_covers_the_device_time(dev):
+    """The host clock up to the card's completion is at least the device
+    time between CUDA events around the same block."""
+    from transplat_tpu_torch.utils.benchmarker import Benchmarker
+
+    bench = Benchmarker(dev)
+    a = torch.randn(2048, 2048, device=dev)
+    for _ in range(3):
+        with bench.time_blocking("host") as out, bench.time("device"):
+            out["result"] = a @ a @ a
+    summary = bench.summarize()
+    host, device = bench.execution_times["host"], bench.execution_times["device"]
+    assert summary["host"]["count"] == 3 and all(h >= d > 0 for h, d in zip(host, device))
+
+
+def test_stage_tools_launch_their_kernels_at_a_tiny_width(dev):
+    """The train sub-graphs at the tiny width on the card: the render rows
+    launch K1 and K3 (and K4 and K2 with the backward), the encoder rows K5
+    and K7 (and K6 and K8 with the backward), LPIPS none; the stage profile
+    counts the hand-written kernels' bytes in the matching stage and the
+    decoder, and its Gaussians are the fused encoder's bit for bit."""
+    from transplat_tpu_torch import bench_train_stages, profile_stages
+    from transplat_tpu_torch.utils.stage_timing import time_rows
+
+    encoder, lpips, batch = bench_train_stages.build(True, dev)
+    rows = {r["stage"]: r["launches"] for r in time_rows(
+        bench_train_stages.subgraphs(encoder, lpips, batch, dev).items(), dev, iters=1)}
+    assert set(rows["render fwd"]) == {"bin_count", "bin_scan", "bin_place", "composite"}
+    assert set(rows["render fwd+bwd"]) == {"bin_count", "bin_scan", "bin_place", "composite", "composite_bwd",
+                                           "bin_bwd"}
+    assert {"deform_scores_p1", "deform_scores_p4", "deform_vectors"} == set(rows["encoder fwd"])
+    assert {"deform_scores_bwd_p1", "deform_scores_bwd_p4", "deform_vectors_bwd"} < set(rows["encoder fwd+bwd"])
+    assert rows["lpips fwd"] == {} and rows["lpips fwd+bwd"] == {}
+
+    encoder, batch = profile_stages.build(True, dev)
+    result = profile_stages.profile(encoder, batch, 1, dev)
+    by_stage = {r["stage"]: r for r in result["rows"]}
+    assert by_stage["encoder_4b_cost_volume_matching"]["kernel_gb"] > 0 and by_stage["decoder"]["kernel_gb"] > 0
+    assert all(r["kernel_gb"] == 0 for s, r in by_stage.items()
+               if s not in ("encoder_4b_cost_volume_matching", "decoder"))
+    with torch.no_grad():
+        fused = encoder(*(torch.as_tensor(batch["context"][k], device=dev)
+                          for k in ("image", "intrinsics", "extrinsics", "near", "far")))
+    assert all(torch.equal(a, b) for a, b in zip(result["gaussians"], fused))

@@ -14,21 +14,43 @@ XLA's `cost_analysis` / `memory_analysis` of the compiled stages have no
 PyTorch counterpart: `cost_analysis` counts each stage's floating-point
 operations with torch.utils.flop_counter.FlopCounterMode (matrix products,
 convolutions and attention; elementwise operations and the hand-written
-kernels count 0), and `memory_analysis` gives the allocator's bytes of the
-last timed run. Bytes accessed are not counted.
+kernels count 0), its bytes with utils/stage_timing.py `OpBytes` (aten
+operands and outputs, unfused, and the hand-written kernels' operands: an
+upper bound of XLA's fused "bytes accessed") and the launches of each
+hand-written kernel; `memory_analysis` gives the allocator's bytes of the
+last timed run.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+from collections import Counter
 
 import torch
 
+from .. import kernels
 from ..dataset.loader import CONTEXT_KEYS
 from ..model.encoder import STAGES, EncoderTranSplat
 from ..utils.benchmarker import Benchmarker
+from ..utils.stage_timing import OpBytes
 
-__all__ = ["STAGES", "StagedEncoder"]
+__all__ = ["STAGES", "StagedEncoder", "count_costs"]
+
+
+@contextlib.contextmanager
+def count_costs(tag: str, into: dict):
+    """Count the block's FLOPs, bytes and kernel launches into `into[tag]`."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    flops, nbytes = FlopCounterMode(display=False), OpBytes()
+    before = Counter(kernels.launches)
+    with flops, nbytes:
+        yield
+    into[tag] = {
+        "flops": int(flops.get_total_flops()), "bytes accessed": nbytes.bytes, "aten_bytes": nbytes.aten_bytes,
+        "kernel_bytes": nbytes.kernel_bytes, "launches": dict(sorted((Counter(kernels.launches) - before).items())),
+    }
 
 
 class StagedEncoder:
@@ -66,23 +88,15 @@ class StagedEncoder:
 
     @torch.no_grad()
     def cost_analysis(self) -> dict:
-        """{stage: {"flops": n}} for the inputs of the last run(), each stage
-        counted by its own FlopCounterMode in one more (untimed) run."""
+        """{stage: {"flops": n, "bytes accessed": n, "aten_bytes": n,
+        "kernel_bytes": n, "launches": {kernel: n}}} for the inputs of the
+        last run(), each stage counted by its own modes in one more (untimed)
+        run."""
         if self._last_args is None:
             raise RuntimeError("cost_analysis needs a run() first")
-        from torch.utils.flop_counter import FlopCounterMode
-
         counted: dict[str, dict] = {}
-
-        @contextlib.contextmanager
-        def stage(tag: str):
-            mode = FlopCounterMode(display=False)
-            with mode:
-                yield
-            counted[tag] = {"flops": int(mode.get_total_flops())}
-
         args, global_step = self._last_args
-        self.encoder(*args, global_step=global_step, return_aux=True, stage=stage)
+        self.encoder(*args, global_step=global_step, return_aux=True, stage=functools.partial(count_costs, into=counted))
         return counted
 
     def memory_analysis(self) -> dict:

@@ -35,3 +35,18 @@ def build_covariance(scale: torch.Tensor, rotation_xyzw: torch.Tensor) -> torch.
     rotation = quaternion_to_matrix(rotation_xyzw)
     scaled = rotation * (scale**2)[..., None, :]
     return torch.matmul(scaled, rotation.transpose(-1, -2))
+
+
+def covariance_upper_triangle(covariances: torch.Tensor) -> torch.Tensor:
+    """Pack (..., 3, 3) symmetric covariances into (..., 6) upper triangles
+    in row-major order (xx, xy, xz, yy, yz, zz)."""
+    rows, cols = torch.triu_indices(3, 3, device=covariances.device)
+    return covariances[..., rows, cols]
+
+
+def covariance_from_upper_triangle(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`covariance_upper_triangle`."""
+    xx, xy, xz, yy, yz, zz = torch.unbind(packed, dim=-1)
+    return torch.stack(
+        [torch.stack([xx, xy, xz], -1), torch.stack([xy, yy, yz], -1), torch.stack([xz, yz, zz], -1)], dim=-2
+    )

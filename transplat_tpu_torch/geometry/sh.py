@@ -101,6 +101,11 @@ def _basis_l4(d):
     )
 
 
+def num_sh_coeffs(degree: int) -> int:
+    """Coefficients of a degree-`degree` expansion: (degree + 1)^2."""
+    return (degree + 1) ** 2
+
+
 _BASIS_FNS = (_basis_l0, _basis_l1, _basis_l2, _basis_l3, _basis_l4)
 
 

@@ -13,7 +13,9 @@ returns cudaGetLastError(); `call` raises if that is not 0.
 
 `launches` counts, per kernel name, the launches the wrappers made. A run
 resets it with `reset_launches()` and reads it afterwards to show which
-kernels a path went through.
+kernels a path went through. `observers` are called with (counter, the C
+entry's arguments) at each launch: utils/stage_timing.py counts the bytes of
+the tensors a launch is given there.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ _SIGNATURES = {
 _QUERIES = {"tp_composite_attributes": (_I, _P), "tp_composite_bwd_attributes": (_I, _P)}
 
 launches: dict[str, int] = {}
+observers: list = []
 _lib = None
 _lock = threading.Lock()
 
@@ -172,6 +175,8 @@ def call(name: str, counter: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     launches[counter] = launches.get(counter, 0) + 1
+    for observe in observers:
+        observe(counter, args)
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int | None = None) -> None:

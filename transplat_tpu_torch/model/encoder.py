@@ -141,6 +141,27 @@ class EncoderTranSplat(nn.Module):
         self.to(device)
         self.eval()
 
+    def dav2_inputs(self, images: torch.Tensor) -> torch.Tensor:
+        """DAv2's input (b*v, S, S, 3): the images normalized, channels
+        shuffled [2, 0, 1], resized (align corners) to the DAv2 input size."""
+        b, v, h, w, _ = images.shape
+        da_in = normalize_images(images)[..., [2, 0, 1]]
+        size = self.cfg.dav2_input_size
+        return resize_bilinear(da_in.reshape(b * v, h, w, 3), (size, size), align_corners=True)
+
+    @staticmethod
+    def mono_prior(da_depth: torch.Tensor, dino_feature: torch.Tensor, image_shape) -> tuple[torch.Tensor, torch.Tensor]:
+        """DAv2's outputs as the depth predictor takes them: the depth resized
+        (align corners) to the images' (b, v, H, W, 1), min-max per view; the
+        features (b, v, hd, wd, cd)."""
+        b, v, h, w = image_shape[:4]
+        da_depth = resize_bilinear(da_depth[..., None], (h, w), align_corners=True)
+        flat = da_depth.reshape(b * v, -1)
+        lo = flat.min(dim=-1, keepdim=True).values
+        hi = flat.max(dim=-1, keepdim=True).values
+        da_depth = ((flat - lo) / (hi - lo + 1e-8)).reshape(b, v, h, w, 1)
+        return da_depth, dino_feature.reshape(b, v, *dino_feature.shape[1:])
+
     def forward(
         self,
         images: torch.Tensor,  # (b, v, H, W, 3) in [0, 1]
@@ -169,20 +190,11 @@ class EncoderTranSplat(nn.Module):
         with stage("encoder_2_backbone"):
             trans_features, cnn_features = self.backbone(images, img2world, attn_splits=cfg.multiview_trans_attn_split)
 
-        # 2. Frozen DAv2 prior: normalized, channels shuffled [2, 0, 1], resized
-        #    (align corners) to the DAv2 input size and back, min-max per view.
+        # 2. Frozen DAv2 prior.
         with stage("encoder_3_depth_anything"):
-            da_in = normalize_images(images)[..., [2, 0, 1]]
-            size = cfg.dav2_input_size
-            da_in = resize_bilinear(da_in.reshape(b * v, h, w, 3), (size, size), align_corners=True)
             with torch.no_grad():
-                da_depth, dino_feature = self.da_model(da_in)
-            da_depth = resize_bilinear(da_depth[..., None], (h, w), align_corners=True)
-            flat = da_depth.reshape(b * v, -1)
-            lo = flat.min(dim=-1, keepdim=True).values
-            hi = flat.max(dim=-1, keepdim=True).values
-            da_depth = ((flat - lo) / (hi - lo + 1e-8)).reshape(b, v, h, w, 1)
-            dino_feature = dino_feature.reshape(b, v, *dino_feature.shape[1:])
+                da_depth, dino_feature = self.da_model(self.dav2_inputs(images))
+            da_depth, dino_feature = self.mono_prior(da_depth, dino_feature, images.shape)
 
         # 3. Depth predictor (stages 4a-4f).
         depths, densities, raw_gaussians, aux = self.depth_predictor(

@@ -185,6 +185,18 @@ def jpeg_route() -> str:
     return _route
 
 
+def available() -> bool:
+    """Whether the native data path builds and loads here: the resizes and
+    the machine's JPEG route (`jpeg_route`). The JAX package's `available`
+    answers the same for its library, and falls back to Pillow where it is
+    False; the port has no fallback, so there the loader raises."""
+    try:
+        jpeg_route()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def route_runs_in_workers(route: str) -> bool:
     """Whether a forked loader worker may decode on `route` (only the host route: nvJPEG holds a CUDA context)."""
     return route == "libjpeg"

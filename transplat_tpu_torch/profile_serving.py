@@ -31,17 +31,9 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from .utils.stage_timing import union_us
+
 SEED = 0
-
-
-def _union_us(intervals: list[tuple[float, float]]) -> float:
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e <= end:
-            continue
-        total += e - max(s, end)
-        end = e
-    return total
 
 
 def report(prof, spans, differences, count: int, top: int, wall_ms: float) -> tuple[float, float]:
@@ -82,7 +74,7 @@ def report(prof, spans, differences, count: int, top: int, wall_ms: float) -> tu
     ]
     if not intervals:
         raise RuntimeError("the trace holds no device events")
-    busy_ms = _union_us(intervals) / 1e3 / count
+    busy_ms = union_us(intervals) / 1e3 / count
     if busy_ms > wall_ms:
         raise RuntimeError(f"device busy {busy_ms} ms per iteration exceeds the wall time {wall_ms} ms")
     return busy_ms, sum(device_ms(e) for e in kernels)

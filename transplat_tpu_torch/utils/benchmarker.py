@@ -4,11 +4,23 @@ Counterpart of transplat_tpu/utils/benchmarker.py: on the card `time(tag)`
 waits for the card (torch.cuda.synchronize) before it starts, so a stage's
 time is its own, and reads the device time between two CUDA events recorded
 around the stage; on the CPU it reads the host clock. `memory(tag)` records
-allocator bytes around a stage. `trace(logdir)` is the counterpart of
-`jax.profiler.trace`: a torch.profiler trace (CPU activity, and the card's
-when on the card) written into `logdir` as a TensorBoard / Chrome trace. The
-JAX package's `compiled_memory_analysis` belongs to XLA's compiler and has no
-counterpart here.
+allocator bytes around a stage; `dump_memory(path)` writes them with the
+allocator's totals (`device_memory_stats`) as JAX's peak_memory.json.
+`time_blocking(tag)` reads the host clock up to the card's completion: with
+`time(tag)` around the same block, the difference is the time before the
+card starts the block's first kernel and after it ends its last
+(utils/stage_timing.py reads the gaps between with torch.profiler).
+`trace(logdir)` is the counterpart of `jax.profiler.trace`: a torch.profiler
+trace (CPU activity, and the card's when on the card) written into `logdir`
+as a TensorBoard / Chrome trace. The JAX package's
+`compiled_memory_analysis` belongs to XLA's compiler and has no counterpart
+here.
+
+Peaks: JAX's `peak_bytes_in_use` is the allocator's high-water mark over the
+process's life. PyTorch's is reset by `torch.cuda.reset_peak_memory_stats`,
+which `memory(tag)` calls to read each stage's own peak; so a Benchmarker
+keeps the highest peak it saw before each of its resets, and its dump's
+`device` record gives the larger of that and the allocator's peak since.
 """
 
 from __future__ import annotations
@@ -38,11 +50,31 @@ STAGE_ORDER = [
 ]
 
 
+def device_memory_stats(device: str | torch.device | None = None) -> dict:
+    """The allocator's statistics for one card (`torch.cuda.memory_stats`,
+    every key), with JAX's names beside them: `bytes_in_use`,
+    `peak_bytes_in_use` (since the last reset of the peak), `bytes_reserved`
+    and `bytes_limit` (the card's memory). {} on the CPU, as JAX's on
+    backends without allocator statistics."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return {}
+    stats = dict(torch.cuda.memory_stats(device))
+    return {
+        **stats,
+        "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+        "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+        "bytes_reserved": stats.get("reserved_bytes.all.current", 0),
+        "bytes_limit": torch.cuda.get_device_properties(device).total_memory,
+    }
+
+
 class Benchmarker:
     def __init__(self, device: str | torch.device = "cuda"):
         self.device = torch.device(device)
         self.execution_times: dict[str, list[float]] = defaultdict(list)
         self.memory_stats: dict[str, dict] = {}
+        self.lifetime_peak = 0  # the highest allocator peak seen before a reset of this Benchmarker's
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -71,6 +103,21 @@ class Benchmarker:
                 self.execution_times[tag].append(elapsed / num_calls)
 
     @contextmanager
+    def time_blocking(self, tag: str):
+        """Host seconds of the block up to the card's completion of it: the
+        card is synchronized before and after (JAX's blocks on the yielded
+        dict's "result"; here every stream's work is waited for, so the dict
+        is only kept for JAX's calling convention)."""
+        self._sync()
+        start = time.perf_counter()
+        out: dict = {}
+        try:
+            yield out
+        finally:
+            self._sync()
+            self.execution_times[tag].append(time.perf_counter() - start)
+
+    @contextmanager
     def trace(self, logdir: str | Path):
         """Profile the block into `logdir` (`<host>_<pid>.<time>.pt.trace.json`,
         readable by TensorBoard's profiler plugin and chrome://tracing);
@@ -86,25 +133,52 @@ class Benchmarker:
     @contextmanager
     def memory(self, tag: str):
         """Bytes allocated before and after a stage and its peak (an empty
-        record on the CPU, which has no allocator statistics)."""
+        record on the CPU, which has no allocator statistics).
+
+        `peak_bytes_in_use` is the stage's own peak (the allocator's peak is
+        reset before it) and `stage_peak_delta` its rise over the bytes in
+        use before; JAX's keys stand beside them: `stage_peak_delta_est`
+        (the same number: here it is measured, not estimated) and
+        `peak_bytes_in_use_cumulative`, the highest peak this Benchmarker has
+        seen up to the stage's end."""
         if self.device.type != "cuda":
             yield
             self.memory_stats[tag] = {}
             return
         self._sync()
         before = torch.cuda.memory_allocated(self.device)
+        self.lifetime_peak = max(self.lifetime_peak, torch.cuda.max_memory_allocated(self.device))
         torch.cuda.reset_peak_memory_stats(self.device)
         try:
             yield
         finally:
             self._sync()
             peak = torch.cuda.max_memory_allocated(self.device)
+            self.lifetime_peak = max(self.lifetime_peak, peak)
             self.memory_stats[tag] = {
                 "bytes_in_use_before": before,
                 "bytes_in_use_after": torch.cuda.memory_allocated(self.device),
                 "peak_bytes_in_use": peak,
                 "stage_peak_delta": peak - before,
+                "peak_bytes_in_use_cumulative": self.lifetime_peak,
+                "stage_peak_delta_est": peak - before,
             }
+
+    def dump_memory(self, path: str | Path, extra: dict | None = None) -> None:
+        """peak_memory.json: {"device": the allocator's totals, "stages": the
+        per-stage records, **extra}. The device record's `peak_bytes_in_use`
+        is the highest peak over this Benchmarker's life (see the module's
+        docstring), so it is at least every stage's peak; {} on the CPU."""
+        path = Path(path)
+        path.parent.mkdir(exist_ok=True, parents=True)
+        device = device_memory_stats(self.device)
+        if device:
+            device["peak_bytes_in_use"] = max(device["peak_bytes_in_use"], self.lifetime_peak)
+        record = {"device": device, "stages": self.memory_stats}
+        if extra:
+            record.update(extra)
+        with open(path, "w") as f:
+            json.dump(record, f, indent=2)
 
     def summarize(self, skip_first: int = 0) -> dict:
         out = {}
