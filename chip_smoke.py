@@ -34,7 +34,16 @@ card and check them.
    `wrapper_ms`, one wrapper call between CUDA events. K3 and K4 also record
    registers, shared memory, resident blocks per SM, waves and their blocks'
    time spread (transplat_tpu_torch/raster_report.py); two runs of K4, K6
-   and of the sorted modes of K2 and K8 must give the same bits.
+   and of the sorted modes of K2 and K8 must give the same bits. The sorted
+   modes order their entries with hand-written kernels and no library sort
+   (`bin_bwd_order`, `deform_vectors_bwd_order`, each its own record): their
+   permutation and segments must equal torch.sort's (on every K1 scene, and
+   for K8 also on maps of 5x7, 128x160 in four histogram slices and 1x1),
+   their outputs the route that took torch.sort's order bit for bit, and no
+   cub / radix / sort kernel of a library may run inside either wrapper
+   (torch.sort's own route must show one: the check sees them). Their
+   records' library call is index_add_ under
+   torch.use_deterministic_algorithms (the orders': torch.sort).
 4. The tiled renderer is held against the naive oracle, and the serving
    slice at a tiny width against the plain versions on the CPU.
 5. Training (`train_slice`): the same full-width configuration takes one
@@ -46,7 +55,8 @@ card and check them.
    and K8 must have launched their atomic modes, not their sorted ones.
    `train_deterministic`: with trainer.deterministic_kernels on, two steps
    from one state must give the same loss, gradients and parameters bit for
-   bit, through the sorted modes of K2 and K8 and no atomic mode; the
+   bit, through the sorted modes of K2 and K8 (their orders' kernels
+   launched) and no atomic mode; the
    warnings of torch.use_deterministic_algorithms during such a step are
    recorded. `precision_remat`: the same step with s2d_unet off in four
    settings (float32; compute_dtype bfloat16; remat_unet + remat_matching;
@@ -152,6 +162,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -179,6 +190,13 @@ FORWARD_KERNELS = (
 BACKWARD_KERNELS = ("deform_scores_bwd_p1", "deform_scores_bwd_p4", "deform_vectors_bwd", "composite_bwd", "bin_bwd")
 # What trainer.deterministic_kernels puts in place of K8's and K2's atomic modes.
 SORTED_MODES = {"deform_vectors_bwd": "deform_vectors_bwd_sorted", "bin_bwd": "bin_bwd_sorted"}
+# The hand-written order of each sorted mode (its stable counting sort; no library sort).
+SORTED_ORDERS = {"deform_vectors_bwd_sorted": "deform_vectors_bwd_order", "bin_bwd_sorted": "bin_bwd_order"}
+# Device kernels of a library sort (cub's radix sort and scans, PyTorch's
+# sorts): none may run inside a sorted mode's wrapper. The port's own
+# kernels are named bin_bwd_* and deform_vectors_bwd_*.
+LIBRARY_SORT = re.compile(r"cub::|radix|sort", re.IGNORECASE)
+OWN_KERNELS = re.compile(r"bin_bwd_|deform_vectors_bwd")
 L2_BYTES = 50e6  # H100 L2: a function whose bytes fit reads them from there when called back to back
 # Gradients are compared on values scaled to the gradient's largest entry.
 # K6 (fixed-point sums), K8 and K2 repeat their plain versions' float32 sums
@@ -243,6 +261,24 @@ def timings(fn, kernel: str, lib_fn=None) -> dict:
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_sorts(fn) -> list[str]:
+    """The device kernels of a library sort among what one call of fn launches (torch.profiler)."""
+    from transplat_tpu_torch.utils.device_time import device_time
+
+    names = [name for name, _ in device_time(fn)["events"]]
+    return sorted({n[:80] for n in names if LIBRARY_SORT.search(n) and not OWN_KERNELS.search(n)})
+
+
+def deterministic_ops(fn):
+    """fn() inside repeatable_ops(): PyTorch's deterministic algorithms, as
+    trainer.deterministic_kernels runs its steps (index_add_ then sorts its
+    indices on the card)."""
+    from transplat_tpu_torch.training.step import repeatable_ops
+
+    with repeatable_ops():
+        return fn()
 
 
 def max_err(a, b) -> float:
@@ -615,6 +651,36 @@ def check_deform_vectors_bwd(dev) -> list[dict]:
     first = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True)
     second = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True)
     require(all(torch.equal(x, y) for x, y in zip(first, second)), "deform_vectors_bwd sorted mode is not deterministic")
+    # The sorted mode's order, the counting sort, against torch.sort's (and the
+    # plain version), and its d_value against the route that took torch.sort's
+    # order (kept as a plain composition) bit for bit; no library sort inside.
+    keys, corner_w, _, _ = deform._vectors_bwd_launch(value, (h, w), loc, aw, gbar, True)
+    rows = n * h * w
+    order = deform.vectors_bwd_order(keys, n, h * w)
+    by_sort = deform.vectors_bwd_order_by_sort(keys, rows)
+    require(all(torch.equal(x, y) for x, y in zip(order, by_sort))
+            and all(torch.equal(x, y) for x, y in zip(deform.vectors_bwd_order_plain(keys, rows), by_sort)),
+            "deform_vectors_bwd_order: not torch.sort's permutation and segments")
+    sort_route = deform.vectors_bwd_sorted_plain(gbar, corner_w, *by_sort, 4 * p)
+    require(torch.equal(first[0].reshape(sort_route.shape), sort_route)
+            and torch.equal(deform.vectors_bwd_sorted(gbar, corner_w, *by_sort, 4 * p), sort_route),
+            "deform_vectors_bwd sorted mode: other bits than torch.sort's route")
+    edge = []
+    for nn, qq, pp, hh, ww in ((3, 100, 4, 5, 7), (2, 8192, 4, 128, 160), (1, 64, 2, 1, 1)):
+        # 35 cells; 20,481 cells a batch entry, four histogram slices; one cell, most corners outside.
+        gl = torch.Generator(device=dev).manual_seed(SEED + hh)
+        lk, _ = deform.vectors_bwd_keys_plain(torch.rand((nn, qq, pp, 2), device=dev, generator=gl) * 1.4 - 0.2,
+                                              torch.rand((nn, qq, pp), device=dev, generator=gl), hh, ww)
+        require(all(torch.equal(x, y) for x, y in zip(deform.vectors_bwd_order(lk, nn, hh * ww),
+                                                      deform.vectors_bwd_order_by_sort(lk, nn * hh * ww))),
+                f"deform_vectors_bwd_order: not torch.sort's on {nn} x {hh}x{ww} maps")
+        edge.append(dict(n=nn, h=hh, w=ww, corners=lk.numel(), outside=int((lk == nn * hh * ww).sum())))
+    sorts = library_sorts(lambda: deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True))
+    witness = library_sorts(lambda: deform.vectors_bwd_order_by_sort(keys, rows))
+    require(not sorts and witness, f"deform_vectors_bwd sorted mode launches library sorts {sorts} (torch.sort's: {witness})")
+    emit({"phase": "sorted_order_check", "kernel": "deform_vectors_bwd_order", "equal_to_torch_sort": True,
+          "same_bits_as_torch_sort_route": True, "library_sort_kernels": sorts,
+          "library_sort_kernels_of_torch_sort": witness, "edge_cases_equal_to_torch_sort": edge})
     plain_ms = time_ms(lambda: deform.deform_sample_vectors_bwd_plain(value, (h, w), loc, aw, gbar), iters=5, warmup=1)
     lib_leaves = [t.clone().requires_grad_(True) for t in (value, loc, aw)]
     lib = _grid_sample_vectors(*lib_leaves, shape)
@@ -625,12 +691,19 @@ def check_deform_vectors_bwd(dev) -> list[dict]:
     # The plain forward's autograd backward (advanced indexing), which the kernel took off the training step.
     auto_out = deform.deform_sample_vectors_plain(leaves[0], (h, w), leaves[1], leaves[2])
     autograd_ms = time_ms(lambda: torch.autograd.grad(auto_out, leaves, gbar, retain_graph=True), iters=5, warmup=1)
-    rows = vectors_rows_touched(loc, n, h, w)
-    nbytes = 4 * (rows * c + loc.numel() + aw.numel() + gbar.numel() + value.numel() + loc.numel() + aw.numel())
+    touched = vectors_rows_touched(loc, n, h, w)
+    nbytes = 4 * (touched * c + loc.numel() + aw.numel() + gbar.numel() + value.numel() + loc.numel() + aw.numel())
     b_ms, b_by = bound(nbytes, n * q * p * 4 * (4.0 * c + 20.0))
+    # The library's deterministic way to the sorted mode's d_value: index_add_
+    # of the corner rows under torch.use_deterministic_algorithms.
+    inside = keys < rows
+    contrib = corner_w[inside, None] * gbar.reshape(-1, c)[torch.nonzero(inside).squeeze(1) // (4 * p)]
+    det_lib = lambda: deterministic_ops(  # noqa: E731
+        lambda: torch.zeros((rows, c), device=dev).index_add_(0, keys[inside].long(), contrib))
+    require(scaled_err(det_lib(), sort_route) <= tol, "deterministic index_add_ disagrees with the sorted mode")
     records = []
-    for name, deterministic, kernel in (("deform_vectors_bwd", False, "deform_vectors_bwd_kernel"),
-                                        ("deform_vectors_bwd_sorted", True, "deform_vectors_bwd")):
+    for name, deterministic, kernel, library in (("deform_vectors_bwd", False, "deform_vectors_bwd_kernel", lib_fn),
+                                                 ("deform_vectors_bwd_sorted", True, "deform_vectors_bwd", det_lib)):
         mode = "sorted" if deterministic else "atomic"
         rec = dict(
             name=name, route="cuda", source="transplat_tpu_torch/csrc/deform_vectors_bwd.cu",
@@ -638,16 +711,32 @@ def check_deform_vectors_bwd(dev) -> list[dict]:
             max_abs_err=max(e for k, e in errs.items() if k.startswith(mode)), plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by,
             **timings(lambda: deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=deterministic),
-                      kernel, lib_fn),
+                      kernel, library),
             plain_forward_autograd_ms=autograd_ms,
         )
         if deterministic:
-            rec["kernel_is"] = "both hand-written kernels (corner keys, then the row sums); device_ms adds torch.sort"
+            rec["kernel_is"] = "all five hand-written kernels: corner keys, count, scan, place, row sums"
+            rec["library_is"] = "index_add_ of the in-map corner rows under torch.use_deterministic_algorithms"
         emit({"phase": "kernel", "mode": mode, "tolerance": tol,
               "error_is": "max abs, values scaled to the gradient's largest entry", "errors": errs,
               "corners_in_window_share": window_share(loc, h, w), "sorted_bit_identical_runs": True,
               "shape": dict(pairs=n, q=q, c=c, p=p, h=h, w=w), "bytes": nbytes, **rec})
         records.append(rec)
+    # The counting sort alone: the keys read once, perm and offsets written once.
+    o_ms, o_by = bound(4 * (2 * keys.numel() + rows + 2), 0.0)
+    rec = dict(
+        name="deform_vectors_bwd_order", route="cuda", source="transplat_tpu_torch/csrc/deform_vectors_bwd.cu",
+        replaces="transplat_tpu/ops/deform_pallas.py:361", launches=0, max_abs_err=0.0,
+        plain_ms=time_ms(lambda: deform.vectors_bwd_order_plain(keys, rows), iters=3, warmup=1),
+        bound_ms=o_ms, bound_by=o_by,
+        **timings(lambda: deform.vectors_bwd_order(keys, n, h * w), "deform_vectors_bwd",
+                  lambda: torch.sort(keys, stable=True)),
+        kernel_is="count, scan and place (a stable counting sort of the corner keys)",
+        library_is="torch.sort(keys, stable=True): the permutation alone",
+    )
+    emit({"phase": "kernel", "mode": "sorted", "equal_to_torch_sort": True, "corners": keys.numel(),
+          "outside_the_map": int((~inside).sum()), "shape": dict(pairs=n, q=q, c=c, p=p, h=h, w=w), **rec})
+    records.append(rec)
     return records
 
 
@@ -684,10 +773,15 @@ def check_binning(gfeat, image_shape, tile: int, label: str) -> dict:
     ref = binning.bin_gaussians_plain(gfeat, image_shape, tile)
     require(torch.equal(lists.idx, ref.idx) and torch.equal(lists.ranges, ref.ranges) and torch.equal(lists.idx, idx),
             f"{label}: bin_gaussians != bin_gaussians_plain")
+    # K2's deterministic order, read off the lists' rectangles, against torch.sort's.
+    require(torch.equal(lists.rects, ref.rects)
+            and all(torch.equal(x, y) for x, y in zip(binning.bin_bwd_order(lists, b, g),
+                                                      binning.bin_bwd_order_by_sort(lists, b, g))),
+            f"{label}: bin_bwd_order != torch.sort's order")
     emit({"phase": "binning_check", "scene": label, "views": b, "gaussians": g, "h": image_shape[0], "w": image_shape[1],
           "tile": tile, "tiles_per_view": ntx * nty, "chunks": table.shape[-1], "pairs": total,
           "empty_views": int(((ranges[:, 1] - ranges[:, 0]).reshape(b, -1).sum(1) == 0).sum()),
-          "equal_to_plain": True, "equal_to_sorted_route": True})
+          "equal_to_plain": True, "equal_to_sorted_route": True, "bwd_order_equal_to_torch_sort": True})
     return dict(table=table, rects=rects, aux=aux, bases=bases, ranges=ranges, total=total, lists=lists, ref=ref,
                 ntx=ntx, nty=nty)
 
@@ -805,6 +899,23 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
             and all(torch.equal(x, y) for x, y in zip(first, binning.bin_bwd(ref_d_pair, ref_lists, b, g, c, deterministic=True))))
     require(same, f"{label}: K3, K4 or K2 give other bits on the classic route's lists")
     torch.cuda.synchronize()
+    # K2's deterministic order against torch.sort's (and its plain version), its
+    # output against the route that took torch.sort's order (kept as a plain
+    # composition) bit for bit; no library sort inside the wrapper.
+    by_sort = binning.bin_bwd_order_by_sort(lists, b, g)
+    require(all(torch.equal(x, y) for x, y in zip(binning.bin_bwd_order(lists, b, g), by_sort))
+            and all(torch.equal(x, y) for x, y in zip(binning.bin_bwd_order_plain(lists, b, g), by_sort)),
+            f"{label}: bin_bwd_order: not torch.sort's permutation and segments")
+    sort_route = binning.bin_bwd_sorted_plain(d_pair, *by_sort)
+    require(all(torch.equal(x, y) for x, y in zip(first, binning.split_rows(sort_route, b, g, c)))
+            and torch.equal(binning.bin_bwd_sorted(d_pair, *by_sort), sort_route),
+            f"{label}: bin_bwd sorted mode: other bits than torch.sort's route")
+    sorts = library_sorts(lambda: binning.bin_bwd(d_pair, lists, b, g, c, deterministic=True))
+    witness = library_sorts(lambda: binning.bin_bwd_order_by_sort(lists, b, g))
+    require(not sorts and witness, f"{label}: bin_bwd sorted mode launches library sorts {sorts} (torch.sort's: {witness})")
+    emit({"phase": "sorted_order_check", "kernel": "bin_bwd_order", "scene": label, "equal_to_torch_sort": True,
+          "same_bits_as_torch_sort_route": True, "library_sort_kernels": sorts,
+          "library_sort_kernels_of_torch_sort": witness})
     emit({"phase": "raster_bwd_check", "scene": label, "tolerance": GRAD_TOL,
           "error_is": "max abs, values scaled to the gradient's largest entry",
           "composite_bwd_errors": k4_errs, "composite_bwd_bit_identical_runs": True, "bin_bwd_errors": k2_errs,
@@ -862,14 +973,28 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
          lambda: binning.bin_bwd_plain(d_pair, lists, b, g, c),
          lambda: torch.zeros((b * g, d_pair.shape[1]), device=d_pair.device).index_add_(0, pair_rows, d_pair),
          4 * (total * (8 + c) + total + b * g * (8 + c)), float(total * (8 + c)), "bin_bwd_atomic_kernel"),
-        # K2's sorted, deterministic mode (torch.sort in its device time; its kernel is the segment sums).
+        # K2's sorted, deterministic mode: its order (two kernels) and the
+        # segment sums; the library's deterministic index_add_ beside it.
         ("bin_bwd_sorted", "transplat_tpu_torch/csrc/binning_bwd.cu",
          "transplat_tpu/ops/rasterizer/pallas_binning.py:457", k2_errs["sorted"],
          lambda: binning.bin_bwd(d_pair, lists, b, g, c, deterministic=True),
-         lambda: binning.bin_bwd_plain(d_pair, lists, b, g, c),
-         lambda: torch.zeros((b * g, d_pair.shape[1]), device=d_pair.device).index_add_(0, pair_rows, d_pair),
-         4 * (total * (8 + c) + total + b * g * (8 + c)), float(total * (8 + c)), "bin_bwd_sorted_kernel"),
+         lambda: binning.bin_bwd_sorted_plain(d_pair, *binning.bin_bwd_order_plain(lists, b, g)),
+         lambda: deterministic_ops(
+             lambda: torch.zeros((b * g, d_pair.shape[1]), device=d_pair.device).index_add_(0, pair_rows, d_pair)),
+         4 * (total * (8 + c) + total + b * g * (8 + c)), float(total * (8 + c)), "bin_bwd_"),
+        # Its order alone: idx, ranges and the packed rectangles read once, perm and offsets written once.
+        ("bin_bwd_order", "transplat_tpu_torch/csrc/binning_bwd.cu",
+         "transplat_tpu/ops/rasterizer/pallas_binning.py:457", 0.0,
+         lambda: binning.bin_bwd_order(lists, b, g), lambda: binning.bin_bwd_order_plain(lists, b, g),
+         lambda: torch.sort(pair_rows, stable=True),
+         4 * (2 * total + 2 * cells + 3 * b * g + 1), 0.0, "bin_bwd_"),
     ]
+    notes = {
+        "bin_bwd_sorted": {"kernel_is": "bin_bwd_order's two kernels and the segment sums",
+                           "library_is": "index_add_ under torch.use_deterministic_algorithms (repeatable_ops)"},
+        "bin_bwd_order": {"kernel_is": "the areas' prefix and the places (no sort)",
+                          "library_is": "torch.sort(view * G + idx, stable=True) on keys made beforehand"},
+    }
     # K3 and K4: occupancy and the spread of their blocks' times (raster_report.py),
     # K3 as a request runs it (cells in their own order), K4 as a step does.
     lengths = (lists.ranges[:, 1] - lists.ranges[:, 0]).long()
@@ -897,6 +1022,7 @@ def check_raster(proj, image_shape, launches: dict, label: str, timed: bool) -> 
             blocks = raster_report.block_spread(spread[name], cells, lengths, visited, gfeat.device)
             rec.update(block_us=blocks["block_us"], block_span_us=blocks["span_us"],
                        corr_block_time_visited=blocks["corr_time_visited_length"])
+        rec.update(notes.get(name, {}))
         emit({"phase": "kernel", "scene": label, **sizes, **rec})
         recs.append(rec)
     return recs
@@ -946,7 +1072,7 @@ def train_slice(dev, records: list[dict]) -> dict:
     peak = torch.cuda.max_memory_allocated()
     for name in FORWARD_KERNELS + BACKWARD_KERNELS:
         require(launches.get(name, 0) > 0, f"kernel {name} was not launched by the training steps")
-    for name in SORTED_MODES.values():
+    for name in (*SORTED_MODES.values(), *SORTED_ORDERS.values()):
         require(launches.get(name, 0) == 0, f"train_slice: {name} launched with deterministic_kernels off")
     for m in metrics_all:
         require(all(np.isfinite(v) for v in m.values()), f"train_slice: non-finite metrics {m}")
@@ -1031,10 +1157,11 @@ def train_deterministic(dev, records: list[dict]) -> None:
     for atomic, sorted_mode in SORTED_MODES.items():
         require(launches.get(sorted_mode, 0) > 0 and launches.get(atomic, 0) == 0,
                 f"train_deterministic: {sorted_mode} / {atomic} launched {launches.get(sorted_mode, 0)} / {launches.get(atomic, 0)}")
-    for name in FORWARD_KERNELS + ("deform_scores_bwd_p1", "deform_scores_bwd_p4", "composite_bwd"):
+    for name in FORWARD_KERNELS + ("deform_scores_bwd_p1", "deform_scores_bwd_p4", "composite_bwd",
+                                   *SORTED_ORDERS.values()):
         require(launches.get(name, 0) > 0, f"train_deterministic: kernel {name} was not launched")
     for rec in records:
-        if rec["name"] in SORTED_MODES.values():
+        if rec["name"] in (*SORTED_MODES.values(), *SORTED_ORDERS.values()):
             rec["launches"] = rec["launches_train"] = launches.get(rec["name"], 0)
     emit({"phase": "train_deterministic", "steps": 2, "from_one_state": True, "bit_identical": True,
           "loss": m0["loss"], "ms_per_step": [r[3] for r in runs], "launches": launches,
@@ -1571,8 +1698,8 @@ def fit_resume_deterministic(dev, records: list[dict]) -> None:
         torch.cuda.synchronize()
         launches = dict(kernels.launches)
         for atomic, sorted_mode in SORTED_MODES.items():
-            require(launches.get(sorted_mode, 0) > 0 and launches.get(atomic, 0) == 0,
-                    f"fit_resume_deterministic: {sorted_mode} / {atomic} launched")
+            require(launches.get(sorted_mode, 0) > 0 and launches.get(SORTED_ORDERS[sorted_mode], 0) > 0
+                    and launches.get(atomic, 0) == 0, f"fit_resume_deterministic: {sorted_mode} / {atomic} launched")
         want = {k: v.clone() for k, v in state.encoder.state_dict().items()}
         moments = {k: (state.opt_state.mu[k].clone(), state.opt_state.nu[k].clone()) for k in state.opt_state.mu}
         del state

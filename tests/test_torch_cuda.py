@@ -212,9 +212,9 @@ def test_deform_vectors_bwd(dev, n, q, p, h, w, c, deterministic):
     out = deform.deform_sample_vectors(leaves[0], (h, w), leaves[1], leaves[2], deterministic=deterministic)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, leaves, gbar)
-    # The atomic mode, or the sorted mode's three launches (keys, segments, sums).
+    # The atomic mode, or the sorted mode's three launches (keys, the counting sort's order, sums).
     assert kernels.launches.get("deform_vectors_bwd", 0) == (0 if deterministic else 1)
-    for name in ("deform_vectors_bwd_keys", "deform_vectors_bwd_segments", "deform_vectors_bwd_sorted"):
+    for name in ("deform_vectors_bwd_keys", "deform_vectors_bwd_order", "deform_vectors_bwd_sorted"):
         assert kernels.launches.get(name, 0) == (1 if deterministic else 0), name
     plain = deform.deform_sample_vectors_bwd_plain(value, (h, w), loc, aw, gbar)
     leaves = [t.clone().requires_grad_(True) for t in (value, loc, aw)]
@@ -406,26 +406,39 @@ def test_deform_scores_far_outside_and_unaligned(dev, p):
 def test_bin_bwd_atomic_edge_cases(dev, channels):
     """K2 against its plain version on hand-made lists: three views, the
     middle one without entries, empty tiles, all-zero gradient rows (entries
-    past saturation), rows of 12 and 16 floats; one view alone; no entries."""
+    past saturation), rows of 12 and 16 floats; one view alone; no entries.
+    The lists are those of hand-made rectangles on a 2 x 2 tile grid (a key
+    per pair, a stable sort), which K2's deterministic mode reads its order
+    from; the first view's rectangles stay in the upper row of tiles."""
     rng = np.random.default_rng(channels)
     views, g, tiles = 3, 50, 4
-    lengths = rng.integers(0, 40, (views, tiles))
-    lengths[1] = 0
-    lengths[0, 2] = 0
-    ends = np.cumsum(lengths.reshape(-1))
-    ranges = np.stack([ends - lengths.reshape(-1), ends], 1)
-    ranges[lengths.reshape(-1) == 0] = 0  # K1 gives (0, 0) to an empty tile
-    n = int(ends[-1])
-    idx = rng.integers(0, g, n).astype(np.int32)
+    x0, y0 = rng.integers(0, 2, (views, g)), rng.integers(0, 2, (views, g))
+    x1, y1 = x0 + rng.integers(0, 2, (views, g)), y0 + rng.integers(0, 2, (views, g))
+    y0[0], y1[0] = 0, 0
+    rects = np.stack([x0, y0, np.minimum(x1, 1), np.minimum(y1, 1)], -1)
+    rects[1] = [0, 0, -1, -1]  # the middle view: no entries
+    rects[rng.random((views, g)) < 0.2] = [0, 0, -1, -1]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+
+    def lists_of(r):
+        r = torch.from_numpy(r.astype(np.int32))
+        keys, vals = binning._pairs_of_rects(r, 2, 2)
+        keys_sorted, order = torch.sort(keys, stable=True)
+        return binning.TileLists(to(vals[order].to(torch.int32)), to(binning.bin_ranges_plain(keys_sorted, r.shape[0] * tiles)),
+                                 2, 2, to(binning.pack_rects(r)))
+
+    lists = lists_of(rects)
+    n = lists.idx.shape[0]
+    lengths = (lists.ranges[:, 1] - lists.ranges[:, 0]).reshape(views, tiles)
+    assert int(lengths[1].sum()) == 0 and int(lengths[0, 2:].sum()) == 0 and n > 0
     d_pair = np.zeros((n, binning.pair_width(channels)), np.float32)
     d_pair[:, [0, 1, 2, 3, 4, 6]] = rng.standard_normal((n, 6))
     d_pair[:, 8 : 8 + channels] = rng.standard_normal((n, channels))
     d_pair[rng.random(n) < 0.3] = 0.0
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    cases = [(views, to(d_pair), binning.TileLists(to(idx), to(ranges.astype(np.int32)), 2, 2))]
-    first = int(ends[tiles - 1])
-    cases.append((1, to(d_pair[:first]), binning.TileLists(to(idx[:first]), to(ranges[:tiles].astype(np.int32)), 2, 2)))
-    empty = binning.TileLists(torch.zeros(0, dtype=torch.int32, device=dev), torch.zeros((tiles, 2), dtype=torch.int32, device=dev), 2, 2)
+    cases = [(views, to(d_pair), lists)]
+    alone = lists_of(rects[:1])
+    cases.append((1, to(d_pair[: alone.idx.shape[0]]), alone))
+    empty = lists_of(np.tile(np.array([0, 0, -1, -1]), (1, g, 1)))
     cases.append((1, torch.zeros((0, binning.pair_width(channels)), device=dev), empty))
     for b, dp, lists in cases:
         ref = binning.bin_bwd_plain(dp, lists, b, g, channels)

@@ -56,8 +56,8 @@
 // pair into runs (scattered, the writes took 11 of the place's 29 us); the
 // one-pass placing of small rectangles took the place from 18.2 to 13.6 us.
 //
-// bin_ranges, each key's [start, end) in a sorted key list, is the helper of
-// the sorted, deterministic modes of K2 (binning_bwd.cu) and K8.
+// The packed rectangles also give the order of K2's deterministic mode
+// (binning_bwd.cu): bin_gaussians keeps them with the lists.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -407,15 +407,6 @@ __global__ void __launch_bounds__(kThreads) bin_place_kernel(const int2* __restr
   for (int i = threadIdx.x; i < total; i += kThreads) idx[offset[staged_tile[i]] + i] = staged[i];
 }
 
-__global__ void bin_ranges_kernel(const int* __restrict__ keys, int2* __restrict__ ranges,
-                                  long long n) {
-  const long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  const int key = keys[k];
-  if (k == 0 || keys[k - 1] != key) ranges[key].x = (int)k;
-  if (k == n - 1 || keys[k + 1] != key) ranges[key].y = (int)(k + 1);
-}
-
 inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
@@ -474,14 +465,5 @@ extern "C" int tp_bin_place(const int* rects, const int* bases, const int* range
   bin_place_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       reinterpret_cast<const int2*>(rects), bases, reinterpret_cast<const int2*>(ranges), idx, g, ntx, nty, grid.x,
       slice_tiles);
-  return (int)cudaGetLastError();
-}
-
-// keys (n,) int32 sorted -> ranges[key] = [start, end) of each key's run;
-// rows of absent keys are left alone (the caller zeroes them).
-extern "C" int tp_bin_ranges(const int* keys, int* ranges, long long n, void* stream) {
-  if (n == 0) return 0;
-  bin_ranges_kernel<<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-      keys, reinterpret_cast<int2*>(ranges), n);
   return (int)cudaGetLastError();
 }

@@ -48,13 +48,34 @@
 //     and so the last bits of d_value, change from run to run.
 //   * sorted (deterministic): the kernel adds nothing to d_value but writes
 //     each corner's key n * HW + idx (N * HW outside the map) and weight
-//     aw * w_corner; the caller sorts the keys stably (torch.sort), gets each
-//     row's [start, end) in that order (the bin_ranges kernel), and
+//     aw * w_corner. A stable counting sort of the keys, K1's count / scan /
+//     place (binning.cu) with a corner's one key in place of a Gaussian's
+//     tiles, orders the corners by d_value row with no library sort:
+//       - deform_vectors_bwd_count: a block per chunk of kSortChunk consecutive
+//         corners of one batch entry n and a slice of its HW + 1 cells (the
+//         map's and "outside"): a shared-memory histogram -> the count table
+//         (n, chunk, HW + 1 cells), written as runs;
+//       - deform_vectors_bwd_scan: a thread per (n, cell) row turns its column of
+//         counts into their exclusive prefix over the chunks (neighbouring
+//         threads read neighbouring cells); the last block to finish scans
+//         the rows' totals, the map cells of every n first and then the
+//         outside cells, into each row's start and the keys' segment starts
+//         `offsets` (N * HW + 2, int32);
+//       - deform_vectors_bwd_place: the block of the count, again; each warp
+//         counts its 256 corners per cell, the cursors start at the row's
+//         start + its chunk prefix + the counts of the block's earlier
+//         warps, and the warp places its corners 32 at a time in order, a
+//         lane at its cursor plus the lanes below it with the same cell
+//         (__match_any_sync): perm[place] = corner (int32).
+//     Ties keep the corners' order, so perm is what a stable sort of the
+//     keys gives, the outside corners last, and no library sort runs. Then
 //     `tp_deform_vectors_bwd_sorted` adds each row's segment in order, one
 //     warp per row with its lanes over the channels, writing every value
 //     once. Same bits on every run. d_loc and d_aw are deterministic in both
-//     modes.
-//
+//     modes. The count does not take the corners from the first kernel's
+//     blocks: a tile-mode block holds an 8x8 tile of queries, not a run of
+//     consecutive corners, and the sort's chunks must be runs.
+
 // Not carried over from the TPU kernel: the dense one-hot (query block, H W)
 // matrix A, dA = gbar V^T as a full matmul with masked lane reductions, and
 // dV accumulated across a sequential grid. Blocks run in parallel here, so
@@ -371,25 +392,230 @@ __global__ void __launch_bounds__(kThreads) deform_vectors_bwd_kernel(
   }
 }
 
+// The sorted mode's counting sort (see the header). A corner's cell in
+// its batch entry n: key - n * HW on the map, HW outside it.
+constexpr int kSortChunk = 2048;                       // consecutive corners a count / place block takes
+constexpr int kSortWarps = 8;
+constexpr int kSortThreads = kSortWarps * kWarp;
+constexpr int kSortPerWarp = kSortChunk / kSortWarps;  // consecutive corners a warp places
+constexpr int kMaxSliceCells = 6144;                   // cells a block's histogram (and cursors) hold
+constexpr int kScanThreadsK8 = 1024;                   // threads a block of the sort's scan takes
+
+__device__ __forceinline__ int corner_cell(int key, long long n, long long hw, long long outside) {
+  return key == outside ? (int)hw : (int)(key - n * hw);
+}
+
+// A block's batch entry, chunk of corners [e0, e1) and slice of cells [c0, c1).
+struct SortBlock {
+  long long n, e0, e1;
+  int chunk, c0, c1;
+  __device__ SortBlock(long long per_batch, int cells, int slice_cells) {
+    chunk = blockIdx.x;
+    n = blockIdx.y;
+    e0 = n * per_batch + (long long)chunk * kSortChunk;
+    e1 = n * per_batch + min(per_batch, (long long)(chunk + 1) * kSortChunk);
+    c0 = blockIdx.z * slice_cells;
+    c1 = min(cells, c0 + slice_cells);
+  }
+};
+
+// grid (chunks, n_batch, slices), kSortThreads threads, slice_cells ints of
+// dynamic shared memory. Zeroes aux[0] for the scan's count of blocks.
+__global__ void __launch_bounds__(kSortThreads)
+deform_vectors_bwd_count_kernel(const int* __restrict__ keys, int* __restrict__ table, int* __restrict__ aux,
+                          long long per_batch, int hw, long long n_batch, int chunks, int slice_cells) {
+  extern __shared__ int hist[];
+  const SortBlock blk(per_batch, hw + 1, slice_cells);
+  const int width = blk.c1 - blk.c0;
+  for (int i = threadIdx.x; i < width; i += kSortThreads) hist[i] = 0;
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && threadIdx.x == 0) aux[0] = 0;
+  __syncthreads();
+  for (long long e = blk.e0 + threadIdx.x; e < blk.e1; e += kSortThreads) {
+    const int cell = corner_cell(__ldg(keys + e), blk.n, hw, n_batch * hw);
+    if (cell >= blk.c0 && cell < blk.c1) atomicAdd(hist + cell - blk.c0, 1);
+  }
+  __syncthreads();
+  int* column = table + (blk.n * chunks + blk.chunk) * (hw + 1) + blk.c0;
+  for (int i = threadIdx.x; i < width; i += kSortThreads) column[i] = hist[i];
+}
+
+// Exclusive sum of one value per thread over the kScanThreadsK8 threads of
+// a block (32 warps, whose sums warp 0 scans); *total gets the whole.
+// warp_sums holds 33 ints.
+__device__ __forceinline__ int scan_block_exclusive_sum(int v, int* warp_sums, int* total) {
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x >> 5;
+  int incl = v;
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int up = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += up;
+  }
+  if (lane == kWarp - 1) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int mine = warp_sums[lane];
+    int run = mine;
+    for (int off = 1; off < kWarp; off <<= 1) {
+      const int up = __shfl_up_sync(kFull, run, off);
+      if (lane >= off) run += up;
+    }
+    warp_sums[lane] = run - mine;
+    if (lane == kWarp - 1) warp_sums[kWarp] = run;
+  }
+  __syncthreads();
+  *total = warp_sums[kWarp];
+  const int start = warp_sums[warp] + incl - v;
+  __syncthreads();  // warp_sums may be reused
+  return start;
+}
+
+// A thread per (n, cell) row: the row's counts over the chunks (the column
+// table[n][.][cell]) become their exclusive prefix, its total goes to
+// rowtot (loads kLoads at a time, so that a thread's chain of loads is
+// short). The last block to finish scans the totals in key order (the map
+// cells of n = 0, 1, ..., then the outside cells of n = 0, 1, ...) into
+// row_start and offsets.
+__global__ void __launch_bounds__(kScanThreadsK8)
+deform_vectors_bwd_scan_kernel(int* __restrict__ table, int* rowtot, int* __restrict__ row_start,
+                               int* __restrict__ offsets, int* aux, long long n_batch, int chunks, int hw) {
+  constexpr int kLoads = 8;
+  const long long cells = (long long)hw + 1, rows = n_batch * cells;
+  const long long row = blockIdx.x * (long long)kScanThreadsK8 + threadIdx.x;
+  if (row < rows) {
+    const long long n = row / cells;
+    int* column = table + n * chunks * cells + (row - n * cells);
+    int run = 0;
+    for (int c0 = 0; c0 < chunks; c0 += kLoads) {
+      int v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) v[u] = c0 + u < chunks ? column[(c0 + u) * cells] : 0;
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        if (c0 + u < chunks) column[(c0 + u) * cells] = run;
+        run += v[u];
+      }
+    }
+    rowtot[row] = run;
+  }
+  __shared__ bool last;
+  __shared__ int warp_sums[kWarp + 1];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(aux, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  // The map rows in tiles of four consecutive rows a thread (one 16-byte
+  // load), the outside rows after them. One block does it all: it counts
+  // instructions, so 32-bit arithmetic (rows < 2^31) and one scan a tile.
+  const int n_rows = (int)rows, n_cells = (int)cells, map_keys = (int)(n_batch * hw);
+  int carry = 0;
+  for (int t0 = 0; t0 < n_rows; t0 += 4 * kScanThreadsK8) {
+    const int r0 = t0 + 4 * (int)threadIdx.x;
+    int v[4];
+    if (r0 + 3 < n_rows) {
+      const int4 q = __ldcg(reinterpret_cast<const int4*>(rowtot + r0));
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = r0 + u < n_rows ? __ldcg(rowtot + r0 + u) : 0;
+    }
+    int n = r0 / n_cells, cell = r0 - n * n_cells, sum = 0;
+    int key[4];  // the row's key, or -1 for an outside row (or none)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      key[u] = r0 + u < n_rows && cell != hw ? r0 + u - n : -1;
+      sum += key[u] >= 0 ? v[u] : 0;
+      if (++cell == n_cells) cell = 0, ++n;
+    }
+    int total;
+    int start = carry + scan_block_exclusive_sum(sum, warp_sums, &total);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (key[u] >= 0) {
+        row_start[r0 + u] = start;
+        offsets[key[u]] = start;
+        start += v[u];
+      }
+    }
+    carry += total;
+  }
+  for (int j0 = 0; j0 < n_batch; j0 += kScanThreadsK8) {
+    const int j = j0 + (int)threadIdx.x, r = j * n_cells + hw;
+    int total;
+    const int start = carry + scan_block_exclusive_sum(j < n_batch ? __ldcg(rowtot + r) : 0, warp_sums, &total);
+    if (j < n_batch) row_start[r] = start;
+    if (j == 0) offsets[map_keys] = start;  // the outside corners' start
+    carry += total;
+  }
+  if (threadIdx.x == 0) offsets[map_keys + 1] = carry;
+}
+
+// grid and block as the count's; dynamic shared memory: a cursor per warp
+// and cell of the slice.
+__global__ void __launch_bounds__(kSortThreads)
+deform_vectors_bwd_place_kernel(const int* __restrict__ keys, const int* __restrict__ bases,
+                          const int* __restrict__ row_start, int* __restrict__ perm, long long per_batch, int hw,
+                          long long n_batch, int chunks, int slice_cells) {
+  extern __shared__ int cursor[];  // [kSortWarps][width]
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x >> 5;
+  const SortBlock blk(per_batch, hw + 1, slice_cells);
+  const int width = blk.c1 - blk.c0;
+  const long long outside = n_batch * hw;
+  for (int i = threadIdx.x; i < kSortWarps * width; i += kSortThreads) cursor[i] = 0;
+  __syncthreads();
+  int* mine = cursor + warp * width;
+  const long long w0 = min(blk.e1, blk.e0 + (long long)warp * kSortPerWarp), w1 = min(blk.e1, w0 + kSortPerWarp);
+  for (long long e = w0 + lane; e < w1; e += kWarp) {
+    const int cell = corner_cell(__ldg(keys + e), blk.n, hw, outside);
+    if (cell >= blk.c0 && cell < blk.c1) atomicAdd(mine + cell - blk.c0, 1);
+  }
+  __syncthreads();
+  // Counts -> each warp's first place per cell (cells, then warps in order).
+  for (int i = threadIdx.x; i < width; i += kSortThreads) {
+    int run = __ldg(row_start + blk.n * (hw + 1) + blk.c0 + i) +
+              __ldg(bases + (blk.n * chunks + blk.chunk) * (hw + 1) + blk.c0 + i);
+    for (int w = 0; w < kSortWarps; ++w) {
+      const int c = cursor[w * width + i];
+      cursor[w * width + i] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+  const unsigned lower = (1u << lane) - 1u;
+  for (long long base = w0; base < w1; base += kWarp) {  // uniform over the warp
+    const long long e = base + lane;
+    const int cell = e < w1 ? corner_cell(__ldg(keys + e), blk.n, hw, outside) : -1;
+    const bool in = e < w1 && cell >= blk.c0 && cell < blk.c1;
+    const unsigned peers = __match_any_sync(kFull, in ? cell : -1 - lane);
+    int at = 0;
+    if (in) {
+      at = mine[cell - blk.c0];
+      perm[at + __popc(peers & lower)] = (int)e;
+    }
+    __syncwarp();
+    if (in && 31 - __clz(peers) == lane) mine[cell - blk.c0] = at + __popc(peers);  // the cell's highest lane
+    __syncwarp();
+  }
+}
+
 // One warp per row of d_value: the row's corners in sorted order, each worth
 // corner_w * gbar[its query, :], lanes over the channels (32 apart).
 __global__ void deform_vectors_bwd_sorted_kernel(const float* __restrict__ gbar,
                                                  const float* __restrict__ corner_w,
-                                                 const long long* __restrict__ perm,
-                                                 const int2* __restrict__ segments,
+                                                 const int* __restrict__ perm,
+                                                 const int* __restrict__ offsets,
                                                  float* __restrict__ d_value, long long n_rows, int c,
                                                  int corners_per_query) {
   const long long row = (blockIdx.x * (long long)blockDim.x + threadIdx.x) / kWarp;
   const int lane = threadIdx.x & (kWarp - 1);
   if (row >= n_rows) return;  // whole warps leave together
-  const int2 seg = segments[row];
+  const int s = __ldg(offsets + row), e = __ldg(offsets + row + 1);
   float* out = d_value + row * c;
   for (int c0 = 0; c0 < c; c0 += kSlice) {
     float acc[kPerLane] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int j = seg.x; j < seg.y; ++j) {
-      const long long e = __ldg(perm + j);
-      const float cw = __ldg(corner_w + e);
-      const float* g = gbar + (e / corners_per_query) * c;
+    for (int j = s; j < e; ++j) {
+      const int corner = __ldg(perm + j);
+      const float cw = __ldg(corner_w + corner);
+      const float* g = gbar + (long long)(corner / corners_per_query) * c;
 #pragma unroll
       for (int k = 0; k < kPerLane; ++k) {
         const int ch = c0 + lane + k * kWarp;
@@ -457,18 +683,56 @@ extern "C" int tp_deform_vectors_bwd(const float* value, const float* loc, const
                               q, h, w, c, p, tiles, group);
 }
 
-// perm (entries,) int64 sorts the corner keys; segments (n_rows, 2) holds each
-// d_value row's [start, end) in that order. Every value of d_value
+// keys (n_batch * per_batch,) int32 from the sorted mode of
+// tp_deform_vectors_bwd (batch entry n's corners are the n-th run of
+// per_batch, their keys n * hw + cell or n_batch * hw), per_batch > 0;
+// scratch, 16-byte aligned, holds pad4(rows * chunks) + 2 pad4(rows) + 1
+// ints, rows = n_batch * (hw + 1), chunks = ceil(per_batch / 2048), pad4
+// rounding up to a multiple of 4. Writes perm (n_batch * per_batch,) int32, the
+// corners in key order (ties in corner order), and offsets
+// (n_batch * hw + 2,) int32, each key's segment start in perm.
+extern "C" int tp_deform_vectors_bwd_order(const int* keys, int* scratch, int* offsets, int* perm, long long n_batch,
+                                           long long per_batch, int hw, void* stream) {
+  if (n_batch <= 0 || n_batch > 65535 || per_batch <= 0 || hw <= 0 || n_batch * per_batch >= (1LL << 31) ||
+      n_batch * ((long long)hw + 1) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long chunks = (per_batch + kSortChunk - 1) / kSortChunk;
+  const long long rows = n_batch * ((long long)hw + 1);
+  const int slices = (hw + 1 + kMaxSliceCells - 1) / kMaxSliceCells;
+  const int slice_cells = (hw + 1 + slices - 1) / slices;
+  auto pad4 = [](long long x) { return (x + 3) & ~3LL; };  // rowtot is read as 16-byte vectors
+  int* table = scratch;
+  int* rowtot = table + pad4(rows * chunks);
+  int* row_start = rowtot + pad4(rows);
+  int* aux = row_start + pad4(rows);
+  const dim3 grid((unsigned)chunks, (unsigned)n_batch, (unsigned)slices);
+  deform_vectors_bwd_count_kernel<<<grid, kSortThreads, slice_cells * sizeof(int), s>>>(
+      keys, table, aux, per_batch, hw, n_batch, (int)chunks, slice_cells);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  deform_vectors_bwd_scan_kernel<<<(unsigned)((rows + kScanThreadsK8 - 1) / kScanThreadsK8), kScanThreadsK8, 0, s>>>(
+      table, rowtot, row_start, offsets, aux, n_batch, (int)chunks, hw);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = (size_t)kSortWarps * slice_cells * sizeof(int);
+  err = cudaFuncSetAttribute(deform_vectors_bwd_place_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  deform_vectors_bwd_place_kernel<<<grid, kSortThreads, smem, s>>>(keys, table, row_start, perm, per_batch, hw, n_batch,
+                                                             (int)chunks, slice_cells);
+  return (int)cudaGetLastError();
+}
+
+// perm and offsets from tp_deform_vectors_bwd_order. Every value of d_value
 // (n_rows, c) is written.
-extern "C" int tp_deform_vectors_bwd_sorted(const float* gbar, const float* corner_w,
-                                            const long long* perm, const int* segments,
-                                            float* d_value, long long n_rows, int c,
+extern "C" int tp_deform_vectors_bwd_sorted(const float* gbar, const float* corner_w, const int* perm,
+                                            const int* offsets, float* d_value, long long n_rows, int c,
                                             int corners_per_query, void* stream) {
   if (n_rows * c == 0) return 0;
   const int threads = 256;
   const long long warps_per_block = threads / kWarp;
   const unsigned blocks = (unsigned)((n_rows + warps_per_block - 1) / warps_per_block);
   deform_vectors_bwd_sorted_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      gbar, corner_w, perm, reinterpret_cast<const int2*>(segments), d_value, n_rows, c, corners_per_query);
+      gbar, corner_w, perm, offsets, d_value, n_rows, c, corners_per_query);
   return (int)cudaGetLastError();
 }

@@ -56,8 +56,6 @@ _SIGNATURES = {
     "tp_bin_scan": (_P, _P, _P, _P, _LL, _I, _P),
     # rects, bases, ranges, idx, views, g, ntx, nty, chunk, stream
     "tp_bin_place": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
-    # keys, ranges, n_pairs, stream
-    "tp_bin_ranges": (_P, _P, _LL, _P),
     # gfeat, colors, idx, ranges, order (or null), bg, out, t_final (or null), views, g, c, h, w, ntx, nty,
     # block_times (or null), stream
     "tp_composite": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
@@ -68,14 +66,18 @@ _SIGNATURES = {
     "tp_composite_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # d_pair, idx, view_end, d_feat, n_pairs, row, views, g, stream
     "tp_bin_bwd": (_P, _P, _P, _P, _LL, _I, _I, _I, _P),
-    # d_pair, perm, segments, d_feat, n_gaussians, row, stream
-    "tp_bin_bwd_sorted": (_P, _P, _P, _P, _LL, _I, _P),
+    # idx, ranges, rects, scratch, perm, offsets, n_pairs, views, g, ntx, nty, stream
+    "tp_bin_bwd_order": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    # d_pair, perm, offsets, d_feat, n_rows, n_pairs, row, stream
+    "tp_bin_bwd_sorted": (_P, _P, _P, _P, _LL, _LL, _I, _P),
     # value, loc, aw, out, n_batch, q, h, w, c, p, stream
     "tp_deform_vectors": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
     # value, loc, aw, gbar, d_value (or null), d_loc, d_aw, keys (or null), corner_w (or null),
     # n_batch, q, h, w, c, p, stream
     "tp_deform_vectors_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
-    # gbar, corner_w, perm, segments, d_value, n_rows, c, corners_per_query, stream
+    # keys, scratch, offsets, perm, n_batch, per_batch, hw, stream
+    "tp_deform_vectors_bwd_order": (_P, _P, _P, _P, _LL, _LL, _I, _P),
+    # gbar, corner_w, perm, offsets, d_value, n_rows, c, corners_per_query, stream
     "tp_deform_vectors_bwd_sorted": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
 }
 # Entries that launch nothing (no stream argument): c, int[4] info out.

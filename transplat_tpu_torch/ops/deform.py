@@ -13,8 +13,9 @@ locations in [0, 1], grid_sample align_corners=False, zero padding.
   * deform_sample_vectors — classic deformable attention over value vectors
     (UVSelf), an autograd.Function as well: for CUDA tensors K7 forward
     (csrc/deform_vectors.cu) and K8 backward (csrc/deform_vectors_bwd.cu,
-    atomic adds into d_value, or a sorted, deterministic mode); for CPU
-    tensors deform_sample_vectors_plain (float32 gathers) and
+    atomic adds into d_value, or a sorted, deterministic mode whose corners
+    are ordered by a hand-written stable counting sort, `vectors_bwd_order`);
+    for CPU tensors deform_sample_vectors_plain (float32 gathers) and
     deform_sample_vectors_bwd_plain.
 
 Every function takes any number of leading batch dims (the directed view
@@ -341,11 +342,141 @@ def _vectors_fwd_cuda(value, spatial_shape, loc01, attn_weights):
 VECTORS_BWD_MAX_POINTS = 1024
 
 
-def _vectors_bwd_cuda(value, spatial_shape, loc01, attn_weights, gbar, deterministic: bool = False):
-    """Launch K8 on contiguous float32 CUDA tensors. The default adds into a
-    d_value zeroed here with float atomics (the last bits change from run to
-    run); `deterministic` sorts the corners by d_value row and adds each
-    row's segment in order."""
+# The sorted mode. Corner e = 4 (query point) + corner of the flattened
+# (N, Q, P) points has the key n * HW + its map index, or N * HW outside
+# the map. Its order is `perm` (E,) int32, the corners by key (ties in
+# corner order: torch.sort(keys, stable=True)), with `offsets` (N * HW + 2,)
+# int32, each key's segment start (CSR; the last key is "outside").
+
+# Consecutive corners a block of the counting sort takes (kSortChunk in
+# csrc/deform_vectors_bwd.cu): the count table has one column per chunk.
+VECTORS_SORT_CHUNK = 2048
+
+
+def vectors_bwd_keys_plain(loc01: torch.Tensor, attn_weights: torch.Tensor, h: int, w: int):
+    """Plain version of what the sorted mode's first kernel writes besides
+    d_loc and d_aw: each corner's key (E,) int32 and weight aw * w_corner (E,)."""
+    q, p = attn_weights.shape[-2:]
+    n = attn_weights.numel() // (q * p) if q * p else 0
+    idx, inside, wx, wy = _corners(loc01.reshape(n, q, p, 2), h, w)  # (4, N, Q, P)
+    weight = torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy, wx * wy]) * attn_weights.reshape(n, q, p)
+    row = torch.arange(n, device=idx.device)[None, :, None, None] * (h * w) + idx
+    keys = torch.where(inside, row, n * h * w)
+    return keys.permute(1, 2, 3, 0).reshape(-1).to(torch.int32), weight.permute(1, 2, 3, 0).reshape(-1)
+
+
+def vectors_bwd_order_by_sort(keys: torch.Tensor, n_rows: int):
+    """The order by torch.sort(keys, stable=True) and the runs' starts: the
+    reference the counting sort is held to (tests and chip_smoke.py only)."""
+    keys_sorted, perm = torch.sort(keys, stable=True)
+    bounds = torch.arange(n_rows + 2, dtype=keys.dtype, device=keys.device)
+    return perm.to(torch.int32), torch.searchsorted(keys_sorted, bounds).to(torch.int32)
+
+
+def vectors_bwd_order_plain(keys: torch.Tensor, n_rows: int, chunk: int = 256):
+    """Plain version of the counting sort, with no sort: each corner goes to
+    its key's start + the corners of earlier chunks with its key (a count per
+    key and chunk, its prefix over the chunks) + the earlier corners of its
+    own chunk with its key (compared pairwise)."""
+    e = keys.shape[0]
+    k = keys.to(torch.int64)
+    offsets = torch.cat([k.new_zeros(1), torch.cumsum(torch.bincount(k, minlength=n_rows + 1), 0)])
+    chunks = -(-e // chunk)
+    chunk_of = torch.arange(e, device=k.device) // chunk
+    table = torch.bincount(k * chunks + chunk_of, minlength=(n_rows + 1) * chunks).reshape(n_rows + 1, chunks)
+    earlier_chunks = torch.cumsum(table, 1) - table
+    padded = torch.cat([k, k.new_full((chunks * chunk - e,), -1)]).reshape(chunks, chunk)
+    lower = torch.ones(chunk, chunk, dtype=torch.bool, device=k.device).tril(-1)
+    in_chunk = ((padded[:, :, None] == padded[:, None, :]) & lower).sum(-1).reshape(-1)[:e]
+    place = offsets[k] + earlier_chunks[k, chunk_of] + in_chunk
+    perm = torch.empty(e, dtype=torch.int32, device=k.device)
+    perm[place] = torch.arange(e, dtype=torch.int32, device=k.device)
+    return perm, offsets.to(torch.int32)
+
+
+def vectors_bwd_order(keys: torch.Tensor, n_batch: int, hw: int):
+    """K8's sorted-mode order (perm, offsets) for keys (n_batch * per_batch,)
+    int32, batch entry n's corners the n-th run: the counting sort of
+    csrc/deform_vectors_bwd.cu `tp_deform_vectors_bwd_order` for CUDA keys,
+    vectors_bwd_order_plain for CPU keys."""
+    if not keys.is_cuda:
+        return vectors_bwd_order_plain(keys, n_batch * hw)
+    kernels.check_cuda_tensor("keys", keys, torch.int32, 1)
+    e = keys.shape[0]
+    if e == 0:
+        return keys.new_empty(0), torch.zeros(n_batch * hw + 2, dtype=torch.int32, device=keys.device)
+    if n_batch <= 0 or e % n_batch or n_batch > 65535 or e >= 2**31 or n_batch * (hw + 1) + 1 >= 2**31:
+        raise ValueError(f"vectors_bwd_order: {e} keys of {n_batch} batch entries (at most 65535, fewer than 2**31 keys)")
+    per_batch = e // n_batch
+    chunks = -(-per_batch // VECTORS_SORT_CHUNK)
+    rows = n_batch * (hw + 1)
+    scratch_ints = -(-rows * chunks // 4) * 4 + 2 * (-(-rows // 4) * 4) + 1
+    if scratch_ints >= 2**31:
+        raise ValueError(f"vectors_bwd_order: {scratch_ints} ints of count table do not fit in int32")
+    perm = torch.empty(e, dtype=torch.int32, device=keys.device)
+    offsets = torch.empty(n_batch * hw + 2, dtype=torch.int32, device=keys.device)
+    scratch = torch.empty(scratch_ints, dtype=torch.int32, device=keys.device)
+    kernels.call(
+        "tp_deform_vectors_bwd_order", "deform_vectors_bwd_order",
+        keys.data_ptr(), scratch.data_ptr(), offsets.data_ptr(), perm.data_ptr(), n_batch, per_batch, hw,
+    )
+    return perm, offsets
+
+
+def vectors_bwd_sorted_plain(gbar, corner_w, perm, offsets, corners_per_query: int) -> torch.Tensor:
+    """Plain version of the row sums: d_value (N * HW, C), row r the sum over
+    its segment's corners, in segment order from 0, of corner_w * gbar[query]."""
+    c = gbar.shape[-1]
+    g = gbar.reshape(-1, c)
+    n_rows = offsets.shape[0] - 2
+    starts = offsets[:n_rows].to(torch.int64)
+    lengths = (offsets[1 : n_rows + 1] - offsets[:n_rows]).to(torch.int64)
+    d_value = torch.zeros((n_rows, c), dtype=g.dtype, device=g.device)
+    for depth in range(int(lengths.max()) if lengths.numel() else 0):
+        rows = torch.nonzero(lengths > depth).squeeze(1)
+        corner = perm[starts[rows] + depth].to(torch.int64)
+        d_value[rows] = d_value[rows] + corner_w[corner][:, None] * g[corner // corners_per_query]
+    return d_value
+
+
+def vectors_bwd_sorted(gbar, corner_w, perm, offsets, corners_per_query: int) -> torch.Tensor:
+    """The sorted mode's row sums (csrc/deform_vectors_bwd.cu
+    `tp_deform_vectors_bwd_sorted`) for CUDA tensors, vectors_bwd_sorted_plain for CPU ones."""
+    if not gbar.is_cuda:
+        return vectors_bwd_sorted_plain(gbar, corner_w, perm, offsets, corners_per_query)
+    kernels.check_cuda_tensor("gbar", gbar, torch.float32)
+    kernels.check_cuda_tensor("corner_w", corner_w, torch.float32, 1)
+    kernels.check_cuda_tensor("perm", perm, torch.int32, 1)
+    kernels.check_cuda_tensor("offsets", offsets, torch.int32, 1)
+    c = gbar.shape[-1]
+    if perm.shape != corner_w.shape or corner_w.shape[0] != gbar.numel() // c * corners_per_query:
+        raise ValueError("vectors_bwd_sorted: gbar, corner_w and perm disagree")
+    d_value = torch.empty((offsets.shape[0] - 2, c), dtype=torch.float32, device=gbar.device)
+    kernels.call(
+        "tp_deform_vectors_bwd_sorted", "deform_vectors_bwd_sorted",
+        gbar.data_ptr(), corner_w.data_ptr(), perm.data_ptr(), offsets.data_ptr(), d_value.data_ptr(),
+        d_value.shape[0], c, corners_per_query,
+    )
+    return d_value
+
+
+def deform_sample_vectors_bwd_sorted_plain(value, spatial_shape, loc01, attn_weights, gbar):
+    """Plain version of K8's sorted mode: (d_value, d_loc, d_attn_weights),
+    d_value from the corners' keys, their order with no sort and the
+    in-order row sums; d_loc and d_attn_weights as deform_sample_vectors_bwd_plain."""
+    h, w = spatial_shape
+    p = attn_weights.shape[-1]
+    n = value.numel() // (h * w * value.shape[-1]) if value.numel() else 0
+    _, d_loc, d_aw = deform_sample_vectors_bwd_plain(value, spatial_shape, loc01, attn_weights, gbar)
+    keys, corner_w = vectors_bwd_keys_plain(loc01, attn_weights, h, w)
+    perm, offsets = vectors_bwd_order_plain(keys, n * h * w)
+    d_value = vectors_bwd_sorted_plain(gbar, corner_w, perm, offsets, 4 * p)
+    return d_value.reshape(value.shape), d_loc, d_aw
+
+
+def _vectors_bwd_launch(value, spatial_shape, loc01, attn_weights, gbar, deterministic: bool):
+    """Check K8's arguments and launch its first kernel: atomic mode ->
+    (d_value, d_loc, d_aw); sorted mode -> (keys, corner_w, d_loc, d_aw)."""
     _check_vectors_args(value, spatial_shape, loc01, attn_weights)
     h, w = spatial_shape
     hw, c = value.shape[-2:]
@@ -358,37 +489,36 @@ def _vectors_bwd_cuda(value, spatial_shape, loc01, attn_weights, gbar, determini
     if loc01.data_ptr() % 8:  # K8 reads and writes a location as one 8-byte vector
         loc01 = loc01.clone()
     n = value.numel() // (hw * c) if hw * c else 0
-    dev = value.device
     d_loc, d_aw = torch.empty_like(loc01), torch.empty_like(attn_weights)
+    args = (value.data_ptr(), loc01.data_ptr(), attn_weights.data_ptr(), gbar.data_ptr())
     if not deterministic:
         d_value = torch.zeros_like(value)
-        kernels.call(
-            "tp_deform_vectors_bwd", "deform_vectors_bwd",
-            value.data_ptr(), loc01.data_ptr(), attn_weights.data_ptr(), gbar.data_ptr(),
-            d_value.data_ptr(), d_loc.data_ptr(), d_aw.data_ptr(), None, None, n, q, h, w, c, p,
-        )
+        kernels.call("tp_deform_vectors_bwd", "deform_vectors_bwd",
+                     *args, d_value.data_ptr(), d_loc.data_ptr(), d_aw.data_ptr(), None, None, n, q, h, w, c, p)
         return d_value, d_loc, d_aw
-    if n * hw + 1 >= 2**31:
-        raise ValueError("deform_sample_vectors: batch * H * W must fit in int32 in the deterministic mode")
     entries = n * q * p * 4
-    keys = torch.empty(entries, dtype=torch.int32, device=dev)
-    corner_w = torch.empty(entries, dtype=torch.float32, device=dev)
-    d_value = torch.empty_like(value)
-    kernels.call(
-        "tp_deform_vectors_bwd", "deform_vectors_bwd_keys",
-        value.data_ptr(), loc01.data_ptr(), attn_weights.data_ptr(), gbar.data_ptr(),
-        None, d_loc.data_ptr(), d_aw.data_ptr(), keys.data_ptr(), corner_w.data_ptr(), n, q, h, w, c, p,
-    )
-    keys_sorted, perm = torch.sort(keys, stable=True)
-    segments = torch.zeros((n * hw + 1, 2), dtype=torch.int32, device=dev)  # last row: corners outside the map
-    if entries:
-        kernels.call("tp_bin_ranges", "deform_vectors_bwd_segments", keys_sorted.data_ptr(), segments.data_ptr(), entries)
-    kernels.call(
-        "tp_deform_vectors_bwd_sorted", "deform_vectors_bwd_sorted",
-        gbar.data_ptr(), corner_w.data_ptr(), perm.data_ptr(), segments.data_ptr(), d_value.data_ptr(),
-        n * hw, c, 4 * p,
-    )
-    return d_value, d_loc, d_aw
+    if n * (hw + 1) + 1 >= 2**31 or entries >= 2**31:
+        raise ValueError("deform_sample_vectors: batch * (H * W + 1) and the corners must fit in int32 in the deterministic mode")
+    keys = torch.empty(entries, dtype=torch.int32, device=value.device)
+    corner_w = torch.empty(entries, dtype=torch.float32, device=value.device)
+    kernels.call("tp_deform_vectors_bwd", "deform_vectors_bwd_keys",
+                 *args, None, d_loc.data_ptr(), d_aw.data_ptr(), keys.data_ptr(), corner_w.data_ptr(), n, q, h, w, c, p)
+    return keys, corner_w, d_loc, d_aw
+
+
+def _vectors_bwd_cuda(value, spatial_shape, loc01, attn_weights, gbar, deterministic: bool = False):
+    """Launch K8 on contiguous float32 CUDA tensors. The default adds into a
+    d_value zeroed here with float atomics (the last bits change from run to
+    run); `deterministic` orders the corners by d_value row with the
+    counting sort (vectors_bwd_order) and adds each row's segment in order
+    (vectors_bwd_sorted)."""
+    if not deterministic:
+        return _vectors_bwd_launch(value, spatial_shape, loc01, attn_weights, gbar, False)
+    keys, corner_w, d_loc, d_aw = _vectors_bwd_launch(value, spatial_shape, loc01, attn_weights, gbar, True)
+    hw, c = value.shape[-2:]
+    perm, offsets = vectors_bwd_order(keys, value.numel() // (hw * c) if hw * c else 0, hw)
+    d_value = vectors_bwd_sorted(gbar, corner_w, perm, offsets, 4 * attn_weights.shape[-1])
+    return d_value.reshape(value.shape), d_loc, d_aw
 
 
 class DeformSampleVectors(torch.autograd.Function):

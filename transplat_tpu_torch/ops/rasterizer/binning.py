@@ -7,13 +7,16 @@ ranges instead of routed feature copies, with no capacity and nothing
 dropped: three kernels count each chunk's pairs per tile, scan the counts
 and place every pair, with no sort (csrc/binning.cu says how). `bin_bwd` adds
 the list entries' gradients back into per-Gaussian rows
-(csrc/binning_bwd.cu). Gradient rows are `pair_width(C)` wide: the 8
-geometry columns and the C colours zero-padded to whole 16-byte vectors.
+(csrc/binning_bwd.cu): with atomics, or (deterministic) Gaussian by
+Gaussian in list order, in the order `bin_bwd_order` reads off K1's packed
+rectangles, again with no sort. Gradient rows are `pair_width(C)` wide: the
+8 geometry columns and the C colours zero-padded to whole 16-byte vectors.
 
 Each kernel has a wrapper that launches it for CUDA tensors and runs its
 plain PyTorch version (same function, `*_plain`) for CPU tensors.
 `bin_gaussians_plain` builds the same lists another way (one key per pair,
-a stable sort, the runs' ends), as the reference the kernels are held to.
+a stable sort, the runs' ends), as the reference the kernels are held to;
+`bin_bwd_order_by_sort` does the same for K2's order.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ class TileLists(NamedTuple):
     ranges: torch.Tensor  # (B * T, 2) int32 [start, end) of each (view, tile) in idx
     num_tiles_x: int
     num_tiles_y: int
+    # (B, G, 2) int32: each Gaussian's cull rectangle packed as bin_count
+    # writes it (pack_rects); they give K2's deterministic order.
+    rects: torch.Tensor | None = None
 
 
 def sort_by_depth(proj: ProjectedGaussians, feature: torch.Tensor | None = None):
@@ -146,11 +152,12 @@ def bin_gaussians_plain(gfeat: torch.Tensor, image_shape: tuple[int, int], tile:
     """The lists the kernels build, by the classic route: a key per pair, a
     stable sort by key (each tile's run stays in depth order), each run's ends."""
     ntx, nty = grid_size(image_shape, tile)
-    keys, vals = _pairs_of_rects(bin_rects_plain(gfeat, ntx, nty, tile)[0], ntx, nty)
+    rects = bin_rects_plain(gfeat, ntx, nty, tile)[0]
+    keys, vals = _pairs_of_rects(rects, ntx, nty)
     keys_sorted, perm = torch.sort(keys, stable=True)
     idx = vals[perm].to(torch.int32)
     return TileLists(idx=idx, ranges=bin_ranges_plain(keys_sorted, gfeat.shape[0] * ntx * nty),
-                     num_tiles_x=ntx, num_tiles_y=nty)
+                     num_tiles_x=ntx, num_tiles_y=nty, rects=pack_rects(rects))
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +308,8 @@ def bin_place(rects, bases, ranges, total: int, ntx: int, nty: int) -> torch.Ten
 def bin_gaussians(gfeat: torch.Tensor, image_shape: tuple[int, int], tile: int = 16) -> TileLists:
     """Depth-sorted (B, G, 8) rows -> per-tile index lists (no capacity,
     nothing dropped), equal to bin_gaussians_plain's: count, scan, then one
-    host read of the number of pairs (idx is allocated to it), then place."""
+    host read of the number of pairs (idx is allocated to it), then place.
+    The lists keep the count's packed rectangles for K2's deterministic order."""
     ntx, nty = grid_size(image_shape, tile)
     table, rects, aux = bin_count(gfeat, ntx, nty, tile)
     ranges = bin_scan(table, aux)
@@ -309,7 +317,7 @@ def bin_gaussians(gfeat: torch.Tensor, image_shape: tuple[int, int], tile: int =
     if total >= 2**31:
         raise ValueError(f"bin_gaussians: {total} pairs do not fit the int32 ranges")
     idx = bin_place(rects, table, ranges, total, ntx, nty)
-    return TileLists(idx=idx, ranges=ranges, num_tiles_x=ntx, num_tiles_y=nty)
+    return TileLists(idx=idx, ranges=ranges, num_tiles_x=ntx, num_tiles_y=nty, rects=rects)
 
 
 # ---------------------------------------------------------------------------
@@ -353,13 +361,122 @@ def bin_bwd_plain(d_pair: torch.Tensor, lists: TileLists, views: int, g: int, ch
     return split_rows(d_feat, views, g, channels)
 
 
+# The deterministic mode's order: the list entries Gaussian by Gaussian, each
+# Gaussian's in list order, as `perm` (N,) int32 and each (view, Gaussian)
+# row's segment start `offsets` (B * G + 1,) int32 (CSR: row i's entries are
+# perm[offsets[i]:offsets[i + 1]]). That is torch.sort(view * G + idx,
+# stable=True), which K1's lists imply with no sort: a Gaussian's entries are
+# the tiles of its rectangle, one each, in increasing tile order.
+
+# (View, Gaussian) rows a block of the order's first kernel scans (kScanRows
+# in csrc/binning_bwd.cu); its second kernel keeps one int per such block in
+# shared memory (kMaxScanBlocks).
+BWD_SCAN_ROWS = 2048
+BWD_MAX_SCAN_BLOCKS = 48 * 1024
+
+
+def bin_bwd_order_by_sort(lists: TileLists, views: int, g: int):
+    """The order by a stable sort of the keys view * G + idx and the runs'
+    starts: the reference the order's kernels and plain version are held to
+    (tests and chip_smoke.py only)."""
+    rows_sorted, perm = torch.sort(_pair_rows(lists, views, g), stable=True)
+    cells = torch.arange(views * g + 1, device=rows_sorted.device)
+    return perm.to(torch.int32), torch.searchsorted(rows_sorted, cells).to(torch.int32)
+
+
+def bin_bwd_order_plain(lists: TileLists, views: int, g: int):
+    """Plain version of the order's kernels, arithmetic and with no sort: the
+    segments are the exclusive prefix of the rectangles' areas, and an entry
+    of tile (tx, ty) goes to its Gaussian's start + (ty - y0) (x1 - x0 + 1) + (tx - x0)."""
+    r = unpack_rects(lists.rects).reshape(views * g, 4).to(torch.int64)
+    x0, y0, x1, y1 = r.unbind(-1)
+    wide = x1 - x0 + 1
+    area = torch.where((x1 >= x0) & (y1 >= y0), wide * (y1 - y0 + 1), 0)
+    offsets = torch.cat([area.new_zeros(1), torch.cumsum(area, 0)])
+    n, tiles, ntx = lists.idx.shape[0], lists.num_tiles_x * lists.num_tiles_y, lists.num_tiles_x
+    lengths = (lists.ranges[:, 1] - lists.ranges[:, 0]).to(torch.int64)
+    cell = torch.repeat_interleave(torch.arange(lengths.shape[0], device=lengths.device), lengths, output_size=n)
+    t = cell % tiles
+    row = (cell // tiles) * g + lists.idx.to(torch.int64)
+    place = offsets[row] + (t // ntx - y0[row]) * wide[row] + (t % ntx - x0[row])
+    perm = torch.empty(n, dtype=torch.int32, device=lists.idx.device)
+    perm[place] = torch.arange(n, dtype=torch.int32, device=perm.device)
+    return perm, offsets.to(torch.int32)
+
+
+def bin_bwd_order(lists: TileLists, views: int, g: int):
+    """K2's deterministic order (perm, offsets), read off K1's packed
+    rectangles (`lists.rects`, which bin_gaussians keeps): csrc/binning_bwd.cu
+    `tp_bin_bwd_order` for CUDA lists, bin_bwd_order_plain for CPU lists."""
+    if lists.rects is None:
+        raise ValueError("bin_bwd_order: the lists carry no rectangles (bin_gaussians keeps K1's with its lists)")
+    if not lists.idx.is_cuda:
+        return bin_bwd_order_plain(lists, views, g)
+    kernels.check_cuda_tensor("idx", lists.idx, torch.int32, 1)
+    kernels.check_cuda_tensor("ranges", lists.ranges, torch.int32, 2)
+    kernels.check_cuda_tensor("rects", lists.rects, torch.int32, 3)
+    ntx, nty = lists.num_tiles_x, lists.num_tiles_y
+    rows, n = views * g, lists.idx.shape[0]
+    if lists.rects.shape != (views, g, 2) or lists.ranges.shape != (views * ntx * nty, 2):
+        raise ValueError("bin_bwd_order: rects or ranges disagree with the views and Gaussians")
+    blocks = -(-rows // BWD_SCAN_ROWS)
+    if rows >= 2**31 or n >= 2**31 or blocks > BWD_MAX_SCAN_BLOCKS:
+        raise ValueError(f"bin_bwd_order: {rows} Gaussians or {n} pairs are too many for its kernels")
+    _check_grid(ntx, nty)
+    dev = lists.idx.device
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    offsets = torch.empty(rows + 1, dtype=torch.int32, device=dev)
+    if rows:
+        scratch = torch.empty(4 * rows + blocks + lists.ranges.shape[0], dtype=torch.int32, device=dev)
+        kernels.call(
+            "tp_bin_bwd_order", "bin_bwd_order",
+            lists.idx.data_ptr(), lists.ranges.data_ptr(), lists.rects.data_ptr(), scratch.data_ptr(),
+            perm.data_ptr(), offsets.data_ptr(), n, views, g, ntx, nty,
+        )
+    else:
+        offsets.zero_()
+    return perm, offsets
+
+
+def bin_bwd_sorted_plain(d_pair: torch.Tensor, perm: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Plain version of the segment sums: d_feat (rows, width), row i the sum
+    of d_pair[perm[offsets[i]:offsets[i + 1]]] taken in that order, from 0."""
+    starts, lengths = offsets[:-1].to(torch.int64), (offsets[1:] - offsets[:-1]).to(torch.int64)
+    d_feat = torch.zeros((starts.shape[0], d_pair.shape[1]), dtype=d_pair.dtype, device=d_pair.device)
+    for depth in range(int(lengths.max()) if lengths.numel() else 0):
+        rows = torch.nonzero(lengths > depth).squeeze(1)
+        d_feat[rows] = d_feat[rows] + d_pair[perm[starts[rows] + depth].to(torch.int64)]
+    return d_feat
+
+
+def bin_bwd_sorted(d_pair: torch.Tensor, perm: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """The deterministic mode's segment sums (csrc/binning_bwd.cu
+    `tp_bin_bwd_sorted`) for CUDA tensors, bin_bwd_sorted_plain for CPU ones."""
+    if not d_pair.is_cuda:
+        return bin_bwd_sorted_plain(d_pair, perm, offsets)
+    kernels.check_cuda_tensor("d_pair", d_pair, torch.float32, 2)
+    kernels.check_cuda_tensor("perm", perm, torch.int32, 1)
+    kernels.check_cuda_tensor("offsets", offsets, torch.int32, 1)
+    n, row = d_pair.shape
+    if perm.shape[0] != n or row not in (12, 16) or d_pair.data_ptr() % 16:
+        raise ValueError(f"bin_bwd_sorted: d_pair {tuple(d_pair.shape)} (16-byte rows of 12 or 16) disagrees with perm")
+    d_feat = torch.empty((offsets.shape[0] - 1, row), dtype=torch.float32, device=d_pair.device)
+    if d_feat.shape[0]:
+        kernels.call(
+            "tp_bin_bwd_sorted", "bin_bwd_sorted",
+            d_pair.data_ptr(), perm.data_ptr(), offsets.data_ptr(), d_feat.data_ptr(), d_feat.shape[0], n, row,
+        )
+    return d_feat
+
+
 def bin_bwd(d_pair: torch.Tensor, lists: TileLists, views: int, g: int, channels: int, deterministic: bool = False):
     """K2: the transpose of the binning's routing. d_pair (N, pair_width(C)),
     one row per list entry -> d_gfeat (B, G, 8), d_colors (B, G, C).
 
     On the card the default adds with 16-byte float atomics (the last bits
-    change from run to run); `deterministic` re-sorts the entries by Gaussian
-    and adds each Gaussian's segment in order."""
+    change from run to run); `deterministic` adds each Gaussian's entries in
+    list order (bin_bwd_order, then bin_bwd_sorted), which needs the lists'
+    rectangles."""
     if not d_pair.is_cuda:
         return bin_bwd_plain(d_pair, lists, views, g, channels)
     kernels.check_cuda_tensor("d_pair", d_pair, torch.float32, 2)
@@ -372,17 +489,7 @@ def bin_bwd(d_pair: torch.Tensor, lists: TileLists, views: int, g: int, channels
     if views * g >= 2**31 or views > 1024:
         raise ValueError("bin_bwd: views * Gaussians must fit in int32, and views be at most 1024")
     if deterministic:
-        rows_sorted, perm = torch.sort(_pair_rows(lists, views, g), stable=True)
-        segments = torch.zeros((views * g, 2), dtype=torch.int32, device=d_pair.device)
-        d_feat = torch.empty((views * g, row), dtype=torch.float32, device=d_pair.device)
-        if n:
-            rows_sorted = rows_sorted.to(torch.int32)
-            kernels.call("tp_bin_ranges", "bin_bwd_segments", rows_sorted.data_ptr(), segments.data_ptr(), n)
-        if views * g:
-            kernels.call(
-                "tp_bin_bwd_sorted", "bin_bwd_sorted",
-                d_pair.data_ptr(), perm.data_ptr(), segments.data_ptr(), d_feat.data_ptr(), views * g, row,
-            )
+        d_feat = bin_bwd_sorted(d_pair, *bin_bwd_order(lists, views, g))
     else:
         d_feat = torch.zeros((views * g, row), dtype=torch.float32, device=d_pair.device)
         if n:

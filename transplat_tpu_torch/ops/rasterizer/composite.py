@@ -257,7 +257,7 @@ class CompositeTiles(torch.autograd.Function):
             image, t_final = _composite_fwd_cuda(gfeat, colors, lists, background, image_shape, tile, order=order)
         else:
             image, t_final, _ = composite_tiles_plain(gfeat, colors, lists, background, image_shape, tile)
-        ctx.save_for_backward(gfeat, colors, background, lists.idx, lists.ranges, image, t_final, order)
+        ctx.save_for_backward(gfeat, colors, background, lists.idx, lists.ranges, lists.rects, image, t_final, order)
         ctx.grid = (lists.num_tiles_x, lists.num_tiles_y)
         ctx.tile, ctx.deterministic = tile, deterministic
         return image
@@ -265,8 +265,8 @@ class CompositeTiles(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_out):
-        gfeat, colors, background, idx, ranges, image, t_final, order = ctx.saved_tensors
-        lists = TileLists(idx, ranges, *ctx.grid)
+        gfeat, colors, background, idx, ranges, rects, image, t_final, order = ctx.saved_tensors
+        lists = TileLists(idx, ranges, *ctx.grid, rects)
         b, g, _ = gfeat.shape
         g_out = g_out.contiguous()
         if gfeat.is_cuda:

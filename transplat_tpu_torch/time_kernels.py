@@ -22,8 +22,18 @@ random locations), then takes `--readings` readings in turns of:
   `deform_scores_bwd_p4_encoder` on the locations and scores of the
   encoder's own cross-attention (captured from the request);
 - `deform_vectors_bwd`: K8's atomic mode, `deform_vectors_bwd_sorted` its
-  sorted, deterministic mode (device time, the sort included), on
-  chip_smoke.py's self-attention-like value-sampler inputs;
+  sorted, deterministic mode (device time with its order, whatever sorts;
+  `.kernel_ms` the hand-written kernels, named deform_vectors_bwd*; warm,
+  cold and one call between CUDA events), on chip_smoke.py's
+  self-attention-like value-sampler inputs, and
+  `index_add_deterministic_k8`, the library's deterministic way to its
+  d_value: index_add_ of the corner rows (aw * w_corner * gbar) under
+  torch.use_deterministic_algorithms;
+- `bin_bwd_sorted`: K2's sorted, deterministic mode called directly on the
+  request's lists and random entry gradients (device time, warm and cold;
+  `.kernel_ms` the kernels named bin_bwd_*; one call between CUDA events),
+  and `index_add_deterministic`, index_add_ of the same rows under
+  torch.use_deterministic_algorithms;
 - `bin_gaussians`: the whole of K1, from the depth-sorted rows to `idx` and
   `ranges`, on the request's Gaussians: every device event of one call, warm
   and cold, split into its parts (`parts`: each event's name and its median
@@ -35,7 +45,9 @@ random locations), then takes `--readings` readings in turns of:
   with the L2 flushed before each call (`.kernel_cold_ms`): their bytes fit
   in the 50 MB L2, where back-to-back calls find them.
 
-Each reading is the median device time over 20 calls (utils/device_time.py).
+Each reading is the median device time over 20 calls (utils/device_time.py);
+`launches` gives each item's device launches per call (the profiler's count:
+kernels, fills, copies).
 `--items` keeps the items whose name starts with one of the given prefixes:
 a design trial, a patched copy of the tree, reads the kernels it changed
 beside the tree it came from in one call. Prints one JSON line with every
@@ -155,7 +167,18 @@ def main(argv=None) -> int:
         return {f"deform_scores_bwd_p{p}{suffix}.kernel_ms":
                 (lambda: deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar), "deform_scores_bwd", False)}
 
-    value, vloc, vaw, vgbar, (_, _, vh, vw, _, _) = vectors_inputs(dev)
+    value, vloc, vaw, vgbar, (vn, vq, vh, vw, vc, vp) = vectors_inputs(dev)
+    # The library's deterministic K8 d_value: every corner row (weight 0 outside the map) added by index_add_.
+    corner_idx, corner_wgt = deform._bilinear_weights(vloc, vh, vw)  # (4, N, Q, P)
+    corner_rows = (torch.arange(vn, device=dev)[None, :, None, None] * (vh * vw) + corner_idx).reshape(-1)
+    corner_add = ((corner_wgt * vaw[None])[..., None] * vgbar[None, :, :, None, :]).reshape(-1, vc)
+
+    def deterministic(fn):
+        from .training.step import repeatable_ops
+
+        with repeatable_ops():
+            return fn()
+
     ntx, nty = lists.num_tiles_x, lists.num_tiles_y
     # name -> (function, kernel name or None for the device time, L2 flushed before each call)
     items = {
@@ -173,6 +196,20 @@ def main(argv=None) -> int:
             (lambda: deform._vectors_bwd_cuda(value, (vh, vw), vloc, vaw, vgbar), "deform_vectors_bwd_kernel", False),
         "deform_vectors_bwd_sorted.device_ms":
             (lambda: deform._vectors_bwd_cuda(value, (vh, vw), vloc, vaw, vgbar, deterministic=True), None, False),
+        "deform_vectors_bwd_sorted.kernel_ms":
+            (lambda: deform._vectors_bwd_cuda(value, (vh, vw), vloc, vaw, vgbar, deterministic=True), "deform_vectors_bwd", False),
+        "deform_vectors_bwd_sorted.device_cold_ms":
+            (lambda: deform._vectors_bwd_cuda(value, (vh, vw), vloc, vaw, vgbar, deterministic=True), None, True),
+        "index_add_deterministic_k8.device_ms": (lambda: deterministic(
+            lambda: torch.zeros((vn * vh * vw, vc), device=dev).index_add_(0, corner_rows, corner_add)), None, False),
+        "bin_bwd_sorted.device_ms":
+            (lambda: binning.bin_bwd(d_pair, lists, b, g, colors.shape[-1], deterministic=True), None, False),
+        "bin_bwd_sorted.kernel_ms":
+            (lambda: binning.bin_bwd(d_pair, lists, b, g, colors.shape[-1], deterministic=True), "bin_bwd_", False),
+        "bin_bwd_sorted.device_cold_ms":
+            (lambda: binning.bin_bwd(d_pair, lists, b, g, colors.shape[-1], deterministic=True), None, True),
+        "index_add_deterministic.device_ms": (lambda: deterministic(
+            lambda: torch.zeros((b * g, d_pair.shape[1]), device=dev).index_add_(0, rows, d_pair)), None, False),
         "bin_gaussians.device_ms": (lambda: binning.bin_gaussians(gfeat, IMAGE), None, False),
         "bin_gaussians.device_cold_ms": (lambda: binning.bin_gaussians(gfeat, IMAGE), None, True),
         "deform_vectors.device_ms": (lambda: deform.deform_sample_vectors(value, (vh, vw), vloc, vaw), None, False),
@@ -185,18 +222,23 @@ def main(argv=None) -> int:
     wrappers = {
         "bin_gaussians.wrapper_ms": lambda: binning.bin_gaussians(gfeat, IMAGE),
         "deform_vectors.wrapper_ms": lambda: deform.deform_sample_vectors(value, (vh, vw), vloc, vaw),
+        "deform_vectors_bwd_sorted.wrapper_ms":
+            lambda: deform._vectors_bwd_cuda(value, (vh, vw), vloc, vaw, vgbar, deterministic=True),
+        "bin_bwd_sorted.wrapper_ms": lambda: binning.bin_bwd(d_pair, lists, b, g, colors.shape[-1], deterministic=True),
     }
     if args.items is not None:
         items = {k: v for k, v in items.items() if k.startswith(tuple(args.items))}
         wrappers = {k: v for k, v in wrappers.items() if k.startswith(tuple(args.items))}
     readings: dict[str, list[float]] = {k: [] for k in (*items, *wrappers)}
     attempts: dict[str, list[int]] = {k: [] for k in items}
+    launches: dict[str, int] = {}
     events: dict[str, list[list]] = {k: [] for k in items}
     for _ in range(args.readings):
         for key, (fn, kernel, cold) in items.items():
             t = device_time(fn, kernel, cold=cold)
             readings[key].append(t["kernel_ms"] if kernel else t["device_ms"])
             attempts[key].append(t["attempts"])
+            launches[key] = t["device_launches"]
             events[key].append(t["events"])
         for key, fn in wrappers.items():
             readings[key].append(time_ms(fn))
@@ -210,7 +252,7 @@ def main(argv=None) -> int:
     summary = {k: {"median": float(np.median(v)), "min": min(v), "max": max(v)} for k, v in readings.items()}
     print(json.dumps({
         "label": args.label, "device": torch.cuda.get_device_name(0), "pairs": int(lists.idx.shape[0]),
-        "readings": readings, "attempts": attempts, "summary": summary, "parts": parts,
+        "readings": readings, "attempts": attempts, "launches": launches, "summary": summary, "parts": parts,
     }), flush=True)
     return 0
 
