@@ -1,0 +1,234 @@
+"""EncoderTranSplat: posed context images -> per-pixel world Gaussians.
+
+Counterpart of transplat_tpu/model/encoder.py: backbone (CNN + multi-view
+Swin) -> frozen DAv2 mono prior -> depth predictor (epipolar deformable cost
+volume) -> Gaussian adapter. The module starts in eval mode (BatchNorm
+running statistics, no dropout) and honours train(): batch statistics, and
+dropout masks from the generator given to forward. DAv2 is frozen: its
+parameters take no gradient and it runs under no_grad.
+
+forward runs the encoder as the ten stages of the reference's taxonomy
+(`STAGES`, encoder_1 ... encoder_5); a caller may wrap each one in a context
+of its own (`stage`), which is how evaluation/staged.py times them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..geometry.projection import sample_image_grid, unnormalize_intrinsics
+from ..ops.interpolate import resize_bilinear
+from .adapter import GaussianAdapterCfg, adapt_gaussians
+from .backbone.multiview import BackboneMultiview, normalize_images
+from .dav2 import DAV2_CONFIGS, DepthAnythingV2
+from .depth_predictor import DepthPredictor, img2world_matrices, no_stage
+from .types import Gaussians
+
+
+STAGES = [
+    "encoder_1_prep_intrinsics",
+    "encoder_2_backbone",
+    "encoder_3_depth_anything",
+    "encoder_4a_prep_features",
+    "encoder_4b_cost_volume_matching",
+    "encoder_4c_cost_volume_unet",
+    "encoder_4d_coarse_depth",
+    "encoder_4e_depth_refine_unet",
+    "encoder_4f_gaussian_head",
+    "encoder_5_gaussian_adapter",
+]
+
+
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class OpacityMappingCfg:
+    initial: float = 0.0
+    final: float = 0.0
+    warm_up: int = 1
+
+
+@dataclass(frozen=True)
+class EncoderCfg:
+    d_feature: int = 128
+    num_depth_candidates: int = 128
+    num_surfaces: int = 1
+    gaussians_per_pixel: int = 1
+    num_context_views: int = 2
+    downscale_factor: int = 4
+    multiview_trans_attn_split: int = 2
+    costvolume_unet_feat_dim: int = 128
+    costvolume_unet_channel_mult: Sequence[int] = (1, 1, 1)
+    costvolume_unet_attn_res: Sequence[int] = (4,)
+    depth_unet_feat_dim: int = 32
+    depth_unet_attn_res: Sequence[int] = (16,)
+    depth_unet_channel_mult: Sequence[int] = (1, 1, 1, 1, 1)
+    dav2_encoder: str = "vitb"
+    dav2_input_size: int = 252
+    gaussian_adapter: GaussianAdapterCfg = field(default_factory=GaussianAdapterCfg)
+    opacity_mapping: OpacityMappingCfg = field(default_factory=OpacityMappingCfg)
+    # "float32" or "bfloat16": mixed-precision compute of the depth
+    # predictor's convolutions, norms, U-Nets and heads (stages 4c-4f), with
+    # float32 parameters; every softmax, the disparity expectation and the
+    # disparity / density head stay float32 (model/depth_predictor.py). The
+    # training loss's LPIPS runs its convolutions at this dtype too.
+    compute_dtype: str = "float32"
+    # Gradient checkpointing: recompute both U-Nets / each UV fine layer in
+    # the backward instead of keeping their activations.
+    remat_unet: bool = False
+    remat_matching: bool = False
+    # Accepted for config compatibility with the JAX package, where it picks
+    # a space-to-depth U-Net with the same function and parameters; the port
+    # has one U-Net path and ignores it. The JAX package refuses it with
+    # bfloat16, and so does the port, so that one config means the same in both.
+    s2d_unet: bool = False
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: expected one of {sorted(COMPUTE_DTYPES)}")
+        if self.s2d_unet and self.compute_dtype == "bfloat16":
+            raise ValueError(
+                "s2d_unet=True requires compute_dtype='float32': the JAX package's s2d U-Net tower only builds "
+                "when its dtype is None, so bf16 would silently disable it. Pick one."
+            )
+
+    @property
+    def torch_dtype(self) -> torch.dtype | None:
+        """The modules' compute dtype: None (float32) or torch.bfloat16."""
+        return COMPUTE_DTYPES[self.compute_dtype]
+
+
+def map_pdf_to_opacity(pdf: torch.Tensor, cfg: OpacityMappingCfg, global_step: int = 0) -> torch.Tensor:
+    """Warm-up-scheduled opacity curve."""
+    x = cfg.initial + min(global_step / cfg.warm_up, 1.0) * (cfg.final - cfg.initial)
+    exponent = 2.0**x
+    return 0.5 * (1.0 - (1.0 - pdf) ** exponent + pdf ** (1.0 / exponent))
+
+
+class EncoderTranSplat(nn.Module):
+    def __init__(self, cfg: EncoderCfg = EncoderCfg(), device="cuda"):
+        super().__init__()
+        if cfg.num_surfaces != 1:
+            raise NotImplementedError("num_surfaces > 1 is not implemented")
+        self.cfg = cfg
+        adapter = cfg.gaussian_adapter
+        self.backbone = BackboneMultiview(cfg.d_feature)
+        self.da_model = DepthAnythingV2(cfg.dav2_encoder)
+        self.depth_predictor = DepthPredictor(
+            feature_channels=cfg.d_feature,
+            upscale_factor=cfg.downscale_factor,
+            num_depth_candidates=cfg.num_depth_candidates,
+            costvolume_unet_feat_dim=cfg.costvolume_unet_feat_dim,
+            costvolume_unet_channel_mult=cfg.costvolume_unet_channel_mult,
+            costvolume_unet_attn_res=cfg.costvolume_unet_attn_res,
+            gaussian_raw_channels=cfg.num_surfaces * (adapter.d_in + 2),
+            gaussians_per_pixel=cfg.gaussians_per_pixel,
+            num_views=cfg.num_context_views,
+            depth_unet_feat_dim=cfg.depth_unet_feat_dim,
+            depth_unet_attn_res=cfg.depth_unet_attn_res,
+            depth_unet_channel_mult=cfg.depth_unet_channel_mult,
+            dino_channels=DAV2_CONFIGS[cfg.dav2_encoder]["features"] // 2,
+            dtype=cfg.torch_dtype,
+            remat_unet=cfg.remat_unet,
+            remat_matching=cfg.remat_matching,
+        )
+        self.da_model.requires_grad_(False)
+        self.to(device)
+        self.eval()
+
+    def dav2_inputs(self, images: torch.Tensor) -> torch.Tensor:
+        """DAv2's input (b*v, S, S, 3): the images normalized, channels
+        shuffled [2, 0, 1], resized (align corners) to the DAv2 input size."""
+        b, v, h, w, _ = images.shape
+        da_in = normalize_images(images)[..., [2, 0, 1]]
+        size = self.cfg.dav2_input_size
+        return resize_bilinear(da_in.reshape(b * v, h, w, 3), (size, size), align_corners=True)
+
+    @staticmethod
+    def mono_prior(da_depth: torch.Tensor, dino_feature: torch.Tensor, image_shape) -> tuple[torch.Tensor, torch.Tensor]:
+        """DAv2's outputs as the depth predictor takes them: the depth resized
+        (align corners) to the images' (b, v, H, W, 1), min-max per view; the
+        features (b, v, hd, wd, cd)."""
+        b, v, h, w = image_shape[:4]
+        da_depth = resize_bilinear(da_depth[..., None], (h, w), align_corners=True)
+        flat = da_depth.reshape(b * v, -1)
+        lo = flat.min(dim=-1, keepdim=True).values
+        hi = flat.max(dim=-1, keepdim=True).values
+        da_depth = ((flat - lo) / (hi - lo + 1e-8)).reshape(b, v, h, w, 1)
+        return da_depth, dino_feature.reshape(b, v, *dino_feature.shape[1:])
+
+    def forward(
+        self,
+        images: torch.Tensor,  # (b, v, H, W, 3) in [0, 1]
+        intrinsics: torch.Tensor,  # (b, v, 3, 3) normalized
+        extrinsics: torch.Tensor,  # (b, v, 4, 4) camera-to-world
+        near: torch.Tensor,  # (b, v)
+        far: torch.Tensor,  # (b, v)
+        global_step: int = 0,  # position in the opacity warm-up
+        generator: torch.Generator | None = None,  # dropout masks (training mode)
+        deterministic_kernels: bool = False,  # the samplers' backward kernels repeat their bits
+        return_aux: bool = False,
+        stage=no_stage,  # tag -> context manager entered around each of the STAGES
+    ):
+        """Gaussians; with `return_aux`, (Gaussians, aux) where aux holds the
+        depth predictor's `pdf` (b, v, hf, wf, D), `coarse_disps` and
+        `depth_candidates` (b, v, D), and `depths` (b, v, H, W), `scales`
+        (b, v*H*W, 3), `rotations` (b, v*H*W, 4, xyzw) and the backbone's
+        matching `features` (b, v, hf, wf, C), NHWC as the JAX encoder lays
+        them out."""
+        cfg = self.cfg
+        b, v, h, w, _ = images.shape
+
+        # 1. Full-resolution img->world matrices for the backbone.
+        with stage("encoder_1_prep_intrinsics"):
+            img2world = img2world_matrices(unnormalize_intrinsics(intrinsics, (h, w)), extrinsics)
+        with stage("encoder_2_backbone"):
+            trans_features, cnn_features = self.backbone(images, img2world, attn_splits=cfg.multiview_trans_attn_split)
+
+        # 2. Frozen DAv2 prior.
+        with stage("encoder_3_depth_anything"):
+            with torch.no_grad():
+                da_depth, dino_feature = self.da_model(self.dav2_inputs(images))
+            da_depth, dino_feature = self.mono_prior(da_depth, dino_feature, images.shape)
+
+        # 3. Depth predictor (stages 4a-4f).
+        depths, densities, raw_gaussians, aux = self.depth_predictor(
+            trans_features, cnn_features, images, intrinsics, extrinsics, near, far, da_depth, dino_feature,
+            generator=generator, deterministic_kernels=deterministic_kernels, stage=stage,
+        )
+
+        # 4. Gaussian adapter: rays + depths -> world Gaussians.
+        with stage("encoder_5_gaussian_adapter"):
+            r = h * w
+            xy, _ = sample_image_grid((h, w), device=images.device)
+            xy = xy.reshape(1, 1, r, 2)
+            raw = raw_gaussians.reshape(b, v, r, cfg.num_surfaces, -1)[:, :, :, 0, :]
+            offset_xy = torch.sigmoid(raw[..., :2])
+            pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=raw.dtype, device=raw.device)
+            coords = xy + (offset_xy - 0.5) * pixel_size
+            opacities = map_pdf_to_opacity(densities[..., 0, 0], cfg.opacity_mapping, global_step) / cfg.gaussians_per_pixel
+            adapter = cfg.gaussian_adapter
+            out = adapt_gaussians(
+                adapter, extrinsics, intrinsics, coords, depths[..., 0, 0], opacities, raw[..., 2:], (h, w)
+            )
+            gaussians = Gaussians(
+                means=out["means"].reshape(b, v * r, 3),
+                covariances=out["covariances"].reshape(b, v * r, 3, 3),
+                harmonics=out["harmonics"].reshape(b, v * r, 3, adapter.d_sh),
+                opacities=out["opacities"].reshape(b, v * r),
+            )
+        if not return_aux:
+            return gaussians
+        aux = {
+            **aux,
+            "depths": depths.reshape(b, v, h, w),
+            "scales": out["scales"].reshape(b, v * r, 3),
+            "rotations": out["rotations"].reshape(b, v * r, 4),
+            "features": trans_features,
+        }
+        return gaussians, aux
