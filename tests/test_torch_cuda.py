@@ -951,3 +951,28 @@ def test_stage_tools_launch_their_kernels_at_a_tiny_width(dev):
         fused = encoder(*(torch.as_tensor(batch["context"][k], device=dev)
                           for k in ("image", "intrinsics", "extrinsics", "near", "far")))
     assert all(torch.equal(a, b) for a, b in zip(result["gaussians"], fused))
+
+
+def test_sampler_backward_spans_on_autograds_thread_hold_their_launches(dev):
+    """On the card autograd runs a backward on a thread of its own; the
+    samplers' backward spans opened there reach the profiler's trace, and K6's
+    and K8's launches lie inside them on the host's clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scores, loc, aw = (t.requires_grad_() for t in _deform_case(64, 8, 4, 16, 16, 1, dev))
+    value = torch.randn(2, 256, 32, device=dev, requires_grad=True)
+    loc_v = torch.rand(2, 64, 4, 2, device=dev, requires_grad=True)
+    aw_v = torch.rand(2, 64, 4, device=dev, requires_grad=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = deform.deform_sample_scores(scores, (16, 16), loc, aw).sum()
+        out = out + deform.deform_sample_vectors(value, (16, 16), loc_v, aw_v).sum()
+        torch.autograd.grad(out, [scores, loc, aw, value, loc_v, aw_v])
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = {e.name: e for e in events if e.name.startswith("deform.") and e.device_type != torch.autograd.DeviceType.CUDA}
+    assert set(spans) == {"deform.scores", "deform.vectors", "deform.scores_bwd", "deform.vectors_bwd"}
+    assert spans["deform.scores_bwd"].thread != spans["deform.scores"].thread
+    launches = [e.time_range.start for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")]
+    for name in ("deform.scores_bwd", "deform.vectors_bwd"):
+        r = spans[name].time_range
+        assert any(r.start <= t <= r.end for t in launches), name

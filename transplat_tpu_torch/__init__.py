@@ -31,9 +31,10 @@ checkpoint -> evaluate), written for one H100:
   * parallel/    data parallelism (dp) and the view-sharded decode (sp) on
                  torch.distributed, one process per rank: the mesh, the
                  collectives, rank launching and dryrun_multichip
-  * utils/       Benchmarker (stage timer: CUDA events on the card; a
-                 torch.profiler trace), device_time, the workload analysis,
-                 image and video files
+  * utils/       the program's spans and counters (trace.py), Benchmarker
+                 (stage timer: CUDA events on the card; a torch.profiler
+                 trace), device_time, the workload analysis, image and
+                 video files
   * visualization/  camera trajectories, PLY export, layout, colour map,
                  the validation's orthographic projections and camera wires
   * tools/       the reference's visual tools: test_splatter (a camera

@@ -26,16 +26,25 @@ from torch import nn
 from ..geometry.epipolar import epipolar_sample_grid, inverse_depth_candidates, relative_pose
 from ..geometry.projection import unnormalize_intrinsics
 from ..ops.interpolate import resize_bilinear_nchw, upsample_nearest_nchw
+from ..utils.trace import span
 from .cam_encoder import CamParamEncoder
 from .layers import LN_EPS, GroupNorm, at_least_f32, conv, gelu, group_norm, to_nchw, to_nhwc
 from .unet import UNetModel
 from .uv_transformer import UVMatcher
 
 
-def no_stage(tag: str) -> contextlib.AbstractContextManager:
-    """The default `stage` of the encoder's and the depth predictor's forward:
-    no context around any stage."""
-    return contextlib.nullcontext()
+def stage_span(tag: str, stage=None):
+    """The span `tag` (utils/trace.py) around one of the encoder's stages and,
+    inside it, the caller's own context `stage(tag)` where one is given."""
+    if stage is None:
+        return span(tag)
+    return _span_and_stage(tag, stage)
+
+
+@contextlib.contextmanager
+def _span_and_stage(tag: str, stage):
+    with span(tag), stage(tag):
+        yield
 
 
 def img2world_matrices(intrinsics_px: torch.Tensor, extrinsics: torch.Tensor) -> torch.Tensor:
@@ -214,27 +223,27 @@ class DepthPredictor(nn.Module):
         self, features, cnn_features, images, intrinsics, extrinsics, near, far, da_depth, dino_feature,
         generator=None,
         deterministic_kernels: bool = False,
-        stage=no_stage,
+        stage=None,
     ):
         """features/cnn_features (b, v, hf, wf, C); images (b, v, H, W, 3);
         da_depth (b, v, H, W, 1); dino_feature (b, v, hd, wd, cd); generator:
         the dropout masks' source in training mode; deterministic_kernels:
-        the samplers' backward kernels repeat their bits; stage: tag ->
-        context manager entered around each of the stages 4a-4f.
+        the samplers' backward kernels repeat their bits; stage: an optional
+        tag -> context manager entered inside each span of the stages 4a-4f.
         Returns depths, densities (b, v, H*W, 1, gpp), raw_gaussians (b, v, H*W, raw), aux."""
         b, v, hf, wf, _ = features.shape
         big_h, big_w = images.shape[2:4]
-        with stage("encoder_4a_prep_features"):
+        with stage_span("encoder_4a_prep_features", stage):
             prep = self.prep(features, intrinsics, extrinsics, near, far, dino_feature)
-        with stage("encoder_4b_cost_volume_matching"):
+        with stage_span("encoder_4b_cost_volume_matching", stage):
             corr = self.matching(prep, (hf, wf), generator, deterministic_kernels)
-        with stage("encoder_4c_cost_volume_unet"):
+        with stage_span("encoder_4c_cost_volume_unet", stage):
             raw_corr = self.cost_unet(corr, features)
-        with stage("encoder_4d_coarse_depth"):
+        with stage_span("encoder_4d_coarse_depth", stage):
             coarse = self.coarse_depth(raw_corr, prep["disp_candidates"], (big_h, big_w))
-        with stage("encoder_4e_depth_refine_unet"):
+        with stage_span("encoder_4e_depth_refine_unet", stage):
             refine_out, proj_feat_fullres = self.refine(features, cnn_features, images, da_depth, coarse)
-        with stage("encoder_4f_gaussian_head"):
+        with stage_span("encoder_4f_gaussian_head", stage):
             depths, densities, raw_gaussians = self.heads(
                 refine_out, proj_feat_fullres, images, coarse["fullres_disps"], near, far
             )

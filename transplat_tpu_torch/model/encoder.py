@@ -8,8 +8,9 @@ dropout masks from the generator given to forward. DAv2 is frozen: its
 parameters take no gradient and it runs under no_grad.
 
 forward runs the encoder as the ten stages of the reference's taxonomy
-(`STAGES`, encoder_1 ... encoder_5); a caller may wrap each one in a context
-of its own (`stage`), which is how evaluation/staged.py times them.
+(`STAGES`, encoder_1 ... encoder_5), each inside a span of its name
+(utils/trace.py); a caller may also wrap each one in a context of its own
+(`stage`), which is how evaluation/staged.py times them.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ..ops.interpolate import resize_bilinear
 from .adapter import GaussianAdapterCfg, adapt_gaussians
 from .backbone.multiview import BackboneMultiview, normalize_images
 from .dav2 import DAV2_CONFIGS, DepthAnythingV2
-from .depth_predictor import DepthPredictor, img2world_matrices, no_stage
+from .depth_predictor import DepthPredictor, img2world_matrices, stage_span
 from .types import Gaussians
 
 
@@ -173,7 +174,7 @@ class EncoderTranSplat(nn.Module):
         generator: torch.Generator | None = None,  # dropout masks (training mode)
         deterministic_kernels: bool = False,  # the samplers' backward kernels repeat their bits
         return_aux: bool = False,
-        stage=no_stage,  # tag -> context manager entered around each of the STAGES
+        stage=None,  # optional tag -> context manager entered inside each stage's span
     ):
         """Gaussians; with `return_aux`, (Gaussians, aux) where aux holds the
         depth predictor's `pdf` (b, v, hf, wf, D), `coarse_disps` and
@@ -185,13 +186,13 @@ class EncoderTranSplat(nn.Module):
         b, v, h, w, _ = images.shape
 
         # 1. Full-resolution img->world matrices for the backbone.
-        with stage("encoder_1_prep_intrinsics"):
+        with stage_span("encoder_1_prep_intrinsics", stage):
             img2world = img2world_matrices(unnormalize_intrinsics(intrinsics, (h, w)), extrinsics)
-        with stage("encoder_2_backbone"):
+        with stage_span("encoder_2_backbone", stage):
             trans_features, cnn_features = self.backbone(images, img2world, attn_splits=cfg.multiview_trans_attn_split)
 
         # 2. Frozen DAv2 prior.
-        with stage("encoder_3_depth_anything"):
+        with stage_span("encoder_3_depth_anything", stage):
             with torch.no_grad():
                 da_depth, dino_feature = self.da_model(self.dav2_inputs(images))
             da_depth, dino_feature = self.mono_prior(da_depth, dino_feature, images.shape)
@@ -203,7 +204,7 @@ class EncoderTranSplat(nn.Module):
         )
 
         # 4. Gaussian adapter: rays + depths -> world Gaussians.
-        with stage("encoder_5_gaussian_adapter"):
+        with stage_span("encoder_5_gaussian_adapter", stage):
             r = h * w
             xy, _ = sample_image_grid((h, w), device=images.device)
             xy = xy.reshape(1, 1, r, 2)

@@ -19,7 +19,9 @@ locations in [0, 1], grid_sample align_corners=False, zero padding.
     deform_sample_vectors_bwd_plain.
 
 Every function takes any number of leading batch dims (the directed view
-pairs of the depth predictor).
+pairs of the depth predictor). Both samplers run inside the spans
+`deform.scores` / `deform.vectors`, their backwards inside
+`deform.scores_bwd` / `deform.vectors_bwd` (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils.trace import span
 
 
 def _corners(loc01: torch.Tensor, h: int, w: int):
@@ -226,10 +229,11 @@ class DeformSampleScores(torch.autograd.Function):
     def backward(ctx, gbar):
         scores, loc01, attn_weights = ctx.saved_tensors
         args = (scores, ctx.spatial_shape, loc01, attn_weights, gbar.contiguous())
-        if scores.is_cuda:
-            d_scores, d_loc, d_aw = _scores_bwd_cuda(*args, deterministic=ctx.deterministic)
-        else:
-            d_scores, d_loc, d_aw = deform_sample_scores_bwd_plain(*args)
+        with span("deform.scores_bwd"):
+            if scores.is_cuda:
+                d_scores, d_loc, d_aw = _scores_bwd_cuda(*args, deterministic=ctx.deterministic)
+            else:
+                d_scores, d_loc, d_aw = deform_sample_scores_bwd_plain(*args)
         need = ctx.needs_input_grad
         return (d_scores if need[0] else None, d_loc if need[1] else None, d_aw if need[2] else None, None, None)
 
@@ -247,7 +251,8 @@ def deform_sample_scores(
     card forward and backward are the hand-written kernels. K6 gives the same
     bits on every run wherever its gradient row fits in shared memory;
     `deterministic` makes the backward raise for a shape where it does not."""
-    return DeformSampleScores.apply(scores, loc01, attn_weights, tuple(spatial_shape), deterministic)
+    with span("deform.scores"):
+        return DeformSampleScores.apply(scores, loc01, attn_weights, tuple(spatial_shape), deterministic)
 
 
 def deform_sample_vectors_plain(
@@ -539,10 +544,11 @@ class DeformSampleVectors(torch.autograd.Function):
     def backward(ctx, gbar):
         value, loc01, attn_weights = ctx.saved_tensors
         args = (value, ctx.spatial_shape, loc01, attn_weights, gbar.contiguous())
-        if value.is_cuda:
-            d_value, d_loc, d_aw = _vectors_bwd_cuda(*args, deterministic=ctx.deterministic)
-        else:
-            d_value, d_loc, d_aw = deform_sample_vectors_bwd_plain(*args)
+        with span("deform.vectors_bwd"):
+            if value.is_cuda:
+                d_value, d_loc, d_aw = _vectors_bwd_cuda(*args, deterministic=ctx.deterministic)
+            else:
+                d_value, d_loc, d_aw = deform_sample_vectors_bwd_plain(*args)
         need = ctx.needs_input_grad
         return (d_value if need[0] else None, d_loc if need[1] else None, d_aw if need[2] else None, None, None)
 
@@ -559,4 +565,5 @@ def deform_sample_vectors(
     Differentiable in values, locations and weights on both devices; on the
     card forward and backward are the hand-written kernels. `deterministic`
     picks K8's sorted mode (same bits on every run) over its atomic adds."""
-    return DeformSampleVectors.apply(value, loc01, attn_weights, tuple(spatial_shape), deterministic)
+    with span("deform.vectors"):
+        return DeformSampleVectors.apply(value, loc01, attn_weights, tuple(spatial_shape), deterministic)

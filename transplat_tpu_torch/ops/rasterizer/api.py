@@ -7,6 +7,12 @@ Counterpart of transplat_tpu/ops/rasterizer/api.py. Modes:
                 tensors, and their plain PyTorch versions run for CPU tensors
   * "reference" the naive per-pixel oracle (differentiable by autograd)
 
+`render` projects inside the span `render.project`; the tile path sorts,
+bins and composites inside `render.sort`, `render.bin` (K1, and the host
+read of the number of pairs) and `render.composite` (K3's forward), and
+counts its pairs and views (utils/trace.py `counters`: `render.pairs`,
+`render.views`).
+
 Both modes are differentiable in the Gaussians and the background on both
 devices: the gradient reaches the projection and the depth sort's gather by
 autograd, and the tile lists are constants.
@@ -25,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from ...geometry.projection import get_fov
+from ...utils import trace
 from .binning import bin_gaussians, sort_by_depth
 from .composite import composite_tiles
 from .projection import ProjectedGaussians, project_gaussians
@@ -101,11 +108,15 @@ def rasterize(
                 for i in range(proj.depth.shape[0])
             ]
         )
-    gfeat, colors = sort_by_depth(proj, feature)
-    with torch.no_grad():  # the lists are integers: constants of the gradient
+    with trace.span("render.sort"):
+        gfeat, colors = sort_by_depth(proj, feature)
+    with trace.span("render.bin"), torch.no_grad():  # the lists are integers: constants of the gradient
         lists = bin_gaussians(gfeat, image_shape, cfg.tile_size)
+    trace.count("render.pairs", lists.idx.numel())
+    trace.count("render.views", proj.depth.shape[0])
     background = background.to(colors.dtype).contiguous()
-    return composite_tiles(gfeat, colors, lists, background, image_shape, cfg.tile_size, deterministic)
+    with trace.span("render.composite"):
+        return composite_tiles(gfeat, colors, lists, background, image_shape, cfg.tile_size, deterministic)
 
 
 def render(
@@ -125,10 +136,11 @@ def render(
     deterministic: bool = False,  # a backward that repeats its bits (K2's sorted mode)
 ) -> RenderOutput:
     """Render B views of B Gaussian sets. Returns colours (B, h, w, C)."""
-    proj = project_views(
-        extrinsics, intrinsics, near, means, covariances, sh, opacities,
-        image_shape, scale_invariant,
-    )
+    with trace.span("render.project"):
+        proj = project_views(
+            extrinsics, intrinsics, near, means, covariances, sh, opacities,
+            image_shape, scale_invariant,
+        )
     color = rasterize(proj, image_shape, background, feature, cfg, deterministic)
     radii = torch.where(proj.valid, proj.radius, torch.zeros_like(proj.radius))
     overflow = torch.zeros(means.shape[0], dtype=torch.int32, device=means.device)

@@ -9,11 +9,13 @@ Builds the re10k encoder with the seeded random weights of chip_smoke.py
 synchronize), then traces as many with torch.profiler. Prints one JSON line
 per stage and per top device kernel, and a summary line.
 
-Stages are spans recorded with record_function: the request, the encoder and
-its parts (backbone, DAv2 prior, depth predictor with its UV matcher and two
-U-Nets). What the encoder does outside its parts (preprocessing, adapter)
-and the decoder (projection, sorts, binning, compositing) are printed as the
-differences of spans; nothing inside them is attributed.
+Stages are the program's own spans (utils/trace.py): the encoder's ten
+`STAGES`, the deformable samplers inside them, and the render's four steps
+(`render.project`, `.sort`, `.bin`, `.composite`), beside this tool's span
+around the request. What the request does outside the stages and the
+render's steps (the upload of the context, the decoder's reshapes, the
+read-back of the colours) is printed as a difference of spans; nothing
+inside it is attributed.
 
 The device's busy time is the union of the intervals of the device events
 (kernels, copies, sets) in the traced window, per request. Its idle share is
@@ -29,11 +31,14 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from .utils.stage_timing import union_us
+from .utils.trace import span
 
 SEED = 0
+SAMPLER_SPANS = ("deform.scores", "deform.vectors")
+RENDER_SPANS = ("render.project", "render.sort", "render.bin", "render.composite")
 
 
 def report(prof, spans, differences, count: int, top: int, wall_ms: float) -> tuple[float, float]:
@@ -90,30 +95,17 @@ def main() -> None:
 
     from .dataset import synthetic_batch
     from .inference import init_random, re10k_encoder_cfg, render_novel_views
-    from .model.encoder import EncoderTranSplat
+    from .model.encoder import STAGES, EncoderTranSplat
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     encoder = EncoderTranSplat(re10k_encoder_cfg(), device="cuda")
     init_random(encoder, SEED)
     batch = synthetic_batch(SEED, batch_size=1, num_context=2, num_target=4, image_shape=(256, 256))
-    dp = encoder.depth_predictor
-    stages = {
-        "encoder": encoder,
-        "encoder.backbone": encoder.backbone,
-        "encoder.dav2": encoder.da_model,
-        "encoder.depth_predictor": dp,
-        "encoder.depth_predictor.uv_matcher": dp.uv_matcher,
-        "encoder.depth_predictor.corr_unet": dp.corr_unet,
-        "encoder.depth_predictor.refine_unet": dp.refine_unet,
-    }
-    for name, mod in stages.items():
-        mod.register_forward_pre_hook(lambda m, a, n=name: m.__dict__.setdefault("_rf", []).append(record_function(n).__enter__()))
-        mod.register_forward_hook(lambda m, a, o: m.__dict__["_rf"].pop().__exit__(None, None, None))
-    spans = ("request", *stages)
+    spans = ("request", *STAGES, *SAMPLER_SPANS, *RENDER_SPANS)
 
     def request():
-        with record_function("request"):
+        with span("request"):
             return render_novel_views(encoder, batch["context"], batch["target"], (256, 256))
 
     request()
@@ -132,10 +124,7 @@ def main() -> None:
             request()
         torch.cuda.synchronize()
         traced_wall_ms = (time.perf_counter() - t0) * 1e3 / args.requests
-    differences = (
-        ("encoder outside its parts (not attributed)", "encoder", ("encoder.backbone", "encoder.dav2", "encoder.depth_predictor")),
-        ("decoder (not attributed)", "request", ("encoder",)),
-    )
+    differences = (("request outside the stages and the render's steps (not attributed)", "request", (*STAGES, *RENDER_SPANS)),)
     busy_ms, summed_ms = report(prof, spans, differences, args.requests, args.top, min(wall_ms, traced_wall_ms))
     print(json.dumps({
         "summary": "per request", "requests": args.requests, "wall_ms": wall_ms, "wall_ms_all": times,

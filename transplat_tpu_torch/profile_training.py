@@ -29,9 +29,10 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from .profile_serving import report
+from .utils.trace import span
 
 SEED = 0
 SPANS = ("step", "train.encoder", "train.decoder", "train.loss", "train.backward", "train.optimizer")
@@ -57,7 +58,7 @@ def main() -> None:
     state, train_step, batch, gen = build(cfg, (256, 256), "cuda", SEED)
 
     def step():
-        with record_function("step"):
+        with span("step"):
             train_step(state, batch, gen)
 
     step()

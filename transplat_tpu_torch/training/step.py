@@ -7,8 +7,8 @@ runs on every rank of a dp x sp mesh and equals the one-process step on the
 joined batch; see `make_train_step`. On the card the gradients of the deformable
 sampler and of the rasterizer come from the hand-written backward kernels
 (ops/deform.py, ops/rasterizer/composite.py); everything else is autograd.
-The stages of a step are marked with record_function spans (`train.*`),
-which profile_training.py reads.
+The stages of a step are marked with spans (utils/trace.py: `train.*`),
+which profile_training.py and the benchmark read.
 
 Under the encoder's `compute_dtype="bfloat16"` the depth predictor and the
 loss's LPIPS compute in bfloat16; the parameters, their gradients and the
@@ -28,7 +28,6 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
-from torch.profiler import record_function
 
 from ..loss.losses import LossCfg, compute_losses
 from ..loss.vgg import LPIPS, init_lpips
@@ -39,6 +38,7 @@ from ..evaluation.metrics import compute_psnr
 from ..model.init import init_parameters
 from ..model.layers import Dropout, batch_stats_over
 from ..parallel.mesh import all_reduce_mean_, constrain, view_slice
+from ..utils.trace import span
 
 
 @dataclass
@@ -203,21 +203,21 @@ def loss_and_grads(
     try:
         ctx, tgt = batch["context"], batch["target"]
         with repeatable_ops(deterministic_kernels), batch_stats_over(encoder, stats_group, mesh):
-            with record_function("train.encoder"):
+            with span("train.encoder"):
                 gaussians = encoder(
                     *(ctx[k] for k in CONTEXT_KEYS), global_step=state.step, generator=generator,
                     deterministic_kernels=deterministic_kernels,
                 )
                 gaussians = constrain(gaussians, mesh)
-            with record_function("train.decoder"):
+            with span("train.decoder"):
                 out = decode_splatting(
                     gaussians, tgt["extrinsics"], tgt["intrinsics"], tgt["near"], tgt["far"], image_shape,
                     cfg=decoder_cfg, deterministic_kernels=deterministic_kernels, mesh=mesh,
                 )
                 target = tgt["image"][:, view_slice(tgt["image"].shape[1], mesh)]
-            with record_function("train.loss"):
+            with span("train.loss"):
                 loss, parts = compute_losses(loss_cfg, out.color, target, state.step, lpips_fn=_loss_lpips(state))
-            with record_function("train.backward"):
+            with span("train.backward"):
                 grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     finally:
         encoder.eval()
@@ -295,10 +295,10 @@ def make_train_step(
             state, batch, loss_cfg, decoder_cfg, image_shape, generator, deterministic, deterministic_kernels, mesh
         )
         if mesh is not None:
-            with record_function("train.all_reduce"):
+            with span("train.all_reduce"):
                 all_reduce_mean_(list(grads.values()), mesh, name="gradients")
                 metrics = _world_metrics(metrics, metrics.pop("psnr_mse"), mesh)
-        with record_function("train.optimizer"):
+        with span("train.optimizer"):
             metrics["grad_norm"] = optimizer.update(state.trainable(), grads, state.opt_state)
         metrics["lr"] = optimizer.lr_schedule(state.step)
         state.step += 1
