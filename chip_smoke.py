@@ -12,7 +12,8 @@ card and check them.
    pixels and outside the map) serves one warm-up and five requests of
    2 context views at 256x256 -> 131,072 Gaussians -> 4 target views at
    256x256. Launch counts are reset just before the five requests and read
-   just after; every forward kernel must have launched.
+   just after; every forward kernel must have launched, the Gaussian
+   adapter's kernel once a request.
 3. Each kernel is held against its plain PyTorch version on the card at the
    shapes of the paths (K1, K3, K4 and K2 on the Gaussians a request
    produced and on a synthetic scene of elongated splats; K1's three kernels
@@ -25,7 +26,9 @@ card and check them.
    of a 64x64x128 value map with self-attention-like locations; K5 at P = 1
    also on the encoder's own epipolar locations, K6 at P = 4 on the
    encoder's own cross-attention locations, K6 at a shape that takes its
-   general path), and timed beside its bound, its plain version and, where
+   general path; the Gaussian adapter stage's kernel, which stands for no
+   TPU kernel, against the plain stage at the serving widths, 2 and 3 views
+   of 256x256), and timed beside its bound, its plain version and, where
    there is one, a library call (grid_sample, index_add_, searchsorted):
    device time by torch.profiler (median of 20 calls; `device_ms` with the
    wrapper's fills, `kernel_ms` the kernel alone, see
@@ -599,6 +602,100 @@ def check_deform_vectors(dev, launches: dict) -> dict:
     )
     emit({"phase": "kernel", "tolerance": tol, "shape": dict(pairs=n, q=q, c=c, p=p, h=h, w=w),
           "value_rows_touched": rows, "value_rows_total": n * h * w, "bytes": nbytes, **rec})
+    return rec
+
+
+def _rotation(rng, kind: str) -> np.ndarray:
+    """A proper rotation: the identity, a turn of pi - 1e-3 about a random
+    axis ("near_180"), or a random turn about a random axis."""
+    if kind == "identity":
+        return np.eye(3)
+    axis = rng.standard_normal(3)
+    axis /= np.linalg.norm(axis)
+    angle = np.pi - 1e-3 if kind == "near_180" else rng.uniform(0.0, np.pi)
+    k = np.array([[0.0, -axis[2], axis[1]], [axis[2], 0.0, -axis[0]], [-axis[1], axis[0], 0.0]])
+    return np.eye(3) + np.sin(angle) * k + (1.0 - np.cos(angle)) * k @ k
+
+
+def adapter_case(dev, b: int, v: int, shape, degree: int, step: int, seed: int, planar: bool = True):
+    """Inputs of the encoder's stage 5 (model/encoder.py `adapt_stage`) at b
+    x v views of `shape`, SH `degree`: cameras turned in turn by the
+    identity, a turn of pi - 1e-3 and a random rotation; off-centre
+    intrinsics with a skew; depths in [0.5, 50], densities in (0, 1); raw
+    channels N(0, 1), laid out as the encoder's (`planar`: one channel of
+    consecutive pixels contiguous) or as rows; an opacity warm-up of 10
+    steps from exponent 0.5 to 2, at `step`. Returns (EncoderCfg, the
+    arguments of adapt_stage after the configuration)."""
+    from transplat_tpu_torch.model.adapter import GaussianAdapterCfg
+    from transplat_tpu_torch.model.encoder import EncoderCfg, OpacityMappingCfg
+
+    cfg = EncoderCfg(gaussian_adapter=GaussianAdapterCfg(sh_degree=degree),
+                     opacity_mapping=OpacityMappingCfg(-1.0, 1.0, 10))
+    rng = np.random.default_rng(seed)
+    r = shape[0] * shape[1]
+    kinds = ("identity", "near_180", "random")
+    extr = np.tile(np.eye(4), (b, v, 1, 1))
+    for i in range(b * v):
+        extr[i // v, i % v, :3, :3] = _rotation(rng, kinds[i % 3])
+        extr[i // v, i % v, :3, 3] = rng.standard_normal(3)
+    intr = np.tile(np.eye(3), (b, v, 1, 1))
+    intr[..., 0, 0], intr[..., 1, 1] = rng.uniform(0.8, 1.4, (b, v)), rng.uniform(0.8, 1.4, (b, v))
+    intr[..., 0, 1] = rng.uniform(-0.02, 0.02, (b, v))
+    intr[..., 0, 2], intr[..., 1, 2] = rng.uniform(0.3, 0.7, (b, v)), rng.uniform(0.3, 0.7, (b, v))
+    channels = 2 + cfg.gaussian_adapter.d_in
+    if planar:
+        raw = torch.from_numpy(rng.standard_normal((b, v, channels, r))).transpose(-1, -2)
+    else:
+        raw = torch.from_numpy(rng.standard_normal((b, v, r, channels)))
+    depth, density = rng.uniform(0.5, 50.0, (b, v, r)), rng.uniform(0.0, 1.0, (b, v, r))
+    f32 = lambda a: torch.as_tensor(a).to(dev, torch.float32)  # noqa: E731 (keeps raw's layout)
+    return cfg, (f32(extr), f32(intr), f32(raw), f32(depth), f32(density), step, tuple(shape))
+
+
+# The stage's kernel against the plain stage: the same float32 operations,
+# the plain version's small matmuls and inverses in their library's order.
+# Per field, max |kernel - plain| over max |plain|.
+ADAPTER_TOL = 1e-5
+
+
+def adapter_errors(got: dict, ref: dict) -> dict:
+    """Each field's largest gap over the plain field's largest value."""
+    return {k: scaled_err(got[k], ref[k].reshape(got[k].shape)) for k in got}
+
+
+def adapter_flops(degree: int) -> int:
+    """Operations a Gaussian: the SH rotation's products and sums and its
+    damping, and ~250 for the rays, opacity, scales, quaternion and the
+    covariance's three 3x3 products."""
+    return 3 * sum((2 * l + 1) * (4 * l + 1) + (2 * l + 1) for l in range(1, degree + 1)) + 250
+
+
+def check_gaussian_adapter(dev, views: int, launches: dict) -> dict:
+    """The Gaussian adapter stage's kernel at a serving width (1 x `views`
+    views of 256^2, SH 4) against the plain stage, and timed beside its
+    byte bound and the plain stage (one call between CUDA events)."""
+    from transplat_tpu_torch.model.adapter import adapt_gaussians_fused
+    from transplat_tpu_torch.model.encoder import adapt_stage, adapt_stage_plain, opacity_exponent
+
+    cfg, args = adapter_case(dev, 1, views, IMAGE, 4, 50, SEED + 20 + views)
+    extr, intr, raw, depth, density, step, shape = args
+    errs = adapter_errors(adapt_stage(cfg, *args, with_aux=True), adapt_stage_plain(cfg, *args, with_aux=True))
+    require(max(errs.values()) <= ADAPTER_TOL, f"gaussian_adapter at {views} views: {errs}")
+    exponent = opacity_exponent(cfg.opacity_mapping, step)
+    plain_ms = time_ms(lambda: adapt_stage_plain(cfg, *args), iters=5, warmup=1)
+    times = timings(lambda: adapt_gaussians_fused(cfg.gaussian_adapter, extr, intr, raw, depth, density, exponent,
+                                                  cfg.gaussians_per_pixel, shape), "gaussian_adapter_kernel")
+    g = views * shape[0] * shape[1]
+    out_floats = 3 + 9 + 3 * cfg.gaussian_adapter.d_sh + 1
+    nbytes = 4 * (raw.numel() + depth.numel() + density.numel() + intr.numel() + extr.numel() + g * out_floats)
+    b_ms, b_by = bound(nbytes, g * adapter_flops(4))
+    rec = dict(
+        name="gaussian_adapter", route="cuda", source="transplat_tpu_torch/csrc/gaussian_adapter.cu",
+        replaces=None, launches=launches.get("gaussian_adapter", 0), max_abs_err=max(errs.values()),
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **times,
+    )
+    emit({"phase": "kernel", "tolerance": ADAPTER_TOL, "errors": errs, "gaussians": g, "bytes": nbytes,
+          "shape": dict(b=1, views=views, h=shape[0], w=shape[1], sh_degree=4), **rec})
     return rec
 
 
@@ -2446,6 +2543,8 @@ def parallel_phase(records: list[dict], smi: str) -> None:
 
 
 # The stage tools' rows and the hand-written kernels each must launch, no other.
+# The encoder's forward rows run without a gradient, so stage 5 takes its
+# kernel (gaussian_adapter); with the backward it takes the plain version.
 # The depth predictor's rows take the backbone's features as constants: the
 # epipolar matching (K5 at P = 1) has no parameter before it there, so its
 # backward (K6 at P = 1) runs only in the encoder's.
@@ -2456,9 +2555,10 @@ RENDER_FWD = frozenset({"bin_count", "bin_scan", "bin_place", "composite"})
 RENDER_BWD = RENDER_FWD | {"composite_bwd", "bin_bwd"}
 STAGE_KERNELS = {
     "encoder_4b_cost_volume_matching": MATCHING_FWD, "decoder": RENDER_FWD,
+    "encoder_5_gaussian_adapter": frozenset({"gaussian_adapter"}),
     "depth_pred fwd": MATCHING_FWD, "depth_pred fwd+bwd": MATCHING_PARAMS_BWD,
     "4b matching fwd": MATCHING_FWD, "4b matching fwd+bwd": MATCHING_PARAMS_BWD,
-    "encoder fwd": MATCHING_FWD, "encoder fwd+bwd": MATCHING_BWD,
+    "encoder fwd": MATCHING_FWD | {"gaussian_adapter"}, "encoder fwd+bwd": MATCHING_BWD,
     "render fwd": RENDER_FWD, "render fwd+bwd": RENDER_BWD,
 }
 STAGE_ITERS = 2
@@ -2656,6 +2756,7 @@ def main() -> int:
     require(bool(torch.isfinite(out).all()), "non-finite output")
     for name in FORWARD_KERNELS:
         require(launches.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
+    require(launches.get("gaussian_adapter", 0) == REQUESTS, f"gaussian_adapter launched {launches.get('gaussian_adapter', 0)} times in {REQUESTS} requests")
     with torch.no_grad():
         gaussians = encoder(*(torch.as_tensor(ctx[k], device=dev) for k in ("image", "intrinsics", "extrinsics", "near", "far")))
     g = gaussians.means.shape[1]
@@ -2672,7 +2773,8 @@ def main() -> int:
     check_deform_bwd_general(dev)
     records = [check_deform(dev, 1, launches), check_deform(dev, 4, launches),
                check_deform_bwd(dev, 1), check_deform_bwd(dev, 4),
-               check_deform_vectors(dev, launches), *check_deform_vectors_bwd(dev)]
+               check_deform_vectors(dev, launches), *check_deform_vectors_bwd(dev),
+               check_gaussian_adapter(dev, 2, launches), check_gaussian_adapter(dev, 3, launches)]
     tv = NUM_TARGET
     rep = lambda x: x.expand(tv, *x.shape[1:]).contiguous()  # noqa: E731
     cams = [torch.as_tensor(tgt[k][0], device=dev) for k in ("extrinsics", "intrinsics", "near")]

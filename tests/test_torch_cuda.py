@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import require_composite
+from chip_smoke import ADAPTER_TOL, adapter_case, adapter_errors, require_composite
 from chip_smoke import synthetic_scene as scene
 from transplat_tpu_torch import kernels
 from transplat_tpu_torch.ops import deform
@@ -925,9 +925,10 @@ def test_time_blocking_covers_the_device_time(dev):
 def test_stage_tools_launch_their_kernels_at_a_tiny_width(dev):
     """The train sub-graphs at the tiny width on the card: the render rows
     launch K1 and K3 (and K4 and K2 with the backward), the encoder rows K5
-    and K7 (and K6 and K8 with the backward), LPIPS none; the stage profile
-    counts the hand-written kernels' bytes in the matching stage and the
-    decoder, and its Gaussians are the fused encoder's bit for bit."""
+    and K7 (and K6 and K8 with the backward), the forward alone also the
+    Gaussian adapter's kernel, LPIPS none; the stage profile counts the
+    hand-written kernels' bytes in the matching stage, the adapter stage
+    and the decoder, and its Gaussians are the fused encoder's bit for bit."""
     from transplat_tpu_torch import bench_train_stages, profile_stages
     from transplat_tpu_torch.utils.stage_timing import time_rows
 
@@ -937,16 +938,17 @@ def test_stage_tools_launch_their_kernels_at_a_tiny_width(dev):
     assert set(rows["render fwd"]) == {"bin_count", "bin_scan", "bin_place", "composite"}
     assert set(rows["render fwd+bwd"]) == {"bin_count", "bin_scan", "bin_place", "composite", "composite_bwd",
                                            "bin_bwd"}
-    assert {"deform_scores_p1", "deform_scores_p4", "deform_vectors"} == set(rows["encoder fwd"])
+    assert {"deform_scores_p1", "deform_scores_p4", "deform_vectors", "gaussian_adapter"} == set(rows["encoder fwd"])
+    assert "gaussian_adapter" not in rows["encoder fwd+bwd"]  # under a gradient stage 5 takes its plain version
     assert {"deform_scores_bwd_p1", "deform_scores_bwd_p4", "deform_vectors_bwd"} < set(rows["encoder fwd+bwd"])
     assert rows["lpips fwd"] == {} and rows["lpips fwd+bwd"] == {}
 
     encoder, batch = profile_stages.build(True, dev)
     result = profile_stages.profile(encoder, batch, 1, dev)
     by_stage = {r["stage"]: r for r in result["rows"]}
-    assert by_stage["encoder_4b_cost_volume_matching"]["kernel_gb"] > 0 and by_stage["decoder"]["kernel_gb"] > 0
-    assert all(r["kernel_gb"] == 0 for s, r in by_stage.items()
-               if s not in ("encoder_4b_cost_volume_matching", "decoder"))
+    with_kernels = ("encoder_4b_cost_volume_matching", "encoder_5_gaussian_adapter", "decoder")
+    assert all(by_stage[s]["kernel_gb"] > 0 for s in with_kernels)
+    assert all(r["kernel_gb"] == 0 for s, r in by_stage.items() if s not in with_kernels)
     with torch.no_grad():
         fused = encoder(*(torch.as_tensor(batch["context"][k], device=dev)
                           for k in ("image", "intrinsics", "extrinsics", "near", "far")))
@@ -976,3 +978,110 @@ def test_sampler_backward_spans_on_autograds_thread_hold_their_launches(dev):
     for name in ("deform.scores_bwd", "deform.vectors_bwd"):
         r = spans[name].time_range
         assert any(r.start <= t <= r.end for t in launches), name
+
+
+# The Gaussian adapter stage's kernel (csrc/gaussian_adapter.cu) against the
+# plain stage, on the card.
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("shape", [(256, 256), (37, 53)])
+@pytest.mark.parametrize("b,v,step", [(1, 2, 3), (2, 3, 50)])
+def test_gaussian_adapter_matches_plain(dev, b, v, step, shape, degree):
+    """All six outputs within ADAPTER_TOL of the plain stage: SH degrees 0-4,
+    cameras turned by the identity, near 180 degrees and at random, off-centre
+    intrinsics, inside (step 3) and after (step 50) the opacity warm-up; one
+    launch, no host synchronisation."""
+    from transplat_tpu_torch.model.encoder import adapt_stage, adapt_stage_plain
+
+    cfg, args = adapter_case(dev, b, v, shape, degree, step, seed=degree + 10 * b)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = adapt_stage(cfg, *args, with_aux=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.launches == {"gaussian_adapter": 1}
+    errs = adapter_errors(got, adapt_stage_plain(cfg, *args, with_aux=True))
+    assert set(errs) == {"means", "covariances", "harmonics", "opacities", "scales", "rotations"}
+    assert max(errs.values()) <= ADAPTER_TOL, errs
+
+
+@pytest.mark.parametrize("step", [0, 5, 10])
+def test_gaussian_adapter_opacity_exponents_and_row_layout(dev, step):
+    """The warm-up's exponents that PyTorch's pow special-cases (0.5, 1, 2),
+    on raw channels laid out as rows rather than planes."""
+    from transplat_tpu_torch.model.encoder import adapt_stage, adapt_stage_plain
+
+    cfg, args = adapter_case(dev, 2, 2, (37, 53), 4, step, seed=step, planar=False)
+    assert args[2].stride()[-1] == 1
+    errs = adapter_errors(adapt_stage(cfg, *args, with_aux=True), adapt_stage_plain(cfg, *args, with_aux=True))
+    assert max(errs.values()) <= ADAPTER_TOL, errs
+
+
+def test_gaussian_adapter_repeats_its_bits_and_the_plain_path_syncs(dev):
+    from transplat_tpu_torch.model.encoder import adapt_stage, adapt_stage_plain
+
+    cfg, args = adapter_case(dev, 1, 2, (256, 256), 4, 3, seed=7)
+    first, second = adapt_stage(cfg, *args, with_aux=True), adapt_stage(cfg, *args, with_aux=True)
+    assert all(torch.equal(first[k], second[k]) for k in first)
+    # The witness that the sync check above sees a host read: the plain stage's inverses.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            adapt_stage_plain(cfg, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_gaussian_adapter_rejects_bad_input_and_grad_takes_the_plain_path(dev):
+    from transplat_tpu_torch.model.adapter import adapt_gaussians_fused
+    from transplat_tpu_torch.model.encoder import adapt_stage
+    from transplat_tpu_torch.utils import trace
+
+    cfg, args = adapter_case(dev, 1, 2, (16, 24), 2, 3, seed=1)
+    extr, intr, raw, depth, density, step, shape = args
+    call = lambda *t, **kw: adapt_gaussians_fused(cfg.gaussian_adapter, *t, 1.0, 1, shape, **kw)  # noqa: E731
+    with pytest.raises(ValueError, match="CUDA"):
+        call(extr.cpu(), intr.cpu(), raw.cpu(), depth.cpu(), density.cpu())
+    with pytest.raises(ValueError, match="float64"):
+        call(extr, intr, raw.double(), depth, density)
+    with pytest.raises(ValueError, match="shape"):
+        call(extr, intr, raw[..., :-1], depth, density)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(extr, intr, raw, depth.repeat(1, 1, 2)[..., ::2], density)
+    with pytest.raises(ValueError, match="requires grad"):
+        call(extr, intr, raw.clone().requires_grad_(), depth, density)
+    raw_g = raw.clone().requires_grad_()
+    trace.reset_counters()
+    kernels.reset_launches()
+    out = adapt_stage(cfg, extr, intr, raw_g, depth, density, step, shape)
+    assert trace.counters() == {"adapter.plain": 1} and kernels.launches == {}
+    assert out["harmonics"].requires_grad
+    with torch.no_grad():
+        adapt_stage(cfg, extr, intr, raw_g, depth, density, step, shape)
+    assert trace.counters() == {"adapter.plain": 1, "adapter.fused": 1} and kernels.launches == {"gaussian_adapter": 1}
+
+
+def test_encoder_takes_the_adapter_kernel_only_without_a_gradient(dev):
+    """The tiny encoder on the card: a forward without a gradient takes the
+    kernel, one with (eval mode, parameters requiring grad) the plain
+    stage; the two give the same Gaussians within ADAPTER_TOL."""
+    from transplat_tpu_torch.dataset import synthetic_batch
+    from transplat_tpu_torch.utils import trace
+
+    encoder = _tiny_encoder(dev)
+    batch = synthetic_batch(0, image_shape=(64, 64), num_target=1)
+    ctx = [torch.as_tensor(batch["context"][k], device=dev) for k in ("image", "intrinsics", "extrinsics", "near", "far")]
+    trace.reset_counters()
+    kernels.reset_launches()
+    with torch.no_grad():
+        fast = encoder(*ctx)
+    assert trace.counters() == {"adapter.fused": 1} and kernels.launches["gaussian_adapter"] == 1
+    plain = encoder(*ctx)
+    assert trace.counters() == {"adapter.fused": 1, "adapter.plain": 1} and kernels.launches["gaussian_adapter"] == 1
+    assert plain.means.requires_grad
+    for name, a, b in zip(fast._fields, fast, plain):
+        err = float((a - b.detach()).abs().max() / b.detach().abs().max())
+        assert err <= ADAPTER_TOL, (name, err)

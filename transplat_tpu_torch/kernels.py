@@ -35,7 +35,7 @@ _CSRC = Path(__file__).parent / "csrc"
 _BUILD_ROOT = Path(__file__).parent / "_build"
 _SOURCES = (
     "deform_scores.cu", "deform_scores_bwd.cu", "binning.cu", "binning_bwd.cu",
-    "composite.cu", "composite_bwd.cu", "deform_vectors.cu", "deform_vectors_bwd.cu",
+    "composite.cu", "composite_bwd.cu", "deform_vectors.cu", "deform_vectors_bwd.cu", "gaussian_adapter.cu",
 )
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,7 +46,7 @@ _NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     # scores, loc, aw, out, n_queries, h, w, d, p, stream
     "tp_deform_scores": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
@@ -79,6 +79,10 @@ _SIGNATURES = {
     "tp_deform_vectors_bwd_order": (_P, _P, _P, _P, _LL, _LL, _I, _P),
     # gbar, corner_w, perm, offsets, d_value, n_rows, c, corners_per_query, stream
     "tp_deform_vectors_bwd_sorted": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
+    # raw, depth, density, intr, extr, means, cov, harm, opac, scales (or null), rots (or null),
+    # b, v, h, w, sh degree, raw's strides (b, v, pixel, channel), scale_min, scale_max - scale_min,
+    # exponent, 1 / exponent, gaussians_per_pixel, stream
+    "tp_gaussian_adapter": (*(_P,) * 11, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _F, _F, _D, _D, _I, _P),
 }
 # Entries that launch nothing (no stream argument): c, int[4] info out.
 _QUERIES = {"tp_composite_attributes": (_I, _P), "tp_composite_bwd_attributes": (_I, _P)}
@@ -181,11 +185,13 @@ def call(name: str, counter: str, *args) -> None:
         observe(counter, args)
 
 
-def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int | None = None) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and `ndim`)
-    that a raw launch may take: a launch records no graph, so a tensor that
-    requires grad is refused while autograd is recording (the differentiable
-    wrappers launch from inside their autograd.Function, where it is not)."""
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int | None = None,
+                      contiguous: bool = True) -> None:
+    """Raise unless `t` is a CUDA tensor of `dtype` (and `ndim`), contiguous
+    unless the kernel takes strides, that a raw launch may take: a launch
+    records no graph, so a tensor that requires grad is refused while autograd
+    is recording (the differentiable wrappers launch from inside their
+    autograd.Function, where it is not)."""
     if t.requires_grad and torch.is_grad_enabled():
         raise ValueError(f"{name}: requires grad, and a raw kernel launch would cut the graph; use the differentiable wrapper")
     if not t.is_cuda:
@@ -194,5 +200,5 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int 
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if ndim is not None and t.ndim != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

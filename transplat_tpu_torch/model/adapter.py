@@ -1,7 +1,13 @@
 """Raw network outputs -> world-space Gaussians (counterpart of
 transplat_tpu/model/adapter.py): sigmoid scale mapping x depth x pixel-size
 multiplier, quaternion normalize, SH damping mask, covariance rotated to
-world, means from camera rays, SH rotated by the camera-to-world rotation."""
+world, means from camera rays, SH rotated by the camera-to-world rotation.
+
+`adapt_gaussians` is the plain version. `adapt_gaussians_fused` launches the
+hand-written kernel csrc/gaussian_adapter.cu, which does the encoder's whole
+stage 5 (the pixel offsets and the opacity too) in one launch and writes the
+Gaussians' layouts; the encoder takes it where `fused_adapter_applies`.
+"""
 
 from __future__ import annotations
 
@@ -9,6 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import kernels
 from ..geometry.gaussians import build_covariance
 from ..geometry.projection import get_world_rays
 from ..geometry.sh import rotate_sh
@@ -79,3 +86,60 @@ def adapt_gaussians(
         "scales": scales,
         "rotations": rotations,
     }
+
+
+def fused_adapter_applies(*tensors: torch.Tensor) -> bool:
+    """Whether the encoder's stage 5 takes the kernel: every input a float32
+    CUDA tensor, and none requiring grad while autograd records (the kernel
+    has no backward; training takes the plain version)."""
+    if not all(t.is_cuda and t.dtype == torch.float32 for t in tensors):
+        return False
+    return not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
+def adapt_gaussians_fused(
+    cfg: GaussianAdapterCfg,
+    extrinsics: torch.Tensor,  # (b, v, 4, 4)
+    intrinsics: torch.Tensor,  # (b, v, 3, 3) normalized
+    raw: torch.Tensor,  # (b, v, r, 2 + d_in): pixel offsets, then adapt_gaussians' raw channels; any strides
+    depths: torch.Tensor,  # (b, v, r)
+    densities: torch.Tensor,  # (b, v, r)
+    opacity_exponent: float,  # model/encoder.py opacity_exponent at the step
+    gaussians_per_pixel: int,
+    image_shape: tuple[int, int],
+    with_aux: bool = False,
+) -> dict:
+    """The encoder's stage 5 in one launch of csrc/gaussian_adapter.cu:
+    means (b, v*r, 3), covariances (b, v*r, 3, 3), harmonics (b, v*r, 3,
+    d_sh), opacities (b, v*r), and with `with_aux` scales (b, v*r, 3) and
+    rotations (b, v*r, 4), as the plain path computes them from the pixel
+    grid, `map_pdf_to_opacity` and `adapt_gaussians`."""
+    h, w = image_shape
+    b, v = extrinsics.shape[:2] if extrinsics.ndim == 4 else (-1, -1)
+    want = {
+        "extrinsics": (extrinsics, (b, v, 4, 4)), "intrinsics": (intrinsics, (b, v, 3, 3)),
+        "raw": (raw, (b, v, h * w, 2 + cfg.d_in)), "depths": (depths, (b, v, h * w)),
+        "densities": (densities, (b, v, h * w)),
+    }
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"adapt_gaussians_fused: {name} has shape {tuple(t.shape)}, expected {shape}")
+    if not 0 <= cfg.sh_degree <= 4:
+        raise ValueError(f"adapt_gaussians_fused: SH degree {cfg.sh_degree} (the kernel takes 0-4)")
+    for name, (t, _) in want.items():
+        kernels.check_cuda_tensor(name, t, torch.float32, contiguous=name != "raw")
+    g = v * h * w
+    shapes = {"means": (b, g, 3), "covariances": (b, g, 3, 3), "harmonics": (b, g, 3, cfg.d_sh), "opacities": (b, g)}
+    if with_aux:
+        shapes.update(scales=(b, g, 3), rotations=(b, g, 4))
+    out = {k: torch.empty(shape, dtype=torch.float32, device=raw.device) for k, shape in shapes.items()}
+    aux = [out[k].data_ptr() if with_aux else None for k in ("scales", "rotations")]
+    kernels.call(
+        "tp_gaussian_adapter", "gaussian_adapter",
+        raw.data_ptr(), depths.data_ptr(), densities.data_ptr(), intrinsics.data_ptr(), extrinsics.data_ptr(),
+        *(out[k].data_ptr() for k in ("means", "covariances", "harmonics", "opacities")), *aux,
+        b, v, h, w, cfg.sh_degree, *raw.stride(),
+        cfg.gaussian_scale_min, cfg.gaussian_scale_max - cfg.gaussian_scale_min,
+        opacity_exponent, 1.0 / opacity_exponent, gaussians_per_pixel,
+    )
+    return out

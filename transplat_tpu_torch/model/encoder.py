@@ -11,6 +11,12 @@ forward runs the encoder as the ten stages of the reference's taxonomy
 (`STAGES`, encoder_1 ... encoder_5), each inside a span of its name
 (utils/trace.py); a caller may also wrap each one in a context of its own
 (`stage`), which is how evaluation/staged.py times them.
+
+Stage 5, the Gaussian adapter, is one launch of csrc/gaussian_adapter.cu
+where its inputs are float32 on the card and no gradient is recorded
+(serving, evaluation, the stage tools), and its plain PyTorch version
+otherwise (training, the CPU); `counters()["adapter.fused"]` and
+`["adapter.plain"]` count the two (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ from torch import nn
 
 from ..geometry.projection import sample_image_grid, unnormalize_intrinsics
 from ..ops.interpolate import resize_bilinear
-from .adapter import GaussianAdapterCfg, adapt_gaussians
+from ..utils.trace import count
+from .adapter import GaussianAdapterCfg, adapt_gaussians, adapt_gaussians_fused, fused_adapter_applies
 from .backbone.multiview import BackboneMultiview, normalize_images
 from .dav2 import DAV2_CONFIGS, DepthAnythingV2
 from .depth_predictor import DepthPredictor, img2world_matrices, stage_span
@@ -104,11 +111,62 @@ class EncoderCfg:
         return COMPUTE_DTYPES[self.compute_dtype]
 
 
+def opacity_exponent(cfg: OpacityMappingCfg, global_step: int = 0) -> float:
+    """The opacity curve's exponent at `global_step` of its warm-up."""
+    x = cfg.initial + min(global_step / cfg.warm_up, 1.0) * (cfg.final - cfg.initial)
+    return 2.0**x
+
+
 def map_pdf_to_opacity(pdf: torch.Tensor, cfg: OpacityMappingCfg, global_step: int = 0) -> torch.Tensor:
     """Warm-up-scheduled opacity curve."""
-    x = cfg.initial + min(global_step / cfg.warm_up, 1.0) * (cfg.final - cfg.initial)
-    exponent = 2.0**x
+    exponent = opacity_exponent(cfg, global_step)
     return 0.5 * (1.0 - (1.0 - pdf) ** exponent + pdf ** (1.0 / exponent))
+
+
+def adapt_stage(
+    cfg: EncoderCfg,
+    extrinsics: torch.Tensor,  # (b, v, 4, 4)
+    intrinsics: torch.Tensor,  # (b, v, 3, 3) normalized
+    raw: torch.Tensor,  # (b, v, r, 2 + d_in): the pixel offsets, then adapt_gaussians' channels
+    depth: torch.Tensor,  # (b, v, r)
+    density: torch.Tensor,  # (b, v, r)
+    global_step: int,
+    image_shape: tuple[int, int],
+    with_aux: bool = False,
+) -> dict:
+    """Stage 5: the Gaussians' fields (b, v*r, ...), and with `with_aux`
+    their scales and rotations. One kernel launch where every input is
+    float32 on the card and no gradient is recorded, the plain version
+    otherwise; counted as `adapter.fused` / `adapter.plain`."""
+    if fused_adapter_applies(raw, depth, density, intrinsics, extrinsics):
+        count("adapter.fused", 1)
+        return adapt_gaussians_fused(
+            cfg.gaussian_adapter, extrinsics.contiguous(), intrinsics.contiguous(), raw, depth.contiguous(),
+            density.contiguous(), opacity_exponent(cfg.opacity_mapping, global_step), cfg.gaussians_per_pixel,
+            image_shape, with_aux=with_aux,
+        )
+    count("adapter.plain", 1)
+    return adapt_stage_plain(cfg, extrinsics, intrinsics, raw, depth, density, global_step, image_shape, with_aux)
+
+
+def adapt_stage_plain(
+    cfg: EncoderCfg, extrinsics, intrinsics, raw, depth, density, global_step, image_shape, with_aux: bool = False
+) -> dict:
+    """Stage 5 in plain PyTorch: the pixel grid plus the predicted offsets,
+    the opacity curve, `adapt_gaussians`; the outputs of `adapt_stage`."""
+    (h, w), (b, v, r) = image_shape, depth.shape
+    xy, _ = sample_image_grid((h, w), device=raw.device)
+    xy = xy.reshape(1, 1, r, 2)
+    offset_xy = torch.sigmoid(raw[..., :2])
+    pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=raw.dtype, device=raw.device)
+    coords = xy + (offset_xy - 0.5) * pixel_size
+    opacities = map_pdf_to_opacity(density, cfg.opacity_mapping, global_step) / cfg.gaussians_per_pixel
+    adapter = cfg.gaussian_adapter
+    out = adapt_gaussians(adapter, extrinsics, intrinsics, coords, depth, opacities, raw[..., 2:], (h, w))
+    fields = {"means": (3,), "covariances": (3, 3), "harmonics": (3, adapter.d_sh), "opacities": ()}
+    if with_aux:
+        fields.update(scales=(3,), rotations=(4,))
+    return {k: out[k].reshape(b, v * r, *shape) for k, shape in fields.items()}
 
 
 class EncoderTranSplat(nn.Module):
@@ -205,31 +263,19 @@ class EncoderTranSplat(nn.Module):
 
         # 4. Gaussian adapter: rays + depths -> world Gaussians.
         with stage_span("encoder_5_gaussian_adapter", stage):
-            r = h * w
-            xy, _ = sample_image_grid((h, w), device=images.device)
-            xy = xy.reshape(1, 1, r, 2)
-            raw = raw_gaussians.reshape(b, v, r, cfg.num_surfaces, -1)[:, :, :, 0, :]
-            offset_xy = torch.sigmoid(raw[..., :2])
-            pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=raw.dtype, device=raw.device)
-            coords = xy + (offset_xy - 0.5) * pixel_size
-            opacities = map_pdf_to_opacity(densities[..., 0, 0], cfg.opacity_mapping, global_step) / cfg.gaussians_per_pixel
-            adapter = cfg.gaussian_adapter
-            out = adapt_gaussians(
-                adapter, extrinsics, intrinsics, coords, depths[..., 0, 0], opacities, raw[..., 2:], (h, w)
+            raw = raw_gaussians.reshape(b, v, h * w, cfg.num_surfaces, -1)[:, :, :, 0, :]
+            out = adapt_stage(
+                cfg, extrinsics, intrinsics, raw, depths[..., 0, 0], densities[..., 0, 0], global_step, (h, w),
+                with_aux=return_aux,
             )
-            gaussians = Gaussians(
-                means=out["means"].reshape(b, v * r, 3),
-                covariances=out["covariances"].reshape(b, v * r, 3, 3),
-                harmonics=out["harmonics"].reshape(b, v * r, 3, adapter.d_sh),
-                opacities=out["opacities"].reshape(b, v * r),
-            )
+            gaussians = Gaussians(out["means"], out["covariances"], out["harmonics"], out["opacities"])
         if not return_aux:
             return gaussians
         aux = {
             **aux,
             "depths": depths.reshape(b, v, h, w),
-            "scales": out["scales"].reshape(b, v * r, 3),
-            "rotations": out["rotations"].reshape(b, v * r, 4),
+            "scales": out["scales"],
+            "rotations": out["rotations"],
             "features": trans_features,
         }
         return gaussians, aux

@@ -29,6 +29,9 @@ What the program counts, always on:
   * `counters()["render.pairs"]`: the (tile, Gaussian) pairs of the tile
     lists K1 built, over every render; `counters()["render.views"]`: the
     views rendered (ops/rasterizer/api.py `rasterize`, the tile path)
+  * `counters()["adapter.fused"]` / `counters()["adapter.plain"]`: the
+    encoder forwards whose Gaussian adapter stage took the hand-written
+    kernel / the plain PyTorch version (model/encoder.py)
   * `kernels.launches`: the launches of each hand-written kernel
 """
 
