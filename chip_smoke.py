@@ -617,11 +617,14 @@ def _rotation(rng, kind: str) -> np.ndarray:
     return np.eye(3) + np.sin(angle) * k + (1.0 - np.cos(angle)) * k @ k
 
 
-def adapter_case(dev, b: int, v: int, shape, degree: int, step: int, seed: int, planar: bool = True):
+def adapter_case(dev, b: int, v: int, shape, degree: int, step: int, seed: int, planar: bool = True,
+                 samples: int = 1):
     """Inputs of the encoder's stage 5 (model/encoder.py `adapt_stage`) at b
-    x v views of `shape`, SH `degree`: cameras turned in turn by the
-    identity, a turn of pi - 1e-3 and a random rotation; off-centre
-    intrinsics with a skew; depths in [0.5, 50], densities in (0, 1); raw
+    x v views of `shape`, SH `degree`, `samples` Gaussians a pixel (and as
+    many in the configuration's `gaussians_per_pixel`): cameras turned in
+    turn by the identity, a turn of pi - 1e-3 and a random rotation;
+    off-centre intrinsics with a skew; depths in [0.5, 50], densities in
+    (0, 1) for each sample; raw
     channels N(0, 1), laid out as the encoder's (`planar`: one channel of
     consecutive pixels contiguous) or as rows; an opacity warm-up of 10
     steps from exponent 0.5 to 2, at `step`. Returns (EncoderCfg, the
@@ -630,7 +633,7 @@ def adapter_case(dev, b: int, v: int, shape, degree: int, step: int, seed: int, 
     from transplat_tpu_torch.model.encoder import EncoderCfg, OpacityMappingCfg
 
     cfg = EncoderCfg(gaussian_adapter=GaussianAdapterCfg(sh_degree=degree),
-                     opacity_mapping=OpacityMappingCfg(-1.0, 1.0, 10))
+                     opacity_mapping=OpacityMappingCfg(-1.0, 1.0, 10), gaussians_per_pixel=samples)
     rng = np.random.default_rng(seed)
     r = shape[0] * shape[1]
     kinds = ("identity", "near_180", "random")
@@ -647,7 +650,7 @@ def adapter_case(dev, b: int, v: int, shape, degree: int, step: int, seed: int, 
         raw = torch.from_numpy(rng.standard_normal((b, v, channels, r))).transpose(-1, -2)
     else:
         raw = torch.from_numpy(rng.standard_normal((b, v, r, channels)))
-    depth, density = rng.uniform(0.5, 50.0, (b, v, r)), rng.uniform(0.0, 1.0, (b, v, r))
+    depth, density = rng.uniform(0.5, 50.0, (b, v, r, samples)), rng.uniform(0.0, 1.0, (b, v, r, samples))
     f32 = lambda a: torch.as_tensor(a).to(dev, torch.float32)  # noqa: E731 (keeps raw's layout)
     return cfg, (f32(extr), f32(intr), f32(raw), f32(depth), f32(density), step, tuple(shape))
 
@@ -670,33 +673,66 @@ def adapter_flops(degree: int) -> int:
     return 3 * sum((2 * l + 1) * (4 * l + 1) + (2 * l + 1) for l in range(1, degree + 1)) + 250
 
 
-def check_gaussian_adapter(dev, views: int, launches: dict) -> dict:
+def check_gaussian_adapter(dev, views: int, launches: dict, samples: int = 1) -> dict:
     """The Gaussian adapter stage's kernel at a serving width (1 x `views`
-    views of 256^2, SH 4) against the plain stage, and timed beside its
-    byte bound and the plain stage (one call between CUDA events)."""
+    views of 256^2, SH 4, `samples` Gaussians a pixel: 1 is TranSplat's
+    build, 3 pixelSplat's) against the plain stage, and timed beside its
+    byte bound and the plain stage (one call between CUDA events). The
+    bound reads the raw channels once a pixel and writes every Gaussian."""
     from transplat_tpu_torch.model.adapter import adapt_gaussians_fused
     from transplat_tpu_torch.model.encoder import adapt_stage, adapt_stage_plain, opacity_exponent
 
-    cfg, args = adapter_case(dev, 1, views, IMAGE, 4, 50, SEED + 20 + views)
+    cfg, args = adapter_case(dev, 1, views, IMAGE, 4, 50, SEED + 20 + views, samples=samples)
     extr, intr, raw, depth, density, step, shape = args
     errs = adapter_errors(adapt_stage(cfg, *args, with_aux=True), adapt_stage_plain(cfg, *args, with_aux=True))
-    require(max(errs.values()) <= ADAPTER_TOL, f"gaussian_adapter at {views} views: {errs}")
+    require(max(errs.values()) <= ADAPTER_TOL, f"gaussian_adapter at {views} views, {samples} a pixel: {errs}")
     exponent = opacity_exponent(cfg.opacity_mapping, step)
     plain_ms = time_ms(lambda: adapt_stage_plain(cfg, *args), iters=5, warmup=1)
     times = timings(lambda: adapt_gaussians_fused(cfg.gaussian_adapter, extr, intr, raw, depth, density, exponent,
                                                   cfg.gaussians_per_pixel, shape), "gaussian_adapter_kernel")
-    g = views * shape[0] * shape[1]
+    g = views * shape[0] * shape[1] * samples
     out_floats = 3 + 9 + 3 * cfg.gaussian_adapter.d_sh + 1
     nbytes = 4 * (raw.numel() + depth.numel() + density.numel() + intr.numel() + extr.numel() + g * out_floats)
     b_ms, b_by = bound(nbytes, g * adapter_flops(4))
     rec = dict(
-        name="gaussian_adapter", route="cuda", source="transplat_tpu_torch/csrc/gaussian_adapter.cu",
+        name="gaussian_adapter" if samples == 1 else f"gaussian_adapter_s{samples}", route="cuda",
+        source="transplat_tpu_torch/csrc/gaussian_adapter.cu",
         replaces=None, launches=launches.get("gaussian_adapter", 0), max_abs_err=max(errs.values()),
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **times,
     )
     emit({"phase": "kernel", "tolerance": ADAPTER_TOL, "errors": errs, "gaussians": g, "bytes": nbytes,
-          "shape": dict(b=1, views=views, h=shape[0], w=shape[1], sh_degree=4), **rec})
+          "shape": dict(b=1, views=views, h=shape[0], w=shape[1], sh_degree=4, samples=samples), **rec})
     return rec
+
+
+def pixelsplat_request_launches(dev) -> dict:
+    """The hand-written kernels one pixelSplat request launches (its encoder
+    at 2 x 256^2 on torch's initial weights, in eval mode): its adapter
+    stage, at 3 Gaussians a pixel, is one launch of the adapter kernel.
+    The process's launch counts are left as they were."""
+    from transplat_tpu_torch import kernels
+    from transplat_tpu_torch.dataset import synthetic_batch
+    from transplat_tpu_torch.model import build_encoder
+    from transplat_tpu_torch.model.encoder_epipolar import EncoderEpipolarCfg
+
+    cfg = EncoderEpipolarCfg()
+    encoder = build_encoder(cfg, device=dev)
+    ctx = synthetic_batch(SEED + 4, batch_size=1, num_context=2, num_target=1, image_shape=IMAGE)["context"]
+    saved = dict(kernels.launches)
+    kernels.reset_launches()
+    with torch.no_grad():
+        g = encoder(*(torch.as_tensor(ctx[k], device=dev) for k in ("image", "intrinsics", "extrinsics", "near", "far")))
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    kernels.reset_launches()
+    kernels.launches.update(saved)
+    n = 2 * IMAGE[0] * IMAGE[1] * cfg.gaussians_per_pixel
+    require(g.means.shape[1] == n and bool(torch.isfinite(g.means).all()), f"pixelSplat: {g.means.shape[1]} Gaussians, {n} expected")
+    require(launches.get("gaussian_adapter", 0) == 1, f"pixelSplat's request launched the adapter kernel {launches.get('gaussian_adapter', 0)} times")
+    emit({"phase": "pixelsplat_request", "gaussians": n, "launches": launches})
+    del encoder, g
+    torch.cuda.empty_cache()
+    return launches
 
 
 def window_share(loc: torch.Tensor, h: int, w: int) -> float:
@@ -2774,7 +2810,8 @@ def main() -> int:
     records = [check_deform(dev, 1, launches), check_deform(dev, 4, launches),
                check_deform_bwd(dev, 1), check_deform_bwd(dev, 4),
                check_deform_vectors(dev, launches), *check_deform_vectors_bwd(dev),
-               check_gaussian_adapter(dev, 2, launches), check_gaussian_adapter(dev, 3, launches)]
+               check_gaussian_adapter(dev, 2, launches), check_gaussian_adapter(dev, 3, launches),
+               check_gaussian_adapter(dev, 2, pixelsplat_request_launches(dev), samples=3)]
     tv = NUM_TARGET
     rep = lambda x: x.expand(tv, *x.shape[1:]).contiguous()  # noqa: E731
     cams = [torch.as_tensor(tgt[k][0], device=dev) for k in ("extrinsics", "intrinsics", "near")]

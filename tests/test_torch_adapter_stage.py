@@ -29,7 +29,8 @@ def jax_stage(cfg, extr, intr, raw, depth, density, step, shape) -> dict:
     from transplat_tpu.model import adapter as ja
     from transplat_tpu.model.encoder import OpacityMappingCfg, map_pdf_to_opacity
 
-    (h, w), (b, v, r) = shape, depth.shape
+    (h, w), (b, v, r) = shape, depth.shape[:3]
+    depth, density = depth[..., 0], density[..., 0]  # one Gaussian a pixel
     a = cfg.gaussian_adapter
     jcfg = ja.GaussianAdapterCfg(a.gaussian_scale_min, a.gaussian_scale_max, a.sh_degree)
     om = cfg.opacity_mapping
@@ -118,7 +119,7 @@ def _bad(name: str, args: tuple):
     elif name == "raw":
         raw = raw[..., :-1]
     elif name == "depths":
-        depth = depth[..., :-1]
+        depth = depth[:, :, :-1]
     elif name == "densities":
         density = density[:, :, None]
     return extr, intr, raw, depth, density

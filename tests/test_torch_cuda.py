@@ -1050,7 +1050,7 @@ def test_gaussian_adapter_rejects_bad_input_and_grad_takes_the_plain_path(dev):
     with pytest.raises(ValueError, match="shape"):
         call(extr, intr, raw[..., :-1], depth, density)
     with pytest.raises(ValueError, match="contiguous"):
-        call(extr, intr, raw, depth.repeat(1, 1, 2)[..., ::2], density)
+        call(extr, intr, raw, depth.repeat(1, 1, 1, 2)[..., ::2], density)
     with pytest.raises(ValueError, match="requires grad"):
         call(extr, intr, raw.clone().requires_grad_(), depth, density)
     raw_g = raw.clone().requires_grad_()

@@ -23,6 +23,7 @@ from .loss.losses import LossCfg
 from .model.adapter import GaussianAdapterCfg
 from .model.decoder import DecoderCfg
 from .model.encoder import EncoderCfg, OpacityMappingCfg
+from .model.encoder_epipolar import EncoderEpipolarCfg
 
 
 @dataclass
@@ -107,7 +108,7 @@ class RootCfg:
     mode: str = "train"
     dataset: DatasetCfg = field(default_factory=DatasetCfg)
     view_sampler: BoundedCfg = field(default_factory=BoundedCfg)
-    encoder: EncoderCfg = field(default_factory=EncoderCfg)
+    encoder: EncoderCfg | EncoderEpipolarCfg = field(default_factory=EncoderCfg)
     decoder: DecoderCfg = field(default_factory=DecoderCfg)
     loss: LossCfg = field(default_factory=LossCfg)
     optimizer: OptimizerCfg = field(default_factory=OptimizerCfg)
@@ -162,10 +163,21 @@ def dtu_config(num_context_views: int = 2) -> RootCfg:
     return cfg
 
 
+def pixelsplat_re10k_config() -> RootCfg:
+    """pixelSplat on RE10K (its config/experiment/re10k.yaml with
+    config/model/encoder/epipolar.yaml): the epipolar encoder at its
+    published widths, three Gaussians a pixel, SH degree 4; serving and
+    evaluation (its training is not ported)."""
+    cfg = re10k_config()
+    cfg.encoder = EncoderEpipolarCfg()  # its defaults are epipolar.yaml's
+    return cfg
+
+
 EXPERIMENTS = {
     "re10k": re10k_config,
     "acid": acid_config,
     "dtu": dtu_config,
+    "pixelsplat_re10k": pixelsplat_re10k_config,
 }
 
 

@@ -9,8 +9,10 @@
 // degree 2-4 matrices one scalar op at a time on per-camera tensors. Its cost
 // was host time, not device time.
 //
-// Computes, for every Gaussian (pixel p of view v of batch entry b), what the
-// plain version computes, in float32 and in its order of operations:
+// Computes, for every Gaussian (sample k of pixel p of view v of batch entry
+// b; a pixel has S samples, each with its own depth and density, and shares
+// its raw channels among them), what the plain version computes, in float32
+// and in its order of operations:
 //   * the ray coordinate: the pixel centre plus (sigmoid(raw[0:2]) - 0.5) times
 //     the pixel size;
 //   * the opacity: map_pdf_to_opacity of the density with the warm-up's
@@ -23,9 +25,10 @@
 //     the mean origin + direction * depth;
 //   * the SH raw[9:] as (3, d_sh), damped per degree, then rotated block by
 //     block by the camera's degree 1..4 real-SH rotation matrices.
-// The results land in the layouts the Gaussians hold: means (b, v r, 3),
-// covariances (b, v r, 3, 3), harmonics (b, v r, 3, d_sh), opacities (b, v r),
-// and, where asked for, scales (b, v r, 3) and rotations (b, v r, 4).
+// The results land in the layouts the Gaussians hold, in (view, pixel, sample)
+// order: means (b, v r S, 3), covariances (b, v r S, 3, 3), harmonics
+// (b, v r S, 3, d_sh), opacities (b, v r S), and, where asked for, scales
+// (b, v r S, 3) and rotations (b, v r S, 4).
 //
 // What bounds it on an H100: device-memory bytes. A Gaussian reads 86 floats
 // (84 raw channels at SH degree 4, its depth and density) and writes 88 (95
@@ -34,7 +37,8 @@
 // covariance's three 3x3 products) are a few us at 67 TFLOP/s.
 //
 // Design: a block of kTile threads takes kTile consecutive pixels of one
-// camera (grid: pixel tiles x b v), one Gaussian a thread.
+// camera (grid: pixel tiles x b v), one pixel a thread: its S Gaussians come
+// from one read of its raw channels.
 //   * The per-camera prologue is the block's own: K^-1 and K2x2^-1 by their
 //     adjugates in double (no torch.linalg.inv, so no host synchronisation),
 //     the multiplier, C and the origin, and the SH rotation matrices D_1..D_4
@@ -58,6 +62,12 @@
 //     between them, and 5 blocks fit an SM (shared memory): too few loads in
 //     flight, rather than the stores, look like the limit (no profiler
 //     counters on that machine to confirm it).
+//   * S > 1 (pixelSplat's three depths a pixel): the ray, the quaternion and
+//     the rotated SH are computed once a pixel; the geometry is staged and
+//     stored once a sample, each sample's rows at stride S rows, and the SH
+//     row is stored S times. S = 1 is an instantiation of its own (kSamples
+//     false: S the constant 1, the contiguous runs above), the kernel as it
+//     was before it took samples.
 //   * Rounding: built with -fmad=false, like every kernel here, so no product
 //     and sum contract; sums run left to right, as the plain version's small
 //     matmuls do up to their library's order (the card tests hold it to 1e-5).
@@ -89,6 +99,7 @@ struct Args {
   float scale_min, scale_range;
   double exponent, inv_exponent;
   int gaussians_per_pixel;
+  int samples;
 };
 
 // Offset of D_l in the per-camera table: D_1 at 0, D_2 at 9, D_3 at 34, D_4 at 83.
@@ -111,6 +122,21 @@ __device__ __forceinline__ void store_run(float* __restrict__ dst, const float* 
     for (int k = 4 * n4 + t; k < n; k += kTile) dst[k] = src[k];
   } else {
     for (int k = t; k < n; k += kTile) dst[k] = src[k];
+  }
+}
+
+// Stores the rows (width floats each) of a block's n pixels, staged in
+// shared memory at src, as the rows (first + p) S + k of dst: with S = 1 one
+// contiguous run (store_run), else one row of every S.
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float* src, int width, int n,
+                                           long long first, int samples, int k, int t) {
+  if (samples == 1) {
+    store_run(dst + width * first, src, width * n, t);
+    return;
+  }
+  for (int e = t; e < width * n; e += kTile) {
+    const int p = e / width;
+    dst[((first + p) * samples + k) * width + (e - p * width)] = src[e];
   }
 }
 
@@ -197,7 +223,7 @@ __device__ void camera_prologue(const Args& a, int cam, float* s_cam) {
   }
 }
 
-template <int kDeg>
+template <int kDeg, bool kSamples>
 __global__ void __launch_bounds__(kTile) gaussian_adapter_kernel(const Args a) {
   constexpr int kDsh = (kDeg + 1) * (kDeg + 1);
   constexpr int kRow = 3 * kDsh;
@@ -215,15 +241,17 @@ __global__ void __launch_bounds__(kTile) gaussian_adapter_kernel(const Args a) {
   const bool live = t < n_live;
   const long long pix = p0 + (live ? t : 0);
   const float* raw = a.raw + bi * a.s_b + vi * a.s_v + pix * a.s_p;
-  const long long gi = cam * r + pix;  // this Gaussian in the (b, v r) layouts
+  const int S = kSamples ? a.samples : 1;
+  const long long gi = cam * r + pix;  // this pixel in the (b, v r) layouts; its Gaussians are gi S + k
 
-  // This Gaussian's geometry inputs, issued before the prologue.
+  // This pixel's geometry inputs, issued before the prologue (the depth and
+  // density of its first sample).
   float in[11];  // offset x, y; scale x, y, z; quaternion x, y, z, w; depth; density
   if (live) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) in[k] = raw[k * a.s_c];
-    in[9] = a.depth[gi];
-    in[10] = a.density[gi];
+    in[9] = a.depth[gi * S];
+    in[10] = a.density[gi * S];
   }
 
   // ---- the camera's prologue --------------------------------------------------
@@ -251,13 +279,13 @@ __global__ void __launch_bounds__(kTile) gaussian_adapter_kernel(const Args a) {
   }
   __syncthreads();
 
-  // ---- geometry: means, covariance, opacity, scales, rotation -----------------
-  const long long g0 = cam * r + p0;  // the block's first Gaussian
+  // ---- geometry: means, covariance, opacity, scales, rotation, a sample at a time
+  const long long g0 = cam * r + p0;  // the block's first pixel
+  const float* kinv = s_cam;
+  const float* c = s_cam + 9;
+  const float* origin = s_cam + 18;
+  float dir[3], rq[9], qi = 0.0f, qj = 0.0f, qk = 0.0f, qr = 0.0f;
   if (live) {
-    const float* kinv = s_cam;
-    const float* c = s_cam + 9;
-    const float* origin = s_cam + 18;
-    const float depth = in[9];
     // The ray coordinate: sample_image_grid's pixel centre (col + 0.5) / W, a
     // multiplication by 1 / W on the card, plus the offset.
     const int row = (int)(pix / a.w), col = (int)(pix - (long long)row * a.w);
@@ -266,74 +294,77 @@ __global__ void __launch_bounds__(kTile) gaussian_adapter_kernel(const Args a) {
     const float px = (float)(1.0 / a.w), py = (float)(1.0 / a.h);
     const float x = gx + (sigmoid(in[0]) - 0.5f) * px;
     const float y = gy + (sigmoid(in[1]) - 0.5f) * py;
-    // The world ray and the mean.
-    float dir[3];
+    // The world ray's direction in the camera.
 #pragma unroll
     for (int i = 0; i < 3; ++i) dir[i] = (kinv[3 * i] * x + kinv[3 * i + 1] * y) + kinv[3 * i + 2];
     const float norm = sqrtf((dir[0] * dir[0] + dir[1] * dir[1]) + dir[2] * dir[2]);
 #pragma unroll
     for (int i = 0; i < 3; ++i) dir[i] = dir[i] / norm;
-    float* st_mean = s_stage + 3 * t;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float world = (c[3 * i] * dir[0] + c[3 * i + 1] * dir[1]) + c[3 * i + 2] * dir[2];
-      st_mean[i] = origin[i] + world * depth;
-    }
-    // The opacity.
-    const float pdf = in[10];
-    const float opacity = 0.5f * ((1.0f - torch_pow(1.0f - pdf, a.exponent)) + torch_pow(pdf, a.inv_exponent));
-    a.opac[gi] = opacity * (1.0f / (float)a.gaussians_per_pixel);
-    // The scales.
-    float s[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) s[i] = ((a.scale_min + a.scale_range * sigmoid(in[2 + i])) * depth) * s_cam[21];
     // The rotation: q / (|q| + eps), then quaternion_to_matrix (eps again).
     const float qn = sqrtf(((in[5] * in[5] + in[6] * in[6]) + in[7] * in[7]) + in[8] * in[8]) + 1e-8f;
-    const float qi = in[5] / qn, qj = in[6] / qn, qk = in[7] / qn, qr = in[8] / qn;
+    qi = in[5] / qn, qj = in[6] / qn, qk = in[7] / qn, qr = in[8] / qn;
     const float two_s = (1.0f / ((((qi * qi + qj * qj) + qk * qk) + qr * qr) + 1e-8f)) * 2.0f;
-    const float rq[9] = {
-        1.0f - two_s * (qj * qj + qk * qk), two_s * (qi * qj - qk * qr), two_s * (qi * qk + qj * qr),
-        two_s * (qi * qj + qk * qr), 1.0f - two_s * (qi * qi + qk * qk), two_s * (qj * qk - qi * qr),
-        two_s * (qi * qk - qj * qr), two_s * (qj * qk + qi * qr), 1.0f - two_s * (qi * qi + qj * qj),
-    };
-    // R diag(s^2) R^T, then C (.) C^T.
-    float loc[9], m1[9];
+    rq[0] = 1.0f - two_s * (qj * qj + qk * qk), rq[1] = two_s * (qi * qj - qk * qr), rq[2] = two_s * (qi * qk + qj * qr);
+    rq[3] = two_s * (qi * qj + qk * qr), rq[4] = 1.0f - two_s * (qi * qi + qk * qk), rq[5] = two_s * (qj * qk - qi * qr);
+    rq[6] = two_s * (qi * qk - qj * qr), rq[7] = two_s * (qj * qk + qi * qr), rq[8] = 1.0f - two_s * (qi * qi + qj * qj);
+  }
+  for (int k = 0; k < S; ++k) {
+    if (live) {
+      const float depth = k == 0 ? in[9] : a.depth[gi * S + k];
+      const float pdf = k == 0 ? in[10] : a.density[gi * S + k];
+      // The mean.
+      float* st_mean = s_stage + 3 * t;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        loc[3 * i + j] = ((rq[3 * i] * (s[0] * s[0])) * rq[3 * j] + (rq[3 * i + 1] * (s[1] * s[1])) * rq[3 * j + 1]) +
-                         (rq[3 * i + 2] * (s[2] * s[2])) * rq[3 * j + 2];
+      for (int i = 0; i < 3; ++i) {
+        const float world = (c[3 * i] * dir[0] + c[3 * i + 1] * dir[1]) + c[3 * i + 2] * dir[2];
+        st_mean[i] = origin[i] + world * depth;
       }
+      // The opacity.
+      const float opacity = 0.5f * ((1.0f - torch_pow(1.0f - pdf, a.exponent)) + torch_pow(pdf, a.inv_exponent));
+      a.opac[gi * S + k] = opacity * (1.0f / (float)a.gaussians_per_pixel);
+      // The scales.
+      float s[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) s[i] = ((a.scale_min + a.scale_range * sigmoid(in[2 + i])) * depth) * s_cam[21];
+      // R diag(s^2) R^T, then C (.) C^T.
+      float loc[9], m1[9];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          loc[3 * i + j] = ((rq[3 * i] * (s[0] * s[0])) * rq[3 * j] + (rq[3 * i + 1] * (s[1] * s[1])) * rq[3 * j + 1]) +
+                           (rq[3 * i + 2] * (s[2] * s[2])) * rq[3 * j + 2];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) m1[3 * i + j] = (c[3 * i] * loc[j] + c[3 * i + 1] * loc[3 + j]) + c[3 * i + 2] * loc[6 + j];
+      }
+      float* st_cov = s_stage + 3 * kTile + 9 * t;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) st_cov[3 * i + j] = (m1[3 * i] * c[3 * j] + m1[3 * i + 1] * c[3 * j + 1]) + m1[3 * i + 2] * c[3 * j + 2];
+      }
+      float* st_scale = s_stage + 12 * kTile + 3 * t;
+      float* st_rot = s_stage + 15 * kTile + 4 * t;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) st_scale[i] = s[i];
+      st_rot[0] = qi;
+      st_rot[1] = qj;
+      st_rot[2] = qk;
+      st_rot[3] = qr;
     }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) m1[3 * i + j] = (c[3 * i] * loc[j] + c[3 * i + 1] * loc[3 + j]) + c[3 * i + 2] * loc[6 + j];
+    __syncthreads();
+    store_rows(a.means, s_stage, 3, n_live, g0, S, k, t);
+    store_rows(a.cov, s_stage + 3 * kTile, 9, n_live, g0, S, k, t);
+    if (a.scales != nullptr) {
+      store_rows(a.scales, s_stage + 12 * kTile, 3, n_live, g0, S, k, t);
+      store_rows(a.rots, s_stage + 15 * kTile, 4, n_live, g0, S, k, t);
     }
-    float* st_cov = s_stage + 3 * kTile + 9 * t;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) st_cov[3 * i + j] = (m1[3 * i] * c[3 * j] + m1[3 * i + 1] * c[3 * j + 1]) + m1[3 * i + 2] * c[3 * j + 2];
-    }
-    float* st_scale = s_stage + 12 * kTile + 3 * t;
-    float* st_rot = s_stage + 15 * kTile + 4 * t;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) st_scale[i] = s[i];
-    st_rot[0] = qi;
-    st_rot[1] = qj;
-    st_rot[2] = qk;
-    st_rot[3] = qr;
+    __syncthreads();
   }
-  __syncthreads();
-  store_run(a.means + 3 * g0, s_stage, 3 * n_live, t);
-  store_run(a.cov + 9 * g0, s_stage + 3 * kTile, 9 * n_live, t);
-  if (a.scales != nullptr) {
-    store_run(a.scales + 3 * g0, s_stage + 12 * kTile, 3 * n_live, t);
-    store_run(a.rots + 4 * g0, s_stage + 15 * kTile, 4 * n_live, t);
-  }
-  __syncthreads();
 
   // ---- SH: damp, then rotate each degree's block ------------------------------
   if (live) {
@@ -361,32 +392,36 @@ __global__ void __launch_bounds__(kTile) gaussian_adapter_kernel(const Args a) {
     }
   }
   __syncthreads();
-  store_run(a.harm + kRow * g0, s_stage, kRow * n_live, t);
+  for (int k = 0; k < S; ++k) store_rows(a.harm, s_stage, kRow, n_live, g0, S, k, t);
 }
 
 template <int kDeg>
 cudaError_t launch(const Args& a, unsigned tiles, unsigned cams, cudaStream_t s) {
-  gaussian_adapter_kernel<kDeg><<<dim3(tiles, cams), kTile, 0, s>>>(a);
+  if (a.samples == 1) {
+    gaussian_adapter_kernel<kDeg, false><<<dim3(tiles, cams), kTile, 0, s>>>(a);
+  } else {
+    gaussian_adapter_kernel<kDeg, true><<<dim3(tiles, cams), kTile, 0, s>>>(a);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // raw (b, v, H W, >= 9 + 3 d_sh) at element strides (s_b, s_v, s_p, s_c);
-// depth, density (b, v, H W); intr (b, v, 3, 3); extr (b, v, 4, 4); all
-// float32, the last four contiguous. Outputs as listed above, contiguous;
+// depth, density (b, v, H W, samples); intr (b, v, 3, 3); extr (b, v, 4, 4);
+// all float32, the last four contiguous. Outputs as listed above, contiguous;
 // scales and rots both null or both given.
 extern "C" int tp_gaussian_adapter(const float* raw, const float* depth, const float* density, const float* intr,
                                    const float* extr, float* means, float* cov, float* harm, float* opac,
                                    float* scales, float* rots, int b, int v, int h, int w, int degree,
                                    long long s_b, long long s_v, long long s_p, long long s_c, float scale_min,
                                    float scale_range, double exponent, double inv_exponent,
-                                   int gaussians_per_pixel, void* stream) {
+                                   int gaussians_per_pixel, int samples, void* stream) {
   const long long r = (long long)h * w;
   if (r == 0 || b == 0 || v == 0) return 0;
-  if (degree < 0 || degree > 4 || (long long)b * v > 65535) return (int)cudaErrorInvalidValue;
+  if (degree < 0 || degree > 4 || (long long)b * v > 65535 || samples < 1) return (int)cudaErrorInvalidValue;
   const Args a{raw, depth, density, intr, extr, means, cov, harm, opac, scales, rots, v, h, w,
-               s_b, s_v, s_p, s_c, scale_min, scale_range, exponent, inv_exponent, gaussians_per_pixel};
+               s_b, s_v, s_p, s_c, scale_min, scale_range, exponent, inv_exponent, gaussians_per_pixel, samples};
   const unsigned tiles = (unsigned)((r + kTile - 1) / kTile), cams = (unsigned)(b * v);
   cudaStream_t s = (cudaStream_t)stream;
   switch (degree) {

@@ -61,7 +61,7 @@ class Evaluator:
     def __init__(
         self,
         cfg: RootCfg,
-        encoder: EncoderTranSplat,
+        encoder: EncoderTranSplat,  # or EncoderEpipolar (model.build_encoder)
         lpips: LPIPS | None = None,
         device: str | torch.device = "cuda",
     ):

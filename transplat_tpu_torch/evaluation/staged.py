@@ -54,7 +54,8 @@ def count_costs(tag: str, into: dict):
 
 
 class StagedEncoder:
-    """Runs an EncoderTranSplat stage by stage (in eval mode, no gradients)."""
+    """Runs an encoder (EncoderTranSplat or EncoderEpipolar) stage by stage
+    (in eval mode, no gradients)."""
 
     def __init__(self, encoder: EncoderTranSplat):
         self.encoder = encoder
@@ -83,7 +84,7 @@ class StagedEncoder:
 
         gaussians, aux = self.encoder(*args, global_step=global_step, return_aux=True, stage=stage)
         if benchmarker is not None:
-            self._memory = {t: benchmarker.memory_stats.get(t, {}) for t in STAGES}
+            self._memory = {t: benchmarker.memory_stats.get(t, {}) for t in self.encoder.stages}
         return gaussians, aux
 
     @torch.no_grad()

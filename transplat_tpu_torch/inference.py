@@ -1,8 +1,9 @@
 """The serving path: posed context views -> Gaussians -> rendered target views.
 
 Counterpart of the JAX package's forward step (`__graft_entry__.entry`, and
-the evaluator's encode/decode pair): EncoderTranSplat, then
-decode_splatting, then the colour.
+the evaluator's encode/decode pair): the encoder (EncoderTranSplat, or
+pixelSplat's EncoderEpipolar; `model.build_encoder`), then decode_splatting,
+then the colour.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def _views(batch: dict, keys, device) -> dict:
 
 @torch.no_grad()
 def render_novel_views(
-    encoder: EncoderTranSplat,
+    encoder: EncoderTranSplat,  # or EncoderEpipolar
     context: dict,
     target: dict,
     image_shape: tuple[int, int],

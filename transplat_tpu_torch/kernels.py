@@ -81,8 +81,8 @@ _SIGNATURES = {
     "tp_deform_vectors_bwd_sorted": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
     # raw, depth, density, intr, extr, means, cov, harm, opac, scales (or null), rots (or null),
     # b, v, h, w, sh degree, raw's strides (b, v, pixel, channel), scale_min, scale_max - scale_min,
-    # exponent, 1 / exponent, gaussians_per_pixel, stream
-    "tp_gaussian_adapter": (*(_P,) * 11, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _F, _F, _D, _D, _I, _P),
+    # exponent, 1 / exponent, gaussians_per_pixel, samples a pixel, stream
+    "tp_gaussian_adapter": (*(_P,) * 11, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _F, _F, _D, _D, _I, _I, _P),
 }
 # Entries that launch nothing (no stream argument): c, int[4] info out.
 _QUERIES = {"tp_composite_attributes": (_I, _P), "tp_composite_bwd_attributes": (_I, _P)}

@@ -102,24 +102,26 @@ def adapt_gaussians_fused(
     extrinsics: torch.Tensor,  # (b, v, 4, 4)
     intrinsics: torch.Tensor,  # (b, v, 3, 3) normalized
     raw: torch.Tensor,  # (b, v, r, 2 + d_in): pixel offsets, then adapt_gaussians' raw channels; any strides
-    depths: torch.Tensor,  # (b, v, r)
-    densities: torch.Tensor,  # (b, v, r)
+    depths: torch.Tensor,  # (b, v, r, s): s Gaussians a pixel
+    densities: torch.Tensor,  # (b, v, r, s)
     opacity_exponent: float,  # model/encoder.py opacity_exponent at the step
-    gaussians_per_pixel: int,
+    gaussians_per_pixel: int,  # every opacity is divided by it
     image_shape: tuple[int, int],
     with_aux: bool = False,
 ) -> dict:
     """The encoder's stage 5 in one launch of csrc/gaussian_adapter.cu:
-    means (b, v*r, 3), covariances (b, v*r, 3, 3), harmonics (b, v*r, 3,
-    d_sh), opacities (b, v*r), and with `with_aux` scales (b, v*r, 3) and
-    rotations (b, v*r, 4), as the plain path computes them from the pixel
-    grid, `map_pdf_to_opacity` and `adapt_gaussians`."""
+    means (b, v*r*s, 3), covariances (b, v*r*s, 3, 3), harmonics (b, v*r*s,
+    3, d_sh), opacities (b, v*r*s), and with `with_aux` scales (b, v*r*s, 3)
+    and rotations (b, v*r*s, 4), in (view, pixel, sample) order, as the
+    plain path computes them from the pixel grid, `map_pdf_to_opacity` and
+    `adapt_gaussians`."""
     h, w = image_shape
     b, v = extrinsics.shape[:2] if extrinsics.ndim == 4 else (-1, -1)
+    s = depths.shape[-1] if depths.ndim == 4 else -1
     want = {
         "extrinsics": (extrinsics, (b, v, 4, 4)), "intrinsics": (intrinsics, (b, v, 3, 3)),
-        "raw": (raw, (b, v, h * w, 2 + cfg.d_in)), "depths": (depths, (b, v, h * w)),
-        "densities": (densities, (b, v, h * w)),
+        "raw": (raw, (b, v, h * w, 2 + cfg.d_in)), "depths": (depths, (b, v, h * w, s)),
+        "densities": (densities, (b, v, h * w, s)),
     }
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
@@ -128,7 +130,9 @@ def adapt_gaussians_fused(
         raise ValueError(f"adapt_gaussians_fused: SH degree {cfg.sh_degree} (the kernel takes 0-4)")
     for name, (t, _) in want.items():
         kernels.check_cuda_tensor(name, t, torch.float32, contiguous=name != "raw")
-    g = v * h * w
+    if s < 1:
+        raise ValueError(f"adapt_gaussians_fused: depths has shape {tuple(depths.shape)}, expected {(b, v, h * w, s)}")
+    g = v * h * w * s
     shapes = {"means": (b, g, 3), "covariances": (b, g, 3, 3), "harmonics": (b, g, 3, cfg.d_sh), "opacities": (b, g)}
     if with_aux:
         shapes.update(scales=(b, g, 3), rotations=(b, g, 4))
@@ -140,6 +144,6 @@ def adapt_gaussians_fused(
         *(out[k].data_ptr() for k in ("means", "covariances", "harmonics", "opacities")), *aux,
         b, v, h, w, cfg.sh_degree, *raw.stride(),
         cfg.gaussian_scale_min, cfg.gaussian_scale_max - cfg.gaussian_scale_min,
-        opacity_exponent, 1.0 / opacity_exponent, gaussians_per_pixel,
+        opacity_exponent, 1.0 / opacity_exponent, gaussians_per_pixel, s,
     )
     return out

@@ -14,10 +14,16 @@ from torch.nn import functional as F
 from ...ops.interpolate import resize_bilinear_nchw
 from ..layers import conv, to_nhwc
 
+# Depth-Anything-V2's encoders: the ViT's width, blocks and heads, the blocks
+# whose tokens the DPT head reads (its intermediate_layer_idx), and the head's
+# widths.
 DAV2_CONFIGS = {
-    "vits": dict(embed_dim=384, num_heads=6, features=64, out_channels=(48, 96, 192, 384)),
-    "vitb": dict(embed_dim=768, num_heads=12, features=128, out_channels=(96, 192, 384, 768)),
-    "vitl": dict(embed_dim=1024, num_heads=16, features=256, out_channels=(256, 512, 1024, 1024)),
+    "vits": dict(embed_dim=384, depth=12, num_heads=6, layers=(2, 5, 8, 11), features=64,
+                 out_channels=(48, 96, 192, 384)),
+    "vitb": dict(embed_dim=768, depth=12, num_heads=12, layers=(2, 5, 8, 11), features=128,
+                 out_channels=(96, 192, 384, 768)),
+    "vitl": dict(embed_dim=1024, depth=24, num_heads=16, layers=(4, 11, 17, 23), features=256,
+                 out_channels=(256, 512, 1024, 1024)),
 }
 
 
@@ -98,12 +104,13 @@ class DepthAnythingV2(nn.Module):
         from .vit import DinoVisionTransformer
 
         cfg = DAV2_CONFIGS[encoder]
-        self.pretrained = DinoVisionTransformer(embed_dim=cfg["embed_dim"], num_heads=cfg["num_heads"])
+        self.take_layers = cfg["layers"]
+        self.pretrained = DinoVisionTransformer(embed_dim=cfg["embed_dim"], depth=cfg["depth"], num_heads=cfg["num_heads"])
         self.depth_head = DPTHead(cfg["embed_dim"], cfg["features"], cfg["out_channels"])
 
     def forward(self, x: torch.Tensor):
         """Returns depth (B, H, W) and feature (B, 4 ph, 4 pw, features/2), NHWC like JAX."""
         patch_h, patch_w = x.shape[1] // 14, x.shape[2] // 14
-        tokens = self.pretrained(x, take_layers=(2, 5, 8, 11))
+        tokens = self.pretrained(x, take_layers=self.take_layers)
         depth, feature = self.depth_head(tokens, patch_h, patch_w)
         return depth[:, 0], to_nhwc(feature)

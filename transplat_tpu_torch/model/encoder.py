@@ -128,16 +128,19 @@ def adapt_stage(
     extrinsics: torch.Tensor,  # (b, v, 4, 4)
     intrinsics: torch.Tensor,  # (b, v, 3, 3) normalized
     raw: torch.Tensor,  # (b, v, r, 2 + d_in): the pixel offsets, then adapt_gaussians' channels
-    depth: torch.Tensor,  # (b, v, r)
-    density: torch.Tensor,  # (b, v, r)
+    depth: torch.Tensor,  # (b, v, r, s): s Gaussians a pixel
+    density: torch.Tensor,  # (b, v, r, s)
     global_step: int,
     image_shape: tuple[int, int],
     with_aux: bool = False,
 ) -> dict:
-    """Stage 5: the Gaussians' fields (b, v*r, ...), and with `with_aux`
-    their scales and rotations. One kernel launch where every input is
-    float32 on the card and no gradient is recorded, the plain version
-    otherwise; counted as `adapter.fused` / `adapter.plain`."""
+    """Stage 5: the Gaussians' fields (b, v*r*s, ...) in (view, pixel,
+    sample) order, and with `with_aux` their scales and rotations. The s
+    Gaussians of a pixel share its raw channels (offset, scales' logits,
+    rotation, SH) and take their own depth and density; every opacity is
+    divided by `cfg.gaussians_per_pixel`. One kernel launch where every
+    input is float32 on the card and no gradient is recorded, the plain
+    version otherwise; counted as `adapter.fused` / `adapter.plain`."""
     if fused_adapter_applies(raw, depth, density, intrinsics, extrinsics):
         count("adapter.fused", 1)
         return adapt_gaussians_fused(
@@ -153,23 +156,28 @@ def adapt_stage_plain(
     cfg: EncoderCfg, extrinsics, intrinsics, raw, depth, density, global_step, image_shape, with_aux: bool = False
 ) -> dict:
     """Stage 5 in plain PyTorch: the pixel grid plus the predicted offsets,
-    the opacity curve, `adapt_gaussians`; the outputs of `adapt_stage`."""
-    (h, w), (b, v, r) = image_shape, depth.shape
+    the opacity curve, `adapt_gaussians` over every (pixel, sample); the
+    outputs of `adapt_stage`."""
+    (h, w), (b, v, r, s) = image_shape, depth.shape
     xy, _ = sample_image_grid((h, w), device=raw.device)
-    xy = xy.reshape(1, 1, r, 2)
-    offset_xy = torch.sigmoid(raw[..., :2])
+    xy = xy.reshape(1, 1, r, 1, 2)
+    offset_xy = torch.sigmoid(raw[..., None, :2])
     pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=raw.dtype, device=raw.device)
-    coords = xy + (offset_xy - 0.5) * pixel_size
+    coords = (xy + (offset_xy - 0.5) * pixel_size).expand(b, v, r, s, 2).reshape(b, v, r * s, 2)
+    channels = raw[..., None, 2:].expand(b, v, r, s, raw.shape[-1] - 2).reshape(b, v, r * s, -1)
     opacities = map_pdf_to_opacity(density, cfg.opacity_mapping, global_step) / cfg.gaussians_per_pixel
     adapter = cfg.gaussian_adapter
-    out = adapt_gaussians(adapter, extrinsics, intrinsics, coords, depth, opacities, raw[..., 2:], (h, w))
+    out = adapt_gaussians(adapter, extrinsics, intrinsics, coords, depth.reshape(b, v, r * s),
+                          opacities.reshape(b, v, r * s), channels, (h, w))
     fields = {"means": (3,), "covariances": (3, 3), "harmonics": (3, adapter.d_sh), "opacities": ()}
     if with_aux:
         fields.update(scales=(3,), rotations=(4,))
-    return {k: out[k].reshape(b, v * r, *shape) for k, shape in fields.items()}
+    return {k: out[k].reshape(b, v * r * s, *shape) for k, shape in fields.items()}
 
 
 class EncoderTranSplat(nn.Module):
+    stages = STAGES
+
     def __init__(self, cfg: EncoderCfg = EncoderCfg(), device="cuda"):
         super().__init__()
         if cfg.num_surfaces != 1:
@@ -265,7 +273,7 @@ class EncoderTranSplat(nn.Module):
         with stage_span("encoder_5_gaussian_adapter", stage):
             raw = raw_gaussians.reshape(b, v, h * w, cfg.num_surfaces, -1)[:, :, :, 0, :]
             out = adapt_stage(
-                cfg, extrinsics, intrinsics, raw, depths[..., 0, 0], densities[..., 0, 0], global_step, (h, w),
+                cfg, extrinsics, intrinsics, raw, depths[..., 0, :1], densities[..., 0, :1], global_step, (h, w),
                 with_aux=return_aux,
             )
             gaussians = Gaussians(out["means"], out["covariances"], out["harmonics"], out["opacities"])

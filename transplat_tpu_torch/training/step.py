@@ -32,6 +32,7 @@ import torch
 from ..loss.losses import LossCfg, compute_losses
 from ..loss.vgg import LPIPS, init_lpips
 from ..model.decoder import DecoderCfg, decode_splatting
+from ..model import build_encoder
 from ..model.encoder import EncoderCfg, EncoderTranSplat
 from ..dataset.loader import CONTEXT_KEYS
 from ..evaluation.metrics import compute_psnr
@@ -94,7 +95,7 @@ def make_optimizer(lr_schedule: Callable[[int], float], grad_clip: float = 0.5) 
 @dataclass
 class TrainState:
     step: int
-    encoder: EncoderTranSplat  # parameters and BatchNorm statistics
+    encoder: EncoderTranSplat  # parameters and BatchNorm statistics (or EncoderEpipolar, evaluation only)
     lpips: LPIPS | None  # frozen; None trains without the perceptual term
     opt_state: AdamState
 
@@ -111,7 +112,8 @@ def create_train_state(
     seed: int | None = None,
     ckpt_cfg=None,
 ) -> TrainState:
-    """A fresh state on `device`: a new EncoderTranSplat, step 0, zero Adam
+    """A fresh state on `device`: a new encoder (`model.build_encoder`: an
+    EncoderTranSplat, or pixelSplat's EncoderEpipolar), step 0, zero Adam
     moments. With a `seed` the parameters are drawn as the JAX package's
     initialisers draw them (model/init.py), for training from scratch;
     without one they keep PyTorch's default initialisation, for a caller who
@@ -121,7 +123,7 @@ def create_train_state(
     .npy trees are merged over those parameters (training/pretrained.py).
     A Lightning tree's embedded LPIPS becomes the state's LPIPS when no
     `lpips` is given."""
-    state = TrainState(step=0, encoder=EncoderTranSplat(encoder_cfg, device=device), lpips=lpips, opt_state=AdamState())
+    state = TrainState(step=0, encoder=build_encoder(encoder_cfg, device=device), lpips=lpips, opt_state=AdamState())
     if seed is not None:
         init_parameters(state.encoder, seed)
     if ckpt_cfg is not None and (ckpt_cfg.pretrained_model or ckpt_cfg.dav2_weights):

@@ -13,6 +13,9 @@ The spans, by layer:
 
   * the encoder: each of its ten `model.encoder.STAGES`, around the stage on
     every forward (model/encoder.py, model/depth_predictor.py)
+  * pixelSplat's encoder: `epipolar_1_backbone`, `epipolar_2_sample`,
+    `epipolar_3_attention`, `epipolar_4_upscale`, `epipolar_5_depth`, then
+    the shared `encoder_5_gaussian_adapter` (`model.encoder_epipolar.STAGES`)
   * the render: `render.project` (projection into the cameras),
     `render.sort` (the depth sort), `render.bin` (K1's tile lists, with the
     host read of their length), `render.composite` (K3's forward)
@@ -32,6 +35,11 @@ What the program counts, always on:
   * `counters()["adapter.fused"]` / `counters()["adapter.plain"]`: the
     encoder forwards whose Gaussian adapter stage took the hand-written
     kernel / the plain PyTorch version (model/encoder.py)
+  * `counters()["epipolar.rays"]`: the rays of pixelSplat's epipolar sampler
+    (its low grid, every view); `counters()["epipolar.rays_on_image"]`: those
+    whose segment [near, far] meets the other view's image
+    (model/encoder_epipolar.py). The second is summed on the card
+    (`count_on_device`): no forward waits for it, and `counters()` reads it
   * `kernels.launches`: the launches of each hand-written kernel
 """
 
@@ -43,6 +51,7 @@ import torch
 
 _OFF = contextlib.nullcontext()
 _counters: dict[str, int] = {}
+_device_counters: dict[str, torch.Tensor] = {}
 
 
 def span(name: str):
@@ -59,10 +68,22 @@ def count(name: str, n: int) -> None:
     _counters[name] = _counters.get(name, 0) + n
 
 
+def count_on_device(name: str, n: torch.Tensor) -> None:
+    """Add the 0-dim integer tensor `n` to the counter `name` where it lies
+    (one addition on its device; no host read until `counters()`)."""
+    held = _device_counters.get(name)
+    _device_counters[name] = n.detach().to(torch.int64) if held is None else held + n.detach()
+
+
 def counters() -> dict[str, int]:
-    """A copy of every counter since the process began or the last reset."""
-    return dict(_counters)
+    """A copy of every counter since the process began or the last reset
+    (reads the counters summed on a device)."""
+    out = dict(_counters)
+    for name, t in _device_counters.items():
+        out[name] = out.get(name, 0) + int(t)
+    return out
 
 
 def reset_counters() -> None:
     _counters.clear()
+    _device_counters.clear()
