@@ -735,6 +735,158 @@ def pixelsplat_request_launches(dev) -> dict:
     return launches
 
 
+def project_case(dev, sets: int, views: int, g: int, degree: int, seed: int, exact: bool = False,
+                 dtype=torch.float32):
+    """Inputs of the render's projection (ops/rasterizer/projection.py
+    `project_rows_kernel`) for `sets` Gaussian sets of g, each seen by `views`
+    cameras: (extrinsics, intrinsics, near, means, covariances, sh,
+    opacities). Cameras turned in turn by the identity, a turn of pi - 1e-3
+    and a random rotation, off-centre intrinsics with a skew, near in [0.5,
+    2]; with `exact`, cameras whose inverses and rays every algorithm rounds
+    alike (synthetic_scene's: unturned, centred, focal length 1, shifted
+    along x; near 1 or 2). The Gaussians lie in front of a set's first
+    camera, a tenth behind it (z in [-3, 0.2]); a third needle-like, a
+    twentieth with an indefinite covariance (det <= 0 on screen for many);
+    SH N(0, 0.5) at `degree`, opacities in (0, 1)."""
+    rng = np.random.default_rng(seed)
+    cams = sets * views
+    kinds = ("identity", "near_180", "random")
+    extr = np.tile(np.eye(4), (cams, 1, 1))
+    intr = np.tile(np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]), (cams, 1, 1))
+    if exact:
+        extr[:, 0, 3] = np.linspace(-0.3, 0.3, cams)
+        near = np.where(np.arange(cams) % 2 == 0, 1.0, 2.0)
+    else:
+        for i in range(cams):
+            extr[i, :3, :3] = _rotation(rng, kinds[i % 3])
+            extr[i, :3, 3] = rng.standard_normal(3)
+        intr[:, 0, 0], intr[:, 1, 1] = rng.uniform(0.8, 1.4, cams), rng.uniform(0.8, 1.4, cams)
+        intr[:, 0, 1] = rng.uniform(-0.02, 0.02, cams)
+        intr[:, 0, 2], intr[:, 1, 2] = rng.uniform(0.3, 0.7, cams), rng.uniform(0.3, 0.7, cams)
+        near = rng.uniform(0.5, 2.0, cams)
+    local = np.stack([rng.uniform(-3, 3, (sets, g)), rng.uniform(-3, 3, (sets, g)), rng.uniform(1.0, 10.0, (sets, g))], -1)
+    local[:, : g // 10, 2] = rng.uniform(-3.0, 0.2, (sets, g // 10))
+    first = extr[::views]  # each set's first camera, camera-to-world
+    means = np.einsum("bij,bgj->bgi", first[:, :3, :3], local) + first[:, None, :3, 3]
+    s = rng.uniform(0.003, 0.02, (sets, g, 3))
+    s[:, : g // 3, 0] *= 20.0
+    sign = np.ones((sets, g, 3))
+    sign[:, g // 3 : g // 3 + g // 20, 1] = -1.0
+    s[:, g // 3 : g // 3 + g // 20, 1] *= 40.0
+    q = rng.standard_normal((sets, g, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    x, y, z, w = np.moveaxis(q, -1, 0)
+    rot = np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+                    2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+                    2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1).reshape(sets, g, 3, 3)
+    cov = rot @ ((sign * s * s)[..., :, None] * np.swapaxes(rot, -1, -2))
+    sh = rng.standard_normal((sets, g, 3, (degree + 1) ** 2)) * 0.5
+    opac = rng.uniform(0.0, 1.0, (sets, g))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)  # noqa: E731
+    return tuple(t(a) for a in (extr, intr, near, means, cov, sh, opac))
+
+
+# The projection kernel against the plain chain. On cameras every algorithm
+# inverts alike (project_case's `exact`) the geometry is the same float32
+# arithmetic in the same order: keys, rows and radii equal bit for bit. Else
+# the plain chain's torch.linalg.inv and the kernel's inverse in double round
+# apart by an ulp, and the EWA conic's cancellation (det = ac - b^2) grows a
+# gap by its condition number ac / det (up to ~1e4 for a needle). So each
+# field is held to the float64 chain: keys, means and opacities within
+# PROJECT_TOL of (|x| + 1), each conic within PROJECT_TOL of (|x| + 1) times
+# its condition number, or within PROJECT_GROWTH times the float32 chain's
+# own gap where that is larger (a mean far off the axis, t = R m + T
+# cancelling, reads ~3e-5 in float32 on turned cameras; over a few thousand
+# Gaussians the two chains' largest gaps part by up to 2.3x either way).
+# Colours (no cancellation): within PROJECT_COLOR_TOL of the float32 chain.
+# A radius or a live flag may flip where ceil or a cull sits on its edge: at
+# most PROJECT_FLIPS of the Gaussians (or 2). The depth order equals the
+# float32 chain's but where two keys lie within PROJECT_TIE of each other.
+PROJECT_TOL = 1e-5
+PROJECT_GROWTH = 4.0
+PROJECT_COLOR_TOL = 1e-5
+PROJECT_FLIPS = 1e-4
+PROJECT_TIE = 1e-5
+
+
+def project_errors(got, plain, exact64=None) -> dict:
+    """The kernel's outputs (keys, rows, colours, radii) against the float32
+    plain chain's and, where given, the float64 chain's: the largest gaps,
+    the flips, the order's mismatches beyond a tie. Raises (`require`) where
+    a reading is beyond its limit."""
+    keys, rows, colors, radii = got
+    pk, pr, pc, pradii = plain
+    n = keys.numel()
+    live, plive = torch.isfinite(keys), torch.isfinite(pk)
+    out = {"gaussians": n, "live": int(live.sum()), "live_flips": int((live != plive).sum())}
+    both = live & plive
+    out["radius_flips"] = int((both & (rows[..., 5] != pr[..., 5])).sum())
+    out["radius_flip_max"] = float((rows[..., 5] - pr[..., 5])[both].abs().max()) if out["radius_flips"] else 0.0
+    out["radii_flips"] = int((radii != pradii).sum())
+    if colors is not None:
+        out["color_max_abs"] = max_err(colors, pc)
+    order, porder = torch.argsort(keys, dim=-1, stable=True), torch.argsort(pk, dim=-1, stable=True)
+    ka, kb = torch.take_along_dim(pk, order, -1), torch.take_along_dim(pk, porder, -1)
+    apart = (order != porder) & ~((ka - kb).abs() <= PROJECT_TIE * kb.abs()) & torch.isfinite(kb)
+    out["order_mismatch"] = int(apart.sum())
+    if exact64 is None:
+        out["equal"] = bool(torch.equal(keys, pk) and torch.equal(rows, pr) and torch.equal(radii, pradii))
+        require(out["equal"], f"project: keys, rows or radii differ from the plain chain's on exact cameras: {out}")
+    else:
+        k64, r64 = exact64[0], exact64[1].double()
+        same = both & torch.isfinite(k64)
+        ca, cb, cc = r64[..., 2], r64[..., 3], r64[..., 4]
+        cond = ((ca * cc).abs() / (ca * cc - cb * cb).abs()).nan_to_num(nan=float("inf")).clamp(min=1.0)
+        fields = {
+            "keys": (lambda t: t[0], k64, same, 1.0),
+            "mean": (lambda t: t[1][..., 0:2], r64[..., 0:2], same[..., None], 1.0),
+            "conic": (lambda t: t[1][..., 2:5], r64[..., 2:5], (same | (~live & ~plive & ~torch.isfinite(k64)))[..., None],
+                      cond[..., None]),
+            "opacity": (lambda t: t[1][..., 6], r64[..., 6], same, 1.0),
+        }
+        for name, (pick, ref, mask, scale) in fields.items():
+            def gap(x):
+                g = (pick(x).double() - ref).abs() / ((ref.abs() + 1.0) * scale)
+                return float(g[mask.expand_as(g)].max()) if bool(mask.any()) else 0.0
+
+            out[f"{name}_gap"], out[f"{name}_gap_plain"] = gap((keys, rows)), gap((pk, pr))
+            limit = max(PROJECT_TOL, PROJECT_GROWTH * out[f"{name}_gap_plain"])
+            require(out[f"{name}_gap"] <= limit, f"project: {name} {out[f'{name}_gap']} from the float64 chain "
+                    f"(the float32 chain's {out[f'{name}_gap_plain']}), beyond {limit}")
+    flips = max(PROJECT_FLIPS * n, 2)
+    require(out["live_flips"] <= flips and out["radius_flips"] <= flips and out["radii_flips"] <= 2 * flips
+            and out["radius_flip_max"] <= 1.0, f"project: flips beyond {flips:.0f}: {out}")
+    require(out.get("color_max_abs", 0.0) <= PROJECT_COLOR_TOL, f"project: colours {out.get('color_max_abs')}")
+    require(out["order_mismatch"] == 0, f"project: the depth order differs beyond ties: {out}")
+    return out
+
+
+def check_project(dev, sets: int, views: int, g: int, launches: dict) -> dict:
+    """The projection kernel at a serving shape (SH 4; re10k-view 1 x 1 x
+    131,072, re10k-serve 1 x 3 x 131,072, pixelSplat 1 x 3 x 393,216): held
+    to the plain chain (project_errors) on general cameras, then timed beside
+    its byte bound (every Gaussian's 88 floats read once a set, 13 written a
+    camera) and the plain chain (one call between CUDA events)."""
+    from transplat_tpu_torch.ops.rasterizer.projection import project_rows_kernel, project_rows_plain
+
+    args = project_case(dev, sets, views, g, 4, SEED + 40 + views + g % 997)
+    got = project_rows_kernel(*args, IMAGE)
+    plain = project_rows_plain(*args, IMAGE)
+    exact64 = project_rows_plain(*(a.double() for a in args), IMAGE)
+    errs = project_errors(got, plain, exact64)
+    plain_ms = time_ms(lambda: project_rows_plain(*args, IMAGE), iters=5, warmup=1)
+    times = timings(lambda: project_rows_kernel(*args, IMAGE), "project_kernel")
+    cams = sets * views
+    nbytes = 4 * (sets * g * (3 + 9 + 75 + 1) + cams * g * (1 + 8 + 3 + 1) + cams * (16 + 9 + 1))
+    b_ms, b_by = bound(nbytes, cams * g * 400)
+    label = {(1, 131072): "view", (3, 131072): "serve", (3, 393216): "pixelsplat"}.get((views, g), f"{views}x{g}")
+    rec = dict(name=f"project_{label}", route="cuda", source="transplat_tpu_torch/csrc/project.cu", replaces=None,
+               launches=launches.get("project", 0), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **times)
+    emit({"phase": "kernel", "errors": errs, "gaussians": g, "bytes": nbytes,
+          "shape": dict(sets=sets, views=views, g=g, h=IMAGE[0], w=IMAGE[1], sh_degree=4), **rec})
+    return rec
+
+
 def window_share(loc: torch.Tensor, h: int, w: int) -> float:
     """Share of the in-map corners of `loc` (N, Q = H W, P, 2) that fall in
     their query's K8 window (the 8x8 pixel tile plus 4 cells on each side),
@@ -2040,6 +2192,7 @@ def eval_artifacts_phase(dev, tmp, data, index, smi: str) -> dict:
     from transplat_tpu_torch.model.decoder import decode_splatting
     from transplat_tpu_torch.model.encoder import EncoderTranSplat
     from transplat_tpu_torch.ops.rasterizer import api, binning, composite
+    from transplat_tpu_torch.ops.rasterizer.projection import project_rows_kernel
     from transplat_tpu_torch.training.schedule import make_lr_schedule
     from transplat_tpu_torch.training.step import create_train_state, make_optimizer
     from transplat_tpu_torch.utils.benchmarker import Benchmarker
@@ -2157,9 +2310,10 @@ def eval_artifacts_phase(dev, tmp, data, index, smi: str) -> dict:
                 decode_launches = {k: kernels.launches.get(k, 0) for k in ("bin_count", "bin_scan", "bin_place", "composite")}
                 peak = torch.cuda.max_memory_allocated() - held
                 require(all(v == 1 for v in decode_launches.values()), f"eval_artifacts: 30-view decode {decode_launches}")
-                proj = api.project_views(extr[0], intr[0], near[0],
-                                         *(x.expand(30, *x.shape[1:]).contiguous() for x in gaussians), IMAGE)
-                gfeat, colors = binning.sort_by_depth(proj)
+                # K1 and K3 against their plain versions on the decode's own
+                # projection (the kernel's, as the decode takes it).
+                keys, rows, rgb, _ = project_rows_kernel(extr[0], intr[0], near[0], *gaussians[:4], IMAGE)
+                gfeat, colors = binning.sort_rows(keys, rows, rgb)
                 lists = binning.bin_gaussians(gfeat, IMAGE)
                 classic = binning.bin_gaussians_plain(gfeat, IMAGE)
                 require(torch.equal(lists.idx, classic.idx) and torch.equal(lists.ranges, classic.ranges),
@@ -2168,7 +2322,7 @@ def eval_artifacts_phase(dev, tmp, data, index, smi: str) -> dict:
                 plain, _, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg, IMAGE)
                 k3_err, k3_share = require_composite(color[0], plain, "eval_artifacts: 30-view decode")
                 pairs = int(lists.idx.numel())
-                del proj, gfeat, colors, lists, classic, plain
+                del keys, rows, rgb, gfeat, colors, lists, classic, plain
                 decode_ms = time_ms(decode, iters=5, warmup=1)
             decode30 = {"views": 30, "gaussians": int(gaussians.means.shape[1]), "pairs": pairs, "launches": decode_launches,
                         "peak_bytes_above_held": peak, "decode_ms_events": decode_ms,
@@ -2589,13 +2743,14 @@ MATCHING_PARAMS_BWD = MATCHING_FWD | {"deform_scores_bwd_p4", "deform_vectors_bw
 MATCHING_BWD = MATCHING_PARAMS_BWD | {"deform_scores_bwd_p1"}
 RENDER_FWD = frozenset({"bin_count", "bin_scan", "bin_place", "composite"})
 RENDER_BWD = RENDER_FWD | {"composite_bwd", "bin_bwd"}
+RENDER_NO_GRAD = RENDER_FWD | {"project"}  # without a gradient the projection takes its kernel
 STAGE_KERNELS = {
-    "encoder_4b_cost_volume_matching": MATCHING_FWD, "decoder": RENDER_FWD,
+    "encoder_4b_cost_volume_matching": MATCHING_FWD, "decoder": RENDER_NO_GRAD,
     "encoder_5_gaussian_adapter": frozenset({"gaussian_adapter"}),
     "depth_pred fwd": MATCHING_FWD, "depth_pred fwd+bwd": MATCHING_PARAMS_BWD,
     "4b matching fwd": MATCHING_FWD, "4b matching fwd+bwd": MATCHING_PARAMS_BWD,
     "encoder fwd": MATCHING_FWD | {"gaussian_adapter"}, "encoder fwd+bwd": MATCHING_BWD,
-    "render fwd": RENDER_FWD, "render fwd+bwd": RENDER_BWD,
+    "render fwd": RENDER_NO_GRAD, "render fwd+bwd": RENDER_BWD,
 }
 STAGE_ITERS = 2
 LOADER_CHUNKS = 8  # one for each of 8 workers
@@ -2793,6 +2948,7 @@ def main() -> int:
     for name in FORWARD_KERNELS:
         require(launches.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
     require(launches.get("gaussian_adapter", 0) == REQUESTS, f"gaussian_adapter launched {launches.get('gaussian_adapter', 0)} times in {REQUESTS} requests")
+    require(launches.get("project", 0) == REQUESTS, f"project launched {launches.get('project', 0)} times in {REQUESTS} requests")
     with torch.no_grad():
         gaussians = encoder(*(torch.as_tensor(ctx[k], device=dev) for k in ("image", "intrinsics", "extrinsics", "near", "far")))
     g = gaussians.means.shape[1]
@@ -2811,7 +2967,10 @@ def main() -> int:
                check_deform_bwd(dev, 1), check_deform_bwd(dev, 4),
                check_deform_vectors(dev, launches), *check_deform_vectors_bwd(dev),
                check_gaussian_adapter(dev, 2, launches), check_gaussian_adapter(dev, 3, launches),
-               check_gaussian_adapter(dev, 2, pixelsplat_request_launches(dev), samples=3)]
+               check_gaussian_adapter(dev, 2, pixelsplat_request_launches(dev), samples=3),
+               check_project(dev, 1, 1, 2 * IMAGE[0] * IMAGE[1], launches),
+               check_project(dev, 1, 3, 2 * IMAGE[0] * IMAGE[1], launches),
+               check_project(dev, 1, 3, 6 * IMAGE[0] * IMAGE[1], launches)]
     tv = NUM_TARGET
     rep = lambda x: x.expand(tv, *x.shape[1:]).contiguous()  # noqa: E731
     cams = [torch.as_tensor(tgt[k][0], device=dev) for k in ("extrinsics", "intrinsics", "near")]

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ADAPTER_TOL, adapter_case, adapter_errors, require_composite
+from chip_smoke import ADAPTER_TOL, adapter_case, adapter_errors, project_case, project_errors, require_composite
 from chip_smoke import synthetic_scene as scene
 from transplat_tpu_torch import kernels
 from transplat_tpu_torch.ops import deform
@@ -924,7 +924,8 @@ def test_time_blocking_covers_the_device_time(dev):
 
 def test_stage_tools_launch_their_kernels_at_a_tiny_width(dev):
     """The train sub-graphs at the tiny width on the card: the render rows
-    launch K1 and K3 (and K4 and K2 with the backward), the encoder rows K5
+    launch K1 and K3 (and K4 and K2 with the backward; the projection
+    kernel without it), the encoder rows K5
     and K7 (and K6 and K8 with the backward), the forward alone also the
     Gaussian adapter's kernel, LPIPS none; the stage profile counts the
     hand-written kernels' bytes in the matching stage, the adapter stage
@@ -935,7 +936,8 @@ def test_stage_tools_launch_their_kernels_at_a_tiny_width(dev):
     encoder, lpips, batch = bench_train_stages.build(True, dev)
     rows = {r["stage"]: r["launches"] for r in time_rows(
         bench_train_stages.subgraphs(encoder, lpips, batch, dev).items(), dev, iters=1)}
-    assert set(rows["render fwd"]) == {"bin_count", "bin_scan", "bin_place", "composite"}
+    # Without a gradient the render's projection takes its kernel (csrc/project.cu).
+    assert set(rows["render fwd"]) == {"project", "bin_count", "bin_scan", "bin_place", "composite"}
     assert set(rows["render fwd+bwd"]) == {"bin_count", "bin_scan", "bin_place", "composite", "composite_bwd",
                                            "bin_bwd"}
     assert {"deform_scores_p1", "deform_scores_p4", "deform_vectors", "gaussian_adapter"} == set(rows["encoder fwd"])
@@ -1085,3 +1087,99 @@ def test_encoder_takes_the_adapter_kernel_only_without_a_gradient(dev):
     for name, a, b in zip(fast._fields, fast, plain):
         err = float((a - b.detach()).abs().max() / b.detach().abs().max())
         assert err <= ADAPTER_TOL, (name, err)
+
+
+PROJECT_SHAPE = (96, 128)
+
+
+@pytest.mark.parametrize("sets,views", [(1, 1), (1, 3), (3, 1)])
+@pytest.mark.parametrize("scale_invariant", [True, False])
+@pytest.mark.parametrize("degree", range(5))
+def test_projection_kernel_equals_plain_on_exact_cameras(dev, degree, scale_invariant, sets, views):
+    """csrc/project.cu against the plain chain on cameras that every
+    inverse rounds alike: keys, rows and radii bit for bit, colours within
+    PROJECT_COLOR_TOL, the same depth order (chip_smoke.project_errors)."""
+    from transplat_tpu_torch.ops.rasterizer.projection import project_rows_kernel, project_rows_plain
+
+    args = project_case(dev, sets, views, 4096, degree, 10 * degree + sets + views, exact=True)
+    kernels.reset_launches()
+    got = project_rows_kernel(*args, PROJECT_SHAPE, scale_invariant)
+    assert kernels.launches == {"project": 1}
+    errs = project_errors(got, project_rows_plain(*args, PROJECT_SHAPE, scale_invariant))
+    assert errs["equal"] and errs["live"] > 0 and errs["live"] < errs["gaussians"]
+
+
+@pytest.mark.parametrize("sets,views", [(1, 1), (1, 3), (3, 1)])
+@pytest.mark.parametrize("scale_invariant", [True, False])
+@pytest.mark.parametrize("degree", range(5))
+def test_projection_kernel_matches_plain_on_turned_cameras(dev, degree, scale_invariant, sets, views):
+    """On turned, off-centre cameras the two inverses round apart: every
+    field within PROJECT_TOL of the float64 chain (a conic's scaled by its
+    condition number) or PROJECT_GROWTH times the float32 chain's own gap,
+    colours within PROJECT_COLOR_TOL, radius and cull
+    flips counted and bounded, the depth order equal but at ties."""
+    from transplat_tpu_torch.ops.rasterizer.projection import project_rows_kernel, project_rows_plain
+
+    args = project_case(dev, sets, views, 4096, degree, 100 + 10 * degree + sets + views)
+    got = project_rows_kernel(*args, PROJECT_SHAPE, scale_invariant)
+    plain = project_rows_plain(*args, PROJECT_SHAPE, scale_invariant)
+    exact64 = project_rows_plain(*(a.double() for a in args), PROJECT_SHAPE, scale_invariant)
+    errs = project_errors(got, plain, exact64)
+    assert 0 < errs["live"] < errs["gaussians"]
+
+
+@pytest.mark.parametrize("views,g", [(1, 131_072), (3, 131_072), (3, 393_216)])
+def test_projection_kernel_at_the_serving_shapes(dev, views, g):
+    """re10k-view's (1 x 131,072), re10k-serve's (3 x 131,072) and
+    pixelSplat's (3 x 393,216) shapes at SH 4 and 256^2: the kernel against
+    the plain chain as above."""
+    from transplat_tpu_torch.ops.rasterizer.projection import project_rows_kernel, project_rows_plain
+
+    args = project_case(dev, 1, views, g, 4, views + g % 997)
+    got = project_rows_kernel(*args, (256, 256))
+    plain = project_rows_plain(*args, (256, 256))
+    exact64 = project_rows_plain(*(a.double() for a in args), (256, 256))
+    errs = project_errors(got, plain, exact64)
+    assert errs["live"] > g // 2
+
+
+def test_render_takes_the_projection_kernel_once_without_a_gradient(dev):
+    """`render` without a gradient launches the projection kernel once and
+    counts render.project.fused; under a gradient it launches none and
+    counts render.project.plain; both routes give the same colours and radii
+    on exact cameras. A decode's sets (b = 2 scenes x 3 views) render as the
+    same Gaussians repeated for every view; render_depth takes the kernel
+    too (its feature in place of the colours)."""
+    from transplat_tpu_torch.model.decoder import decode_splatting
+    from transplat_tpu_torch.model.types import Gaussians
+    from transplat_tpu_torch.ops.rasterizer.projection import repeat_sets
+    from transplat_tpu_torch.utils import trace
+
+    extr, intr, near, *gs = project_case(dev, 2, 3, 3000, 4, 7, exact=True)
+    far = torch.full_like(near, 100.0)
+    bg = torch.zeros(6, 3, device=dev)
+    trace.reset_counters()
+    kernels.reset_launches()
+    with torch.no_grad():
+        fused = api.render(extr, intr, near, far, PROJECT_SHAPE, bg, *gs)
+        repeated = api.render(extr, intr, near, far, PROJECT_SHAPE, bg, *(repeat_sets(x, 3) for x in gs))
+    assert trace.counters()["render.project.fused"] == 2 and kernels.launches["project"] == 2
+    assert torch.equal(fused.color, repeated.color) and torch.equal(fused.radii, repeated.radii)
+    leaves = [x.clone().requires_grad_() for x in gs]
+    kernels.reset_launches()
+    plain = api.render(extr, intr, near, far, PROJECT_SHAPE, bg, *leaves)
+    assert "project" not in kernels.launches and trace.counters()["render.project.plain"] == 1
+    assert plain.color.grad_fn is not None
+    require_composite(fused.color, plain.color.detach(), "fused vs plain route")
+    assert torch.equal(fused.radii, plain.radii)
+    with torch.no_grad():
+        decoded = decode_splatting(Gaussians(*gs), extr.reshape(2, 3, 4, 4), intr.reshape(2, 3, 3, 3),
+                                   near.reshape(2, 3), far.reshape(2, 3), PROJECT_SHAPE, depth_mode="depth")
+        depth_fused = api.render_depth(extr, intr, near, far, PROJECT_SHAPE, gs[0], gs[1], gs[3])
+    assert torch.equal(decoded.color.reshape(fused.color.shape), fused.color)
+    assert torch.equal(decoded.depth.reshape(depth_fused.shape), depth_fused)
+    kernels.reset_launches()
+    depth_plain = api.render_depth(extr, intr, near, far, PROJECT_SHAPE, *(x for i, x in enumerate(leaves) if i != 2))
+    assert "project" not in kernels.launches
+    require_composite(depth_fused, depth_plain.detach(), "render_depth fused vs plain route")
+

@@ -1,6 +1,8 @@
 """Build, load and count the hand-written CUDA kernels.
 
-The CUDA C++ sources under csrc/ have a plain C interface. At first use they
+The CUDA C++ sources under csrc/ (`_SOURCES`: the samplers K5-K8, the
+rasterizer's K1-K4, the Gaussian adapter stage, the render's projection
+`project.cu`) have a plain C interface. At first use they
 are compiled with nvcc for sm_90a (one nvcc per source, all started together)
 and linked into one shared library, which is loaded with ctypes. The build
 lands in _build/<hash of the sources>/ inside the package, so a checkout
@@ -36,6 +38,7 @@ _BUILD_ROOT = Path(__file__).parent / "_build"
 _SOURCES = (
     "deform_scores.cu", "deform_scores_bwd.cu", "binning.cu", "binning_bwd.cu",
     "composite.cu", "composite_bwd.cu", "deform_vectors.cu", "deform_vectors_bwd.cu", "gaussian_adapter.cu",
+    "project.cu",
 )
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -83,6 +86,9 @@ _SIGNATURES = {
     # b, v, h, w, sh degree, raw's strides (b, v, pixel, channel), scale_min, scale_max - scale_min,
     # exponent, 1 / exponent, gaussians_per_pixel, samples a pixel, stream
     "tp_gaussian_adapter": (*(_P,) * 11, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _F, _F, _D, _D, _I, _I, _P),
+    # extr, intr, near, means, cov, sh, opac, keys, rows, colors (or null), radii, sets, views a set,
+    # Gaussians a set, sh degree, h, w, scale_invariant, stream
+    "tp_project_gaussians": (*(_P,) * 11, _I, _I, _LL, _I, _I, _I, _I, _P),
 }
 # Entries that launch nothing (no stream argument): c, int[4] info out.
 _QUERIES = {"tp_composite_attributes": (_I, _P), "tp_composite_bwd_attributes": (_I, _P)}

@@ -1,7 +1,10 @@
 """Splatting decoder: Gaussians + target cameras -> rendered views.
 
 Counterpart of transplat_tpu/model/decoder.py (`decode_splatting`): all
-(batch x target view) cameras are rendered in one batched call.
+(batch x target view) cameras are rendered in one batched call, each batch
+entry's Gaussians handed to `render` once for its tv cameras (the
+projection kernel reads them once; the plain chain repeats them a view).
+The background is filled on the device: nothing is copied from the host.
 
 With a mesh of sp > 1 (parallel/mesh.py), as the JAX package's shard_map
 branch: each rank holds its slice of the Gaussian axis, all-gathers the four
@@ -66,21 +69,21 @@ def decode_splatting(
     def flatten_cam(x):
         return x.reshape(b * tv, *x.shape[2:])
 
-    def repeat_g(x):
-        return x[:, None].expand(b, tv, *x.shape[1:]).reshape(b * tv, *x.shape[1:])
-
-    bg = torch.tensor(cfg.background_color, dtype=torch.float32, device=extrinsics.device).expand(b * tv, 3)
+    first = cfg.background_color[0]
+    bg = torch.full((b * tv, 3), first, dtype=torch.float32, device=extrinsics.device)
+    for c, value in enumerate(cfg.background_color):
+        if value != first:
+            bg[:, c] = value
     out = render(
         flatten_cam(extrinsics), flatten_cam(intrinsics), flatten_cam(near), flatten_cam(far), image_shape, bg,
-        repeat_g(gaussians.means), repeat_g(gaussians.covariances), repeat_g(gaussians.harmonics),
-        repeat_g(gaussians.opacities), cfg=cfg.rasterize, deterministic=deterministic_kernels,
+        gaussians.means, gaussians.covariances, gaussians.harmonics, gaussians.opacities,
+        cfg=cfg.rasterize, deterministic=deterministic_kernels,
     )
     depth = None
     if depth_mode is not None:
         depth = render_depth(
             flatten_cam(extrinsics), flatten_cam(intrinsics), flatten_cam(near), flatten_cam(far), image_shape,
-            repeat_g(gaussians.means), repeat_g(gaussians.covariances), repeat_g(gaussians.opacities),
-            mode=depth_mode, cfg=cfg.rasterize,
+            gaussians.means, gaussians.covariances, gaussians.opacities, mode=depth_mode, cfg=cfg.rasterize,
         ).reshape(b, tv, *image_shape)
     return DecoderOutput(
         color=out.color.reshape(b, tv, *image_shape, 3),

@@ -26,11 +26,20 @@ from typing import NamedTuple
 import torch
 
 from ... import kernels
-from .projection import ProjectedGaussians
-
-# gfeat columns (float32, 8 per Gaussian so a row is two 16-byte loads).
-MEAN_X, MEAN_Y, CONIC_A, CONIC_B, CONIC_C, RADIUS, OPACITY = range(7)
-GFEAT_WIDTH = 8
+from .projection import (
+    CONIC_A,
+    CONIC_B,
+    CONIC_C,
+    GFEAT_WIDTH,
+    MEAN_X,
+    MEAN_Y,
+    OPACITY,
+    RADIUS,
+    ProjectedGaussians,
+    depth_keys,
+    geometry_rows,
+    live_mask,
+)
 
 
 class TileLists(NamedTuple):
@@ -43,36 +52,32 @@ class TileLists(NamedTuple):
     rects: torch.Tensor | None = None
 
 
+def gather_rows(order: torch.Tensor, rows: torch.Tensor, color: torch.Tensor):
+    """Rows (B, G, 8) and colours (B, G, C) in the order (B, G)."""
+    if color.shape[-1] > 8:
+        raise ValueError(f"at most 8 colour channels, got {color.shape[-1]}")
+    gfeat = torch.take_along_dim(rows, order[..., None], dim=1).contiguous()
+    colors = torch.take_along_dim(color, order[..., None], dim=1).contiguous()
+    return gfeat, colors
+
+
+def sort_rows(keys: torch.Tensor, rows: torch.Tensor, color: torch.Tensor):
+    """Keys (B, G), rows (B, G, 8) and colours (B, G, C) -> the rows and
+    colours in the keys' order, sorted stably (ties keep their original
+    order, as JAX's stable sort does)."""
+    return gather_rows(torch.argsort(keys, dim=-1, stable=True), rows, color)
+
+
 def sort_by_depth(proj: ProjectedGaussians, feature: torch.Tensor | None = None):
     """Projected Gaussians -> depth-sorted (B, G, 8) geometry rows and (B, G, C) colours.
 
-    Live Gaussians (valid, radius > 0) first, by depth, stably (ties keep
-    their original order, as JAX's stable sort does); dead ones last with
-    radius and opacity 0 and their means at 1e9."""
-    live = proj.valid & (proj.radius > 0.0)
-    depth_key = torch.where(live, proj.depth, torch.full_like(proj.depth, float("inf")))
-    order = torch.argsort(depth_key, dim=-1, stable=True)
-    big = torch.full_like(proj.depth, 1e9)
-    zero = torch.zeros_like(proj.depth)
-    cols = torch.stack(
-        [
-            torch.where(live, proj.mean2d[..., 0], big),
-            torch.where(live, proj.mean2d[..., 1], big),
-            proj.conic[..., 0],
-            proj.conic[..., 1],
-            proj.conic[..., 2],
-            torch.where(live, proj.radius, zero),
-            torch.where(live, proj.opacity, zero),
-            zero,
-        ],
-        dim=-1,
-    )
-    color = proj.rgb if feature is None else feature
-    if color.shape[-1] > 8:
-        raise ValueError(f"at most 8 colour channels, got {color.shape[-1]}")
-    gfeat = torch.take_along_dim(cols, order[..., None], dim=1).contiguous()
-    colors = torch.take_along_dim(color, order[..., None], dim=1).contiguous()
-    return gfeat, colors
+    Live Gaussians (valid, radius > 0) first, by depth, stably; dead ones
+    last with radius and opacity 0 and their means at 1e9. The order comes
+    before the rows are built, so the sort's scratch is freed before the
+    rows are allocated."""
+    live = live_mask(proj)
+    order = torch.argsort(depth_keys(proj, live), dim=-1, stable=True)
+    return gather_rows(order, geometry_rows(proj, live), proj.rgb if feature is None else feature)
 
 
 def grid_size(image_shape: tuple[int, int], tile: int) -> tuple[int, int]:

@@ -9,6 +9,16 @@ views instead of vmapped. The EWA-splatting conventions are kept exactly:
   * radius = ceil(3 * sqrt(max eigenvalue of 2D covariance))
   * color = max(SH(view direction) + 0.5, 0)
   * integer pixel centres and a circular radius cutoff (gaussian_alpha)
+
+Two routes give the render its depth-sort keys, geometry rows, colours and
+radii. Where every input is float32 on the card and no gradient is recorded
+(serving, evaluation, media), one launch of csrc/project.cu
+(`project_rows_kernel`, counted as `project`); otherwise (the CPU, training's
+autograd) the plain chain, differentiable: `project_views` ->
+`project_gaussians` -> `eval_sh`, then `pack_rows` (`project_rows_plain`
+gives the kernel's outputs this way, for the tests).
+`projection_kernel_applies` decides; api.py `render` counts the two as
+`render.project.fused` / `render.project.plain`.
 """
 
 from __future__ import annotations
@@ -17,11 +27,18 @@ from typing import NamedTuple
 
 import torch
 
+from ... import kernels
+from ...geometry.projection import get_fov
 from ...geometry.sh import eval_sh
 
 
 ALPHA_MIN = 1.0 / 255.0  # below it a Gaussian does not touch the pixel
 ALPHA_MAX = 0.99  # cap of a single Gaussian's alpha
+
+# The geometry rows' columns (float32, 8 per Gaussian so a row is two 16-byte
+# loads), as binning and compositing read them.
+MEAN_X, MEAN_Y, CONIC_A, CONIC_B, CONIC_C, RADIUS, OPACITY = range(7)
+GFEAT_WIDTH = 8
 
 
 class ProjectedGaussians(NamedTuple):
@@ -114,6 +131,160 @@ def project_gaussians(
         mean2d=mean2d, depth=depth, conic=conic, radius=radius, rgb=rgb,
         opacity=opacities, valid=valid,
     )
+
+
+def project_views(
+    extrinsics, intrinsics, near, means, covariances, sh, opacities,
+    image_shape: tuple[int, int], scale_invariant: bool = True,
+) -> ProjectedGaussians:
+    """Project (B, G) Gaussians into B cameras (optionally rescaled by 1/near)."""
+    if scale_invariant:
+        scale = 1.0 / near
+        extrinsics = extrinsics.clone()
+        extrinsics[:, :3, 3] = extrinsics[:, :3, 3] * scale[:, None]
+        covariances = covariances * (scale**2)[:, None, None, None]
+        means = means * scale[:, None, None]
+    fov = get_fov(intrinsics)
+    return project_gaussians(
+        means, covariances, sh, opacities, extrinsics,
+        torch.tan(0.5 * fov[:, 0]), torch.tan(0.5 * fov[:, 1]), image_shape,
+    )
+
+
+def live_mask(proj: ProjectedGaussians) -> torch.Tensor:
+    """The Gaussians the tiles see: valid, radius > 0."""
+    return proj.valid & (proj.radius > 0.0)
+
+
+def depth_keys(proj: ProjectedGaussians, live: torch.Tensor) -> torch.Tensor:
+    """The depth sort's keys (B, G): a live Gaussian's depth, +inf for the rest."""
+    return torch.where(live, proj.depth, torch.full_like(proj.depth, float("inf")))
+
+
+def geometry_rows(proj: ProjectedGaussians, live: torch.Tensor) -> torch.Tensor:
+    """The unsorted geometry rows (B, G, GFEAT_WIDTH): a dead row has radius
+    and opacity 0 and its mean at 1e9, and keeps its conic."""
+    big = torch.full_like(proj.depth, 1e9)
+    zero = torch.zeros_like(proj.depth)
+    return torch.stack(
+        [
+            torch.where(live, proj.mean2d[..., 0], big),
+            torch.where(live, proj.mean2d[..., 1], big),
+            proj.conic[..., 0],
+            proj.conic[..., 1],
+            proj.conic[..., 2],
+            torch.where(live, proj.radius, zero),
+            torch.where(live, proj.opacity, zero),
+            zero,
+        ],
+        dim=-1,
+    )
+
+
+def pack_rows(proj: ProjectedGaussians) -> tuple[torch.Tensor, torch.Tensor]:
+    """Projected Gaussians -> the depth sort's keys (B, G) and unsorted
+    geometry rows (B, G, GFEAT_WIDTH), as the kernel writes them."""
+    live = live_mask(proj)
+    return depth_keys(proj, live), geometry_rows(proj, live)
+
+
+def views_per_set(cameras: int, sets: int) -> int:
+    """Cameras that see each of `sets` Gaussian sets: camera i sees set i // views."""
+    if sets < 1 or cameras % sets:
+        raise ValueError(f"{cameras} cameras do not divide among {sets} Gaussian sets")
+    return cameras // sets
+
+
+def repeat_sets(x: torch.Tensor, views: int) -> torch.Tensor:
+    """(b, ...) -> (b * views, ...): each set once for each of its cameras."""
+    if views == 1:
+        return x
+    return x[:, None].expand(x.shape[0], views, *x.shape[1:]).reshape(x.shape[0] * views, *x.shape[1:])
+
+
+def sh_degree(sh: torch.Tensor) -> int | None:
+    """The SH degree of coefficients (..., 3, n), or None where n is no (d + 1)^2 for d in 0..4."""
+    n = sh.shape[-1] if sh.ndim >= 2 and sh.shape[-2] == 3 else 0
+    return {1: 0, 4: 1, 9: 2, 16: 3, 25: 4}.get(n)
+
+
+def projection_kernel_applies(*tensors: torch.Tensor | None, sh: torch.Tensor) -> bool:
+    """Whether a render's projection takes csrc/project.cu: every tensor given
+    a float32 CUDA tensor, none requiring grad while autograd records (the
+    kernel has no backward; training takes the plain version), and SH of a
+    degree 0-4."""
+    given = [t for t in (*tensors, sh) if t is not None]
+    if not all(t.is_cuda and t.dtype == torch.float32 for t in given):
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in given):
+        return False
+    return sh_degree(sh) is not None
+
+
+def project_rows_plain(
+    extrinsics, intrinsics, near, means, covariances, sh, opacities,
+    image_shape: tuple[int, int], scale_invariant: bool = True, with_color: bool = True,
+):
+    """The projection's outputs by the plain chain: B = b * views cameras
+    (extrinsics (B, 4, 4), intrinsics (B, 3, 3), near (B,)), b Gaussian sets
+    (means (b, G, 3), covariances (b, G, 3, 3), sh (b, G, 3, n), opacities
+    (b, G)), camera i seeing set i // views. Returns keys (B, G), rows (B, G,
+    8) (`pack_rows`), colours (B, G, 3) (None without `with_color`) and radii
+    (B, G), 0 where not valid."""
+    views = views_per_set(extrinsics.shape[0], means.shape[0])
+    proj = project_views(
+        extrinsics, intrinsics, near, *(repeat_sets(x, views) for x in (means, covariances, sh, opacities)),
+        image_shape, scale_invariant,
+    )
+    keys, rows = pack_rows(proj)
+    radii = torch.where(proj.valid, proj.radius, torch.zeros_like(proj.radius))
+    return keys, rows, proj.rgb if with_color else None, radii
+
+
+def project_rows_kernel(
+    extrinsics, intrinsics, near, means, covariances, sh, opacities,
+    image_shape: tuple[int, int], scale_invariant: bool = True, with_color: bool = True,
+):
+    """project_rows_plain's outputs in one launch of csrc/project.cu (counted
+    as `project`). Every input a contiguous float32 CUDA tensor; without
+    `with_color` the SH are not read (the caller composites its own feature)."""
+    h, w = image_shape
+    cams, sets = extrinsics.shape[0], means.shape[0]
+    g = means.shape[1] if means.ndim == 3 else -1
+    degree = sh_degree(sh)
+    want = {
+        "extrinsics": (extrinsics, (cams, 4, 4)), "intrinsics": (intrinsics, (cams, 3, 3)), "near": (near, (cams,)),
+        "means": (means, (sets, g, 3)), "covariances": (covariances, (sets, g, 3, 3)),
+        "sh": (sh, (sets, g, 3, sh.shape[-1])), "opacities": (opacities, (sets, g)),
+    }
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"project_rows_kernel: {name} has shape {tuple(t.shape)}, expected {shape}")
+    if degree is None:
+        raise ValueError(f"project_rows_kernel: {sh.shape[-1]} SH coefficients (the kernel takes degrees 0-4)")
+    views = views_per_set(cams, sets)
+    if sets > 65535:
+        raise ValueError(f"project_rows_kernel: {sets} Gaussian sets (at most 65535)")
+    for name, (t, _) in want.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"project_rows_kernel: {name} is {t.dtype}, expected torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"project_rows_kernel: {name} is not contiguous")
+    for name, (t, _) in want.items():
+        kernels.check_cuda_tensor(name, t, torch.float32)
+    dev = means.device
+    keys = torch.empty((cams, g), dtype=torch.float32, device=dev)
+    rows = torch.empty((cams, g, GFEAT_WIDTH), dtype=torch.float32, device=dev)
+    colors = torch.empty((cams, g, 3), dtype=torch.float32, device=dev) if with_color else None
+    radii = torch.empty((cams, g), dtype=torch.float32, device=dev)
+    kernels.call(
+        "tp_project_gaussians", "project",
+        extrinsics.data_ptr(), intrinsics.data_ptr(), near.data_ptr(), means.data_ptr(), covariances.data_ptr(),
+        sh.data_ptr(), opacities.data_ptr(), keys.data_ptr(), rows.data_ptr(),
+        colors.data_ptr() if with_color else None, radii.data_ptr(),
+        sets, views, g, degree, h, w, int(scale_invariant),
+    )
+    return keys, rows, colors, radii
 
 
 def gaussian_alpha(

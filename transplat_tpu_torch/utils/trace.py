@@ -35,6 +35,9 @@ What the program counts, always on:
   * `counters()["adapter.fused"]` / `counters()["adapter.plain"]`: the
     encoder forwards whose Gaussian adapter stage took the hand-written
     kernel / the plain PyTorch version (model/encoder.py)
+  * `counters()["render.project.fused"]` / `counters()["render.project.plain"]`:
+    the renders whose projection took the hand-written kernel
+    (csrc/project.cu) / the plain chain (ops/rasterizer/api.py `render`)
   * `counters()["epipolar.rays"]`: the rays of pixelSplat's epipolar sampler
     (its low grid, every view); `counters()["epipolar.rays_on_image"]`: those
     whose segment [near, far] meets the other view's image

@@ -4,7 +4,8 @@ Counterpart of transplat_tpu/visualization/validation_3d.py. The orthographic
 view is approximated as the JAX package does it: the camera moves far back
 along its axis with a tiny field of view (0.1 deg: about 573x the view's
 width), and the Gaussians render unscaled (`scale_invariant=False`) through
-the port's `render`, so on the card the view runs the tile binning (K1) and
+the port's `render`, so on the card the view runs the projection kernel
+(csrc/project.cu; no gradient is recorded), the tile binning (K1) and
 compositing (K3) kernels. `draw_cameras` draws on numpy images, as JAX's does.
 """
 
