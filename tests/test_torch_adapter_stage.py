@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ADAPTER_TOL, adapter_case, adapter_errors
+from _torch_cases import ADAPTER_TOL, adapter_case, adapter_errors
 from transplat_tpu_torch import kernels
-from transplat_tpu_torch.model.adapter import adapt_gaussians_fused, fused_adapter_applies
+from transplat_tpu_torch.model.adapter import adapt_gaussians_fused
 from transplat_tpu_torch.model.encoder import EncoderTranSplat, adapt_stage, opacity_exponent
 from transplat_tpu_torch.utils import trace
 
@@ -93,9 +93,9 @@ def test_an_input_requiring_grad_takes_the_plain_path():
     assert trace.counters() == {"adapter.plain": 1}
     grads = torch.autograd.grad(out["harmonics"].sum() + out["covariances"].sum(), raw)
     assert grads[0].abs().sum() > 0
-    assert not fused_adapter_applies(raw, depth)  # CPU tensors never take the kernel
+    assert not kernels.kernel_route(raw, depth)  # CPU tensors never take the kernel
     with torch.no_grad():
-        assert not fused_adapter_applies(raw.detach(), depth)
+        assert not kernels.kernel_route(raw.detach(), depth)
 
 
 def test_opacity_exponent_is_the_curve_of_map_pdf_to_opacity():

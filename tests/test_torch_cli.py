@@ -191,7 +191,7 @@ def test_test_from_weight_files_with_every_artifact_then_compute_metrics(data_ro
     LPIPS weights, given as config overrides) with every artifact; then
     `compute-metrics` over its renders, against the JAX command line's
     summary.json on the same directories (PSNR 1e-4 dB, SSIM 5e-5)."""
-    from chip_smoke import seeded_lpips_state as lpips_state_dict
+    from _torch_cases import seeded_lpips_state as lpips_state_dict
     from transplat_tpu_torch.config import load_config
     from transplat_tpu_torch.convert import to_jax_tree
     from transplat_tpu_torch.inference import init_random

@@ -13,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import synthetic_scene
+from _torch_cases import synthetic_scene
 from transplat_tpu_torch import raster_report
-from transplat_tpu_torch.ops.rasterizer import api, binning, composite
+from transplat_tpu_torch.ops.rasterizer import binning, composite, projection
 from transplat_tpu_torch.ops.rasterizer.projection import gaussian_alpha
 
 TILE = 16
@@ -137,7 +137,7 @@ def test_culled_walk_changes_no_result(channels):
     agree with composite_tiles_plain (its chunked cumprod: 1e-5)."""
     image_shape = (40, 56)
     cams, gs = synthetic_scene(400, 2, "cpu", 5 + channels)
-    gfeat, colors = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, image_shape))
+    gfeat, colors = binning.sort_by_depth(projection.project_views(*cams[:2], cams[2], *gs, image_shape))
     colors = colors[..., :channels].contiguous()
     lists = binning.bin_gaussians(gfeat, image_shape)
     culled, t_culled = _walk(gfeat, colors, lists, image_shape, cull=True)
@@ -173,7 +173,7 @@ def test_report_counts_agree_with_the_plain_compositor():
     the unculled ones are the evaluations less the rectangle's waste."""
     image_shape = (64, 80)
     cams, gs = synthetic_scene(1500, 2, "cpu", 1)
-    gfeat, colors = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, image_shape))
+    gfeat, colors = binning.sort_by_depth(projection.project_views(*cams[:2], cams[2], *gs, image_shape))
     lists = binning.bin_gaussians(gfeat, image_shape)
     work = raster_report.needed_work(gfeat, colors, lists)
     visited = work["visited"]

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import seeded_lpips_state
+from _torch_cases import seeded_lpips_state
 from test_torch_encoder import _tiny_cfgs
 from test_torch_modules import random_variables
 from transplat_tpu.convert import backbone as jax_backbone

@@ -7,15 +7,29 @@ on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ADAPTER_TOL, adapter_case, adapter_errors, project_case, project_errors, require_composite
-from chip_smoke import synthetic_scene as scene
+from _torch_cases import (
+    ADAPTER_TOL,
+    GRAD_TOL,
+    JPEG_MAE_TOL,
+    STAGED_TOL,
+    adapter_case,
+    adapter_errors,
+    assert_composite,
+    project_case,
+    project_errors,
+    scaled_err,
+)
+from _torch_cases import synthetic_scene as scene
 from transplat_tpu_torch import kernels
 from transplat_tpu_torch.ops import deform
-from transplat_tpu_torch.ops.rasterizer import api, binning, composite
+from transplat_tpu_torch.ops.rasterizer import api, binning, composite, projection
 from transplat_tpu_torch.ops.rasterizer.api import RasterizeConfig
 
 pytestmark = pytest.mark.cuda
@@ -23,14 +37,29 @@ pytestmark = pytest.mark.cuda
 # Kernel and plain version do the same float32 arithmetic, the plain version
 # in another summation order (cumprod per chunk, sums over corners): 1e-5.
 ATOL = 1e-5
+# The hand-written kernels a request launches (FORWARD_KERNELS; also the
+# adapter's and the projection's, once each) and a training step's backward
+# adds (BACKWARD_KERNELS, by their counters in kernels.launches).
+FORWARD_KERNELS = (
+    "deform_scores_p1", "deform_scores_p4", "deform_vectors", "bin_count", "bin_scan", "bin_place", "composite",
+)
+BACKWARD_KERNELS = ("deform_scores_bwd_p1", "deform_scores_bwd_p4", "deform_vectors_bwd", "composite_bwd", "bin_bwd")
+RASTER_KERNELS = ("bin_count", "bin_scan", "bin_place", "composite", "composite_bwd", "bin_bwd")
+# What trainer.deterministic_kernels puts in place of K8's and K2's atomic
+# modes, and the hand-written order of each sorted mode (no library sort).
+SORTED_MODES = {"deform_vectors_bwd": "deform_vectors_bwd_sorted", "bin_bwd": "bin_bwd_sorted"}
+SORTED_ORDERS = {"deform_vectors_bwd_sorted": "deform_vectors_bwd_order", "bin_bwd_sorted": "bin_bwd_order"}
+# Device kernels of a library sort (cub's radix sort and scans, PyTorch's
+# sorts). The port's own kernels are named bin_bwd_* and deform_vectors_bwd_*.
+LIBRARY_SORT = re.compile(r"cub::|radix|sort", re.IGNORECASE)
+OWN_KERNELS = re.compile(r"bin_bwd_|deform_vectors_bwd")
 
 
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    kernels.strict_float32()
     return torch.device("cuda")
 
 
@@ -60,8 +89,15 @@ def test_binning_kernels_equal_plain(dev, image_shape):
     versions, and the lists equal to the classic route's (a key per pair,
     torch.sort), bit for bit."""
     cams, gs = scene(3000, 3, dev, 1)
-    proj = api.project_views(*cams[:2], cams[2], *gs, image_shape)
+    proj = projection.project_views(*cams[:2], cams[2], *gs, image_shape)
     gfeat, _ = binning.sort_by_depth(proj)
+    _assert_k1_equals_plain(gfeat, image_shape)
+
+
+def _assert_k1_equals_plain(gfeat, image_shape):
+    """K1's three kernels each equal to their plain versions and the lists to
+    the classic route's, bit for bit; K2's order read off the lists equal
+    to torch.sort's."""
     ntx, nty = binning.grid_size(image_shape, 16)
     kernels.reset_launches()
     table, rects, aux = binning.bin_count(gfeat, ntx, nty, 16)
@@ -77,6 +113,10 @@ def test_binning_kernels_equal_plain(dev, image_shape):
     assert kernels.launches == {"bin_count": 1, "bin_scan": 1, "bin_place": 1}
     ref = binning.bin_gaussians_plain(gfeat, image_shape)
     assert torch.equal(idx, ref.idx) and torch.equal(ranges, ref.ranges)
+    b, g = gfeat.shape[:2]
+    lists = binning.bin_gaussians(gfeat, image_shape)
+    assert torch.equal(lists.idx, idx) and torch.equal(lists.rects, ref.rects)
+    assert all(torch.equal(x, y) for x, y in zip(binning.bin_bwd_order(lists, b, g), binning.bin_bwd_order_by_sort(lists, b, g)))
 
 
 def _binning_case(dev, case):
@@ -87,7 +127,7 @@ def _binning_case(dev, case):
     g = 2 * binning.BIN_CHUNK + 37
     shape, tile = ((512, 768), 8) if case == "wide_grid" else ((100, 76), 16)
     cams, gs = scene(g, 3, dev, 5)
-    gfeat, _ = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, shape))
+    gfeat, _ = binning.sort_by_depth(projection.project_views(*cams[:2], cams[2], *gs, shape))
     gfeat = gfeat.clone()
     if case == "dead_views":
         gfeat[1] = torch.tensor([1e9, 1e9, 0, 0, 0, 0, 0, 0], device=dev)
@@ -122,7 +162,7 @@ def test_render_kernels_match_plain(dev, image_shape):
     assert {"bin_count", "bin_scan", "bin_place", "composite"} <= set(kernels.launches)
     # The plain compositor on the same lists (the binning kernels equal their
     # plain versions exactly, test above), and the naive oracle.
-    gfeat, colors = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, image_shape))
+    gfeat, colors = binning.sort_by_depth(projection.project_views(*cams[:2], cams[2], *gs, image_shape))
     lists = binning.bin_gaussians(gfeat, image_shape)
     plain, _, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
     ref = api.render(*cams, image_shape, bg, *gs, cfg=RasterizeConfig(mode="reference"))
@@ -133,17 +173,6 @@ def test_render_kernels_match_plain(dev, image_shape):
     depth_ref = api.render_depth(*cams, image_shape, gs[0], gs[1], gs[3], cfg=RasterizeConfig(mode="reference"))
     # Depth features reach ~8: relative 2e-6 on top of the absolute bound.
     np.testing.assert_allclose(depth.cpu().numpy(), depth_ref.cpu().numpy(), atol=ATOL, rtol=2e-6)
-
-
-# Gradients are compared on values scaled by the gradient's largest entry.
-# K6 and K2 (sorted mode) repeat their plain versions' sums in another order:
-# 1e-5. K4 sums 256 pixels per entry in another order than the plain
-# version's chunked cumsum, and its 1 / (1 - alpha) reaches 100: 1e-4.
-GRAD_RTOL = {"deform": 1e-5, "bin": 1e-5, "composite": 1e-4}
-
-
-def _scaled_err(a, b):
-    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
 @pytest.mark.parametrize(
@@ -164,8 +193,8 @@ def test_deform_scores_bwd(dev, q, d, p, h, w):
     auto = torch.autograd.grad(deform.deform_sample_scores_plain(leaves[0], (h, w), leaves[1], leaves[2]), leaves, gbar)
     torch.cuda.synchronize()
     for name, a, b, c in zip(("scores", "loc", "weights"), got, plain, auto):
-        assert _scaled_err(a, b) <= GRAD_RTOL["deform"], (name, "plain", _scaled_err(a, b))
-        assert _scaled_err(a, c) <= GRAD_RTOL["deform"], (name, "autograd", _scaled_err(a, c))
+        assert scaled_err(a, b) <= GRAD_TOL["deform"], (name, "plain", scaled_err(a, b))
+        assert scaled_err(a, c) <= GRAD_TOL["deform"], (name, "autograd", scaled_err(a, c))
 
 
 def _vectors_case(n, q, p, h, w, c, seed, dev):
@@ -222,8 +251,8 @@ def test_deform_vectors_bwd(dev, n, q, p, h, w, c, deterministic):
     torch.cuda.synchronize()
     for name, a, b, c_ in zip(("value", "loc", "weights"), got, plain, auto):
         assert bool(torch.isfinite(a).all()), name
-        assert _scaled_err(a, b) <= GRAD_RTOL["deform"], (name, "plain", _scaled_err(a, b))
-        assert _scaled_err(a, c_) <= GRAD_RTOL["deform"], (name, "autograd", _scaled_err(a, c_))
+        assert scaled_err(a, b) <= GRAD_TOL["deform"], (name, "plain", scaled_err(a, b))
+        assert scaled_err(a, c_) <= GRAD_TOL["deform"], (name, "autograd", scaled_err(a, c_))
     far = slice(q // 4, q // 4 + 2)  # every corner outside the map: exactly 0
     assert float(got[1][:, far].abs().max()) == 0.0 and float(got[2][:, far].abs().max()) == 0.0
     if deterministic:
@@ -250,7 +279,7 @@ def _raster_case(dev, image_shape, channels, seed=2, g=3000):
     cams, gs = scene(g, 3, dev, seed)
     opac = torch.from_numpy(np.random.default_rng(seed).uniform(0.0, 1.2, (3, g)).astype(np.float32)).to(dev)
     gs = (gs[0], gs[1], gs[2], opac.clamp(0.5 / 255, 0.999))  # capped alphas and saturating tiles
-    gfeat, colors = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, image_shape))
+    gfeat, colors = binning.sort_by_depth(projection.project_views(*cams[:2], cams[2], *gs, image_shape))
     colors = colors[..., :channels].contiguous()
     lists = binning.bin_gaussians(gfeat, image_shape)
     bg = torch.tensor([[0.2, 0.5, 0.9], [0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], device=dev)[:, :channels].contiguous()
@@ -271,8 +300,8 @@ def test_composite_and_bin_bwd_match_plain(dev, image_shape, channels):
     d_pair_p = composite.composite_tiles_bwd_plain(gfeat, colors, lists, bg, image_p, t_final_p, g_out)
     torch.cuda.synchronize()
     for lo, hi, name in ((0, 2, "mean"), (2, 5, "conic"), (6, 7, "opacity"), (8, 8 + channels, "colour")):
-        err = _scaled_err(d_pair[:, lo:hi], d_pair_p[:, lo:hi])
-        assert err <= GRAD_RTOL["composite"], (name, err)
+        err = scaled_err(d_pair[:, lo:hi], d_pair_p[:, lo:hi])
+        assert err <= GRAD_TOL["composite"], (name, err)
     assert d_pair.shape == d_pair_p.shape == (lists.idx.shape[0], binning.pair_width(channels))
     assert float(d_pair[:, 5].abs().max()) == 0.0 and float(d_pair[:, 7].abs().max()) == 0.0
     assert float(d_pair[:, 8 + channels :].abs().max()) == 0.0  # the colour pad
@@ -283,7 +312,7 @@ def test_composite_and_bin_bwd_match_plain(dev, image_shape, channels):
     for deterministic in (True, False):
         got = binning.bin_bwd(d_pair, lists, b, g, channels, deterministic=deterministic)
         for a, r in zip(got, ref):
-            assert a.shape == r.shape and _scaled_err(a, r) <= GRAD_RTOL["bin"], (deterministic, _scaled_err(a, r))
+            assert a.shape == r.shape and scaled_err(a, r) <= GRAD_TOL["bin"], (deterministic, scaled_err(a, r))
     first = binning.bin_bwd(d_pair, lists, b, g, channels, deterministic=True)
     assert all(torch.equal(a, b_) for a, b_ in zip(first, binning.bin_bwd(d_pair, lists, b, g, channels, deterministic=True)))
 
@@ -330,8 +359,8 @@ def _check_k3_k4(dev, gfeat, colors, lists, bg, image_shape, label):
     image, t_final = composite._composite_fwd_cuda(gfeat, colors, lists, bg, image_shape)
     image_p, t_final_p, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
     torch.cuda.synchronize()
-    require_composite(image, image_p, f"{label}: image")
-    require_composite(t_final, t_final_p, f"{label}: T_final")
+    assert_composite(image, image_p, f"{label}: image")
+    assert_composite(t_final, t_final_p, f"{label}: T_final")
     g_out = torch.from_numpy(np.random.default_rng(1).standard_normal(tuple(image.shape)).astype(np.float32)).to(dev)
     d_pair = composite._composite_bwd_cuda(gfeat, colors, lists, bg, image, t_final, g_out)
     d_pair_p = composite.composite_tiles_bwd_plain(gfeat, colors, lists, bg, image_p, t_final_p, g_out)
@@ -341,7 +370,7 @@ def _check_k3_k4(dev, gfeat, colors, lists, bg, image_shape, label):
     assert bool(torch.isfinite(d_pair).all()) and torch.equal(d_pair, again), label
     for lo, hi, name in ((0, 2, "mean"), (2, 5, "conic"), (6, 7, "opacity"), (8, 8 + c, "colour")):
         if float(d_pair_p[:, lo:hi].abs().max()) > 0:
-            assert _scaled_err(d_pair[:, lo:hi], d_pair_p[:, lo:hi]) <= GRAD_RTOL["composite"], (label, name)
+            assert scaled_err(d_pair[:, lo:hi], d_pair_p[:, lo:hi]) <= GRAD_TOL["composite"], (label, name)
         else:
             assert float(d_pair[:, lo:hi].abs().max()) == 0.0, (label, name)
     assert float(d_pair[:, 5].abs().max()) == 0.0 and float(d_pair[:, 7].abs().max()) == 0.0
@@ -448,7 +477,7 @@ def test_bin_bwd_atomic_edge_cases(dev, channels):
             for a, r in zip(got, ref):
                 assert a.shape == r.shape and a.shape[-1] in (8, channels)
                 if r.numel() and float(r.abs().max()) > 0:
-                    assert _scaled_err(a, r) <= GRAD_RTOL["bin"], (b, deterministic, _scaled_err(a, r))
+                    assert scaled_err(a, r) <= GRAD_TOL["bin"], (b, deterministic, scaled_err(a, r))
                 else:
                     assert float(a.abs().sum()) == 0.0
 
@@ -516,7 +545,7 @@ def test_composite_tiles_orders_tiles_only_where_a_backward_follows(dev, monkeyp
     d_pair = composite._composite_bwd_cuda(gfeat, colors, lists, bg, alone, t_final, g_out)
     b, g, _ = gfeat.shape
     ref_g, ref_c = binning.bin_bwd_plain(d_pair, lists, b, g, 3)
-    assert _scaled_err(d_gfeat, ref_g) <= GRAD_RTOL["bin"] and _scaled_err(d_colors, ref_c) <= GRAD_RTOL["bin"]
+    assert scaled_err(d_gfeat, ref_g) <= GRAD_TOL["bin"] and scaled_err(d_colors, ref_c) <= GRAD_TOL["bin"]
 
 
 def test_every_wrapper_keeps_the_graph(dev):
@@ -623,7 +652,7 @@ def test_deform_scores_bwd_paths_repeat_their_bits(dev, q, d, p, h, w, path):
     plain = deform.deform_sample_scores_bwd_plain(scores, (h, w), loc, aw, gbar)
     torch.cuda.synchronize()
     for name, a, b in zip(("scores", "loc", "weights"), got, plain):
-        assert _scaled_err(a, b) <= GRAD_RTOL["deform"], (name, _scaled_err(a, b))
+        assert scaled_err(a, b) <= GRAD_TOL["deform"], (name, scaled_err(a, b))
     if path == "general":
         with pytest.raises(ValueError, match="deterministic"):
             deform._scores_bwd_cuda(scores, (h, w), loc, aw, gbar, deterministic=True)
@@ -642,7 +671,7 @@ def test_deform_scores_bwd_non_finite_query_gives_nan_row(dev):
     plain = deform.deform_sample_scores_bwd_plain(scores, (h, w), loc, aw, gbar)
     assert bool(torch.isnan(got[0][2]).all())
     keep = [0, 1, 3, 4, 5]
-    assert _scaled_err(got[0][keep], plain[0][keep]) <= GRAD_RTOL["deform"]
+    assert scaled_err(got[0][keep], plain[0][keep]) <= GRAD_TOL["deform"]
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 64, 128, 4), (1, 20, 24, 12, 3), (2, 9, 17, 8, 1)])
@@ -667,7 +696,7 @@ def test_deform_vectors_bwd_tiles_and_halo(dev, shape, deterministic):
     plain = deform.deform_sample_vectors_bwd_plain(value, (h, w), loc, aw, gbar)
     torch.cuda.synchronize()
     for name, a, b in zip(("value", "loc", "weights"), got, plain):
-        assert _scaled_err(a, b) <= GRAD_RTOL["deform"], (name, _scaled_err(a, b))
+        assert scaled_err(a, b) <= GRAD_TOL["deform"], (name, scaled_err(a, b))
     far = slice(q // 8, q // 8 + 3)
     assert float(got[1][:, far].abs().max()) == 0.0 and float(got[2][:, far].abs().max()) == 0.0
     if deterministic:
@@ -675,40 +704,455 @@ def test_deform_vectors_bwd_tiles_and_halo(dev, shape, deterministic):
         assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _library_sorts(fn) -> list[str]:
+    """The device kernels of a library sort among what one call of fn launches (torch.profiler)."""
+    from transplat_tpu_torch.utils.device_time import device_time
+
+    names = [name for name, _ in device_time(fn)["events"]]
+    return sorted({n[:80] for n in names if LIBRARY_SORT.search(n) and not OWN_KERNELS.search(n)})
+
+
+@pytest.mark.parametrize("case", ["wide_grid", "dead_views", "cover_all", "ragged", "no_pairs"])
+def test_bin_bwd_sorted_mode_orders_without_a_library_sort(dev, case):
+    """K2's sorted mode on K1's lists of the edge-case scenes: its order (two
+    kernels, read off the packed rectangles) equals torch.sort's permutation
+    and segments, as does the plain version's; its output equals the route
+    that took torch.sort's order bit for bit; and torch.profiler sees no
+    kernel of a library sort inside the wrapper, where torch.sort's route,
+    the control, shows one."""
+    gfeat, shape, tile = _binning_case(dev, case)
+    lists = binning.bin_gaussians(gfeat, shape, tile)
+    b, g, _ = gfeat.shape
+    d_pair = torch.randn((lists.idx.shape[0], binning.pair_width(3)), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    by_sort = binning.bin_bwd_order_by_sort(lists, b, g)
+    for order in (binning.bin_bwd_order(lists, b, g), binning.bin_bwd_order_plain(lists, b, g)):
+        assert all(torch.equal(x, y) for x, y in zip(order, by_sort))
+    sort_route = binning.bin_bwd_sorted_plain(d_pair, *by_sort)
+    got = binning.bin_bwd(d_pair, lists, b, g, 3, deterministic=True)
+    assert all(torch.equal(x, y) for x, y in zip(got, binning.split_rows(sort_route, b, g, 3)))
+    assert torch.equal(binning.bin_bwd_sorted(d_pair, *by_sort), sort_route)
+    if case != "no_pairs":  # no pairs, no launches for the profiler to see
+        assert not _library_sorts(lambda: binning.bin_bwd(d_pair, lists, b, g, 3, deterministic=True))
+        assert _library_sorts(lambda: binning.bin_bwd_order_by_sort(lists, b, g))
+
+
+@pytest.mark.parametrize("n,q,p,h,w", [(2, 4096, 4, 64, 64), (3, 100, 4, 5, 7), (2, 8192, 4, 128, 160), (1, 64, 2, 1, 1)])
+def test_deform_vectors_bwd_sorted_mode_orders_without_a_library_sort(dev, n, q, p, h, w):
+    """K8's sorted mode: its counting sort of the corner keys equals
+    torch.sort's permutation and segments, as does the plain version's, on
+    maps of 64x64, 5x7, 128x160 (four histogram slices) and 1x1 (most
+    corners outside); its d_value equals the route that took torch.sort's
+    order bit for bit; torch.profiler sees no kernel of a library sort inside
+    the wrapper, where torch.sort's route, the control, shows one."""
+    value, loc, aw, gbar = _vectors_case(n, q, p, h, w, 16, q + h, dev)
+    keys, corner_w, _, _ = deform._vectors_bwd_launch(value, (h, w), loc, aw, gbar, True)
+    rows = n * h * w
+    by_sort = deform.vectors_bwd_order_by_sort(keys, rows)
+    for order in (deform.vectors_bwd_order(keys, n, h * w), deform.vectors_bwd_order_plain(keys, rows)):
+        assert all(torch.equal(x, y) for x, y in zip(order, by_sort))
+    sort_route = deform.vectors_bwd_sorted_plain(gbar, corner_w, *by_sort, 4 * p)
+    got = deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True)
+    assert torch.equal(got[0].reshape(sort_route.shape), sort_route)
+    assert torch.equal(deform.vectors_bwd_sorted(gbar, corner_w, *by_sort, 4 * p), sort_route)
+    assert not _library_sorts(lambda: deform._vectors_bwd_cuda(value, (h, w), loc, aw, gbar, deterministic=True))
+    assert _library_sorts(lambda: deform.vectors_bwd_order_by_sort(keys, rows))
+
+
+@pytest.mark.parametrize("model", ["transplat", "pixelsplat"])
+def test_a_request_launches_every_forward_kernel_and_the_stage_kernels_once(dev, model):
+    """One request (2 context views at 64x64 -> 2 target views) launches
+    the render's forward kernels, and for TranSplat's tiny encoder also every
+    sampler's, the Gaussian adapter's kernel once (pixelSplat's published
+    encoder: at its 3 Gaussians a pixel) and the projection's once; no
+    backward kernel."""
+    from transplat_tpu_torch.dataset import synthetic_batch
+    from transplat_tpu_torch.inference import render_novel_views
+    from transplat_tpu_torch.model import build_encoder
+    from transplat_tpu_torch.model.encoder_epipolar import EncoderEpipolarCfg
+
+    if model == "transplat":
+        encoder, want = _tiny_encoder(dev), FORWARD_KERNELS
+    else:
+        encoder, want = build_encoder(EncoderEpipolarCfg(), device=dev), RASTER_KERNELS[:4]
+    batch = synthetic_batch(0, image_shape=(64, 64), num_target=2)
+    kernels.reset_launches()
+    out = render_novel_views(encoder, batch["context"], batch["target"], (64, 64), device=dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    assert bool(torch.isfinite(out).all())
+    assert all(launches.get(k, 0) > 0 for k in want), launches
+    assert launches.get("gaussian_adapter") == 1 and launches.get("project") == 1, launches
+    assert not set(launches) & {*BACKWARD_KERNELS, *SORTED_MODES.values(), *SORTED_ORDERS.values()}, launches
+
+
+@pytest.fixture(scope="module")
+def full_request():
+    """One full-width re10k serving request (time_kernels.request_lists: 2
+    context views of 256x256 -> 4 target views x 131,072 Gaussians), its
+    launch counts read from that request alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from transplat_tpu_torch.time_kernels import request_lists
+
+    kernels.strict_float32()
+    return request_lists(torch.device("cuda"))
+
+
+def test_a_full_width_request_launches_every_forward_kernel_and_the_stage_kernels_once(dev, full_request):
+    launches = full_request["launches"]
+    assert tuple(full_request["color"].shape) == (1, 4, 256, 256, 3) and bool(torch.isfinite(full_request["color"]).all())
+    assert full_request["gaussians"].means.shape[1] == 2 * 256 * 256
+    assert all(launches.get(k, 0) > 0 for k in FORWARD_KERNELS), launches
+    assert launches.get("gaussian_adapter") == 1 and launches.get("project") == 1, launches
+    assert not set(launches) & {*BACKWARD_KERNELS, *SORTED_MODES.values(), *SORTED_ORDERS.values()}, launches
+
+
+def test_raster_kernels_match_plain_on_the_full_width_request(dev, full_request):
+    """K1 to K4 on the request's own Gaussians and lists (4 views x 131,072):
+    K1's kernels and lists equal to their plain versions and K2's order to
+    torch.sort's; K3 and K4 within their bounds of the plain versions (a
+    coloured background); K2 in both modes within GRAD_TOL of its plain
+    version, its sorted mode the same bits twice; the classic route's lists
+    give K3, K4 and K2's sorted mode the same bits."""
+    gfeat, colors, lists = (full_request[k] for k in ("gfeat", "colors", "lists"))
+    b, g, _ = gfeat.shape
+    c = colors.shape[-1]
+    with torch.no_grad():
+        _assert_k1_equals_plain(gfeat, (256, 256))
+        bg = torch.rand((b, c), device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+        image, t_final, d_pair = _check_k3_k4(dev, gfeat, colors, lists, bg, (256, 256), "request")
+        ref = binning.bin_bwd_plain(d_pair, lists, b, g, c)
+        for deterministic in (False, True):
+            got = binning.bin_bwd(d_pair, lists, b, g, c, deterministic=deterministic)
+            assert all(scaled_err(x, r) <= GRAD_TOL["bin"] for x, r in zip(got, ref)), deterministic
+        first = binning.bin_bwd(d_pair, lists, b, g, c, deterministic=True)
+        assert all(torch.equal(x, y) for x, y in zip(first, binning.bin_bwd(d_pair, lists, b, g, c, deterministic=True)))
+        classic = binning.bin_gaussians_plain(gfeat, (256, 256))
+        c_image, c_t = composite._composite_fwd_cuda(gfeat, colors, classic, bg, (256, 256))
+        g_out = torch.from_numpy(np.random.default_rng(1).standard_normal(tuple(image.shape)).astype(np.float32)).to(dev)
+        c_pair = composite._composite_bwd_cuda(gfeat, colors, classic, bg, c_image, c_t, g_out)
+        assert torch.equal(c_image, image) and torch.equal(c_t, t_final) and torch.equal(c_pair, d_pair)
+        again = binning.bin_bwd(c_pair, classic, b, g, c, deterministic=True)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_deform_scores_on_the_full_width_request_epipolar_locations(dev, full_request):
+    """K5 at P = 1 on the inputs of the request's epipolar coarse correlation."""
+    scores, loc, aw, hw = full_request["samplings"][1]
+    out = deform.deform_sample_scores(scores, hw, loc, aw)
+    ref = deform.deform_sample_scores_plain(scores, hw, loc, aw)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= ATOL
+
+
+def test_deform_scores_bwd_on_the_full_width_request_cross_attention(dev, full_request):
+    """K6 at P = 4 on the inputs of the request's first cross-attention:
+    within GRAD_TOL of its plain version and of autograd through the
+    forward's plain version, through its own autograd wrapper too; the
+    atomic and the deterministic runs give the same bits."""
+    scores, loc, aw, hw = full_request["samplings"][4]
+    gbar = torch.randn(loc.shape[:3], device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    got = deform._scores_bwd_cuda(scores, hw, loc, aw, gbar)
+    again = deform._scores_bwd_cuda(scores, hw, loc, aw, gbar, deterministic=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = deform.deform_sample_scores_bwd_plain(scores, hw, loc, aw, gbar)
+    leaves = [t.clone().requires_grad_(True) for t in (scores, loc, aw)]
+    auto = torch.autograd.grad(deform.deform_sample_scores_plain(leaves[0], hw, leaves[1], leaves[2]), leaves, gbar)
+    through = torch.autograd.grad(deform.deform_sample_scores(leaves[0], hw, leaves[1], leaves[2]), leaves, gbar)
+    torch.cuda.synchronize()
+    for name, a, p, u, t in zip(("scores", "loc", "weights"), got, plain, auto, through):
+        assert max(scaled_err(a, p), scaled_err(a, u), scaled_err(t, p)) <= GRAD_TOL["deform"], name
+
+
+def _tiny_step(dev, seed=0, deterministic_kernels=False):
+    from transplat_tpu_torch.train_demo import build, tiny_encoder_cfg
+
+    return build(tiny_encoder_cfg(), (64, 64), dev, seed, num_target=2, deterministic_kernels=deterministic_kernels)
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_a_training_step_launches_every_backward_kernel(dev, deterministic):
+    """One training step at the tiny width (MSE + LPIPS, backward, clip +
+    Adam) launches every forward and every backward kernel: K8 and K2 in
+    their atomic modes, or with trainer.deterministic_kernels in their sorted
+    modes and those modes' orders, never both; the adapter and projection
+    kernels not at all (a gradient is recorded: their plain versions)."""
+    state, step, batch, gen = _tiny_step(dev, deterministic_kernels=deterministic)
+    kernels.reset_launches()
+    state, metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0.0
+    modes = SORTED_MODES if deterministic else {}
+    for name in FORWARD_KERNELS + BACKWARD_KERNELS:
+        assert launches.get(modes.get(name, name), 0) > 0, (name, launches)
+    for atomic, sorted_mode in SORTED_MODES.items():
+        if deterministic:
+            assert launches.get(atomic, 0) == 0 and launches.get(SORTED_ORDERS[sorted_mode], 0) > 0, launches
+        else:
+            assert launches.get(sorted_mode, 0) == 0 and launches.get(SORTED_ORDERS[sorted_mode], 0) == 0, launches
+    assert "gaussian_adapter" not in launches and "project" not in launches
+
+
+def test_tiny_training_step_card_matches_cpu(dev):
+    """One training step's loss and gradients (dropout off) at the tiny
+    width: the kernels on the card against the plain versions on the CPU,
+    from the same state. The rendered image is a step function of the
+    Gaussians (integer cutoff radius, 1/255 alpha floor): ~1.5% of its
+    values differ between card and CPU end to end in the worst case, and
+    every gradient inherits those flipped terms. Bounds (those of
+    tests/test_torch_training.py against JAX): loss within 1e-4 relative;
+    the whole gradient within 0.01 of its norm; every leaf within 0.05 of
+    its own norm plus 1e-2 of the whole gradient's (a bias in front of a
+    normalisation has a gradient of pure rounding noise, which no relative
+    bound can hold)."""
+    from transplat_tpu_torch.inference import re10k_decoder_cfg
+    from transplat_tpu_torch.loss import LossCfg
+    from transplat_tpu_torch.training.step import loss_and_grads
+
+    st_gpu, _, batch_gpu, _ = _tiny_step(dev, seed=3)
+    with torch.no_grad():  # keep depths off the 1/far clip, where 1/disparity amplifies rounding
+        st_gpu.encoder.depth_predictor.to_disparity_2.weight[0] *= 0.01
+    st_cpu, _, _, _ = _tiny_step("cpu", seed=3)
+    st_cpu.encoder.load_state_dict(st_gpu.encoder.state_dict())
+    st_cpu.lpips.load_state_dict(st_gpu.lpips.state_dict())
+    batch_cpu = {side: {k: v.cpu() for k, v in views.items()} for side, views in batch_gpu.items()}
+    kernels.reset_launches()
+    args = (LossCfg(), re10k_decoder_cfg(), (64, 64))
+    metrics_g, grads_g = loss_and_grads(st_gpu, batch_gpu, *args, deterministic=True)
+    metrics_c, grads_c = loss_and_grads(st_cpu, batch_cpu, *args, deterministic=True)
+    assert all(kernels.launches.get(k, 0) > 0 for k in FORWARD_KERNELS + BACKWARD_KERNELS), kernels.launches
+    loss_g, loss_c = float(metrics_g["loss"]), float(metrics_c["loss"])
+    assert abs(loss_g - loss_c) / abs(loss_c) <= 1e-4, (loss_g, loss_c)
+    diffs = {k: float((grads_g[k].cpu() - g).norm()) for k, g in grads_c.items()}
+    norms = {k: float(g.norm()) for k, g in grads_c.items()}
+    assert all(np.isfinite(d) for d in diffs.values())
+    whole = sum(n**2 for n in norms.values()) ** 0.5
+    leaf_err = {k: diffs[k] / (norms[k] + 1e-2 * whole) for k in diffs}
+    worst = max(leaf_err, key=leaf_err.get)
+    assert leaf_err[worst] <= 0.05, (worst, leaf_err[worst])
+    assert sum(d**2 for d in diffs.values()) ** 0.5 / whole <= 0.01
+
+
 def test_two_full_width_steps_with_the_switch_repeat_their_bits(dev):
-    """chip_smoke.py's train_deterministic: from one state, two full-width
-    re10k training steps with trainer.deterministic_kernels give the same
-    loss, gradients, parameters and Adam moments bit for bit, through the
-    sorted modes of K2 and K8."""
-    from chip_smoke import train_deterministic
+    """From one state, two full-width re10k training steps with
+    trainer.deterministic_kernels give the same loss, gradients, parameters,
+    BatchNorm statistics and Adam moments bit for bit, through the sorted
+    modes of K2 and K8 (and their orders) and not their atomic ones."""
+    import copy
 
-    train_deterministic(dev, [])
+    from transplat_tpu_torch.inference import re10k_decoder_cfg, re10k_encoder_cfg
+    from transplat_tpu_torch.loss import LossCfg
+    from transplat_tpu_torch.train_demo import build
+    from transplat_tpu_torch.training.step import loss_and_grads
+
+    image = (256, 256)
+    state, step, batch, gen = build(re10k_encoder_cfg(), image, dev, 0, num_target=4, deterministic_kernels=True)
+    state, _ = step(state, batch, gen.manual_seed(0))  # a state past step 0
+    passes = []
+    for _ in range(2):
+        metrics, grads = loss_and_grads(copy.deepcopy(state), batch, LossCfg(), re10k_decoder_cfg(), image,
+                                        gen.manual_seed(1), deterministic_kernels=True)
+        passes.append((float(metrics["loss"]), grads))
+    assert passes[0][0] == passes[1][0]
+    differ = [k for k, g in passes[0][1].items() if not torch.equal(g, passes[1][1][k])]
+    assert not differ, differ[:5]
+    del passes
+    runs = []
+    for _ in range(2):
+        s = copy.deepcopy(state)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        s, metrics = step(s, batch, gen.manual_seed(2))
+        torch.cuda.synchronize()
+        runs.append((s, {k: float(v) for k, v in metrics.items()}, dict(kernels.launches)))
+    (s0, m0, launches), (s1, m1, _) = runs
+    assert m0 == m1
+    sd0, sd1 = s0.encoder.state_dict(), s1.encoder.state_dict()
+    differ = [k for k in sd0 if not torch.equal(sd0[k], sd1[k])]
+    differ += [k for k in s0.opt_state.mu if not (torch.equal(s0.opt_state.mu[k], s1.opt_state.mu[k])
+                                                   and torch.equal(s0.opt_state.nu[k], s1.opt_state.nu[k]))]
+    assert not differ, differ[:5]
+    for atomic, sorted_mode in SORTED_MODES.items():
+        assert launches.get(sorted_mode, 0) > 0 and launches.get(atomic, 0) == 0, launches
+    for name in FORWARD_KERNELS + ("deform_scores_bwd_p1", "deform_scores_bwd_p4", "composite_bwd",
+                                   *SORTED_ORDERS.values()):
+        assert launches.get(name, 0) > 0, (name, launches)
 
 
-def test_precision_and_checkpointing_at_a_tiny_width(dev):
-    """chip_smoke.py's precision_remat at the tiny width, one step a
-    setting: K5 at P = 4 and K7 twice a step, four times under
-    remat_matching; float32 at every kernel; the bf16 step near the float32
-    step; the checkpointed step bit for bit the plain one under the switch."""
-    from chip_smoke import precision_remat
-    from transplat_tpu_torch.train_demo import tiny_encoder_cfg
+# The encoder's compute dtype and gradient checkpointing: each setting's
+# fields over the tiny configuration with s2d_unet off.
+PRECISION_SETTINGS = {
+    "float32": {},
+    "bfloat16": {"compute_dtype": "bfloat16"},
+    "remat": {"remat_unet": True, "remat_matching": True},
+    "bfloat16_remat": {"compute_dtype": "bfloat16", "remat_unet": True, "remat_matching": True},
+}
+# The bf16 step against the float32 step from one state (past Adam's first,
+# sign-like update), dropout masks alike: the loss within PRECISION_LOSS_RTOL
+# relative, the update's cosine at least PRECISION_MIN_COSINE. The tiny
+# configuration on the CPU reads 3e-4 and 0.99 against JAX's bf16 step
+# (tests/test_torch_training.py).
+PRECISION_LOSS_RTOL = 1e-2
+PRECISION_MIN_COSINE = 0.9
 
-    precision_remat(dev, [], encoder_cfg=tiny_encoder_cfg(), image=(64, 64), steps=1)
+
+@pytest.mark.parametrize("width", ["tiny", "re10k"])
+def test_precision_and_checkpointing(dev, width):
+    """The training step in four settings (PRECISION_SETTINGS), at the tiny
+    width (64x64) and at re10k's (256x256, the published encoder), each
+    from one state one step past initialisation: K5 at P = 4 and K7 twice a
+    step, four times under remat_matching (the backward runs each fine layer
+    again); every forward and backward kernel launched; float32 at every
+    kernel wrapper (a bf16 tensor there would raise); the bf16 step's loss
+    and update near the float32 step's. With trainer.deterministic_kernels
+    the checkpointed forward and backward equal the plain one bit for bit
+    (loss, every gradient, the dropout generator's state), in float32 and in
+    bf16. A bf16 request and a float32 one of the same weights are finite."""
+    import dataclasses
+
+    from transplat_tpu_torch.inference import re10k_decoder_cfg, re10k_encoder_cfg, render_novel_views
+    from transplat_tpu_torch.loss import LossCfg
+    from transplat_tpu_torch.model.encoder import EncoderTranSplat
+    from transplat_tpu_torch.train_demo import RE10K_LR, RE10K_MAX_STEPS, build, tiny_encoder_cfg
+    from transplat_tpu_torch.training import make_lr_schedule, make_optimizer, make_train_step
+    from transplat_tpu_torch.training.step import TrainState, loss_and_grads
+
+    image, cfg0 = ((64, 64), tiny_encoder_cfg()) if width == "tiny" else ((256, 256), re10k_encoder_cfg())
+    base = dataclasses.replace(cfg0, s2d_unet=False)
+    state0, step0, batch, gen = build(base, image, dev, 0, num_target=4)
+    state0, _ = step0(state0, batch, gen.manual_seed(0))  # past Adam's first update
+    before = {k: p.detach().clone() for k, p in state0.trainable().items()}
+    optimizer = make_optimizer(make_lr_schedule(RE10K_LR, RE10K_MAX_STEPS), grad_clip=0.5)
+
+    def state_as(cfg):
+        """state0 with an encoder built from `cfg`: the same parameters, statistics, moments and step."""
+        import copy
+
+        encoder = EncoderTranSplat(cfg, device=dev)
+        encoder.load_state_dict(state0.encoder.state_dict())
+        return TrainState(step=state0.step, encoder=encoder, lpips=state0.lpips, opt_state=copy.deepcopy(state0.opt_state))
+
+    checked = kernels.check_cuda_tensor
+    seen_dtypes = set()
+
+    def spy(name, t, dtype, ndim=None):
+        seen_dtypes.add(str(t.dtype).replace("torch.", ""))
+        return checked(name, t, dtype, ndim)
+
+    warm = {}
+    for name, fields in PRECISION_SETTINGS.items():
+        cfg = dataclasses.replace(base, **fields)
+        state = state_as(cfg)
+        step = make_train_step(cfg, LossCfg(), re10k_decoder_cfg(), optimizer, image)
+        state, metrics = step(state, batch, gen.manual_seed(1))  # from state0 alike
+        warm[name] = (float(metrics["loss"]), torch.cat([(p.detach() - before[k]).reshape(-1)
+                                                         for k, p in state.trainable().items()]))
+        seen_dtypes.clear()
+        kernels.check_cuda_tensor = spy
+        try:
+            kernels.reset_launches()
+            state, metrics = step(state, batch, gen)
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+        finally:
+            kernels.check_cuda_tensor = checked
+        assert np.isfinite(float(metrics["loss"])), name
+        assert seen_dtypes and "bfloat16" not in seen_dtypes, (name, seen_dtypes)
+        fine = 4 if fields.get("remat_matching") else 2
+        for counter in ("deform_scores_p4", "deform_vectors"):
+            assert launches.get(counter, 0) == fine, (name, counter, launches)
+        for counter in FORWARD_KERNELS + BACKWARD_KERNELS:
+            assert launches.get(counter, 0) > 0, (name, counter)
+    for name in ("bfloat16", "bfloat16_remat"):
+        loss_rel = abs(warm[name][0] / warm["float32"][0] - 1.0)
+        cosine = float(torch.nn.functional.cosine_similarity(warm[name][1], warm["float32"][1], dim=0))
+        assert loss_rel <= PRECISION_LOSS_RTOL and cosine >= PRECISION_MIN_COSINE, (name, loss_rel, cosine)
+
+    for dtype in ("float32", "bfloat16"):
+        runs = []
+        for fields in ({}, {"remat_unet": True, "remat_matching": True}):
+            cfg = dataclasses.replace(base, compute_dtype=dtype, **fields)
+            g = torch.Generator(device=dev).manual_seed(2)
+            metrics, grads = loss_and_grads(state_as(cfg), batch, LossCfg(), re10k_decoder_cfg(), image, g,
+                                            deterministic_kernels=True)
+            runs.append((float(metrics["loss"]), grads, g.get_state()))
+        (l0, g0, r0), (l1, g1, r1) = runs
+        differ = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+        assert l0 == l1 and not differ and torch.equal(r0, r1), (dtype, differ[:5])
+
+    for dtype in ("float32", "bfloat16"):
+        encoder = state_as(dataclasses.replace(base, compute_dtype=dtype)).encoder
+        out = render_novel_views(encoder, batch["context"], batch["target"], image, device=dev)
+        assert bool(torch.isfinite(out).all()), dtype
 
 
 def test_fit_resume_with_the_switch_is_exact(dev):
-    """chip_smoke.py's fit_resume_deterministic: a Trainer resumed from the
-    middle checkpoint repeats the first run's losses and parameters exactly."""
-    from chip_smoke import fit_resume_deterministic
+    """Path 3 with trainer.deterministic_kernels at full width on the golden
+    scene: Trainer.fit for 4 steps with a checkpoint in the middle, then a
+    fresh Trainer resumed from it. The resumed steps' metrics and the final
+    parameters, BatchNorm statistics and Adam moments equal the first run's
+    exactly; the sorted modes of K2 and K8 ran, their atomic modes not."""
+    import itertools
+    import json
+    import shutil
+    import tempfile
 
-    fit_resume_deterministic(dev, [])
+    from transplat_tpu_torch.config import load_config
+    from transplat_tpu_torch.dataset import golden_scene_batch
+    from transplat_tpu_torch.loss import LPIPS
+    from transplat_tpu_torch.training import Trainer
+
+    steps, half = 4, 2
+    batch = golden_scene_batch(num_context=2, num_target=4, image_shape=(256, 256))
+    lpips = LPIPS(device=dev, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        def config(run: str):
+            return load_config(
+                "re10k",
+                optimizer=dict(lr=4e-4, cosine_lr=True, warm_up_steps=1),
+                trainer=dict(max_steps=steps, num_sanity_val_steps=0, val_check_interval=steps, seed=0,
+                             deterministic_kernels=True),
+                checkpointing=dict(save_dir=f"{tmp}/{run}/checkpoints", every_n_train_steps=half),
+            )
+
+        kernels.reset_launches()
+        first = Trainer(config("run"), log_fn=lambda m: None, device=dev, lpips=lpips, log_every=1)
+        state = first.fit(itertools.repeat(batch), max_steps=steps)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        for atomic, sorted_mode in SORTED_MODES.items():
+            assert launches.get(sorted_mode, 0) > 0 and launches.get(SORTED_ORDERS[sorted_mode], 0) > 0
+            assert launches.get(atomic, 0) == 0, launches
+        want = {k: v.clone() for k, v in state.encoder.state_dict().items()}
+        moments = {k: (state.opt_state.mu[k].clone(), state.opt_state.nu[k].clone()) for k in state.opt_state.mu}
+        del state
+        resumed_cfg = config("resumed")
+        Path(resumed_cfg.checkpointing.save_dir).mkdir(parents=True)
+        shutil.copy(f"{tmp}/run/checkpoints/step_{half:08d}.pt", resumed_cfg.checkpointing.save_dir)
+        logs: list[str] = []
+        resumed = Trainer(resumed_cfg, log_fn=logs.append, device=dev, lpips=lpips, log_every=1)
+        state = resumed.fit(itertools.repeat(batch), max_steps=steps)
+        assert f"resumed from step {half}" in logs and state.step == steps, logs[:3]
+        records = {}
+        for run in ("run", "resumed"):
+            lines = [json.loads(line) for line in Path(f"{tmp}/{run}/metrics.jsonl").read_text().splitlines()]
+            records[run] = {r["step"]: {k: v for k, v in r.items() if k != "s_per_it"} for r in lines if "loss" in r}
+        assert sorted(records["resumed"]) == list(range(half + 1, steps + 1))
+        for i in range(half + 1, steps + 1):
+            assert records["resumed"][i] == records["run"][i], (i, records["resumed"][i], records["run"][i])
+        have = state.encoder.state_dict()
+        differ = [k for k in want if not torch.equal(want[k], have[k])]
+        differ += [k for k, (mu, nu) in moments.items()
+                   if not (torch.equal(mu, state.opt_state.mu[k]) and torch.equal(nu, state.opt_state.nu[k]))]
+        assert not differ, differ[:5]
 
 
 def test_jpeg_route_on_the_card_decodes_its_source(dev):
     """The card machine's JPEG route (nvJPEG where the host has no libjpeg):
-    frames it encodes at quality 95 decode within chip_smoke.py's tolerance
-    of their source pixels, a truncated or foreign stream raises."""
-    from chip_smoke import JPEG_MAE_TOL
+    frames it encodes at quality 95 decode within JPEG_MAE_TOL of their
+    source pixels, a truncated or foreign stream raises."""
     from transplat_tpu_torch import native
     from transplat_tpu_torch.dataset import chunks
 
@@ -727,6 +1171,16 @@ def test_jpeg_route_on_the_card_decodes_its_source(dev):
         assert float(np.abs(on_card.astype(np.float64) - source).mean()) / 255.0 <= JPEG_MAE_TOL
 
 
+# A narrow encoder at 64x64 for the command line's modes.
+TINY_YAML = (
+    "dataset: {image_shape: [64, 64]}\n"
+    "encoder: {d_feature: 16, num_depth_candidates: 16, costvolume_unet_feat_dim: 16,"
+    " costvolume_unet_channel_mult: [1, 1], costvolume_unet_attn_res: [2], depth_unet_feat_dim: 8,"
+    " depth_unet_attn_res: [4], depth_unet_channel_mult: [1, 1, 1], dav2_encoder: vits, dav2_input_size: 28,"
+    " gaussian_adapter: {sh_degree: 1}}\n"
+)
+
+
 def test_main_train_two_steps_over_chunks(dev, tmp_path, monkeypatch):
     """`main train` on the card over seeded chunks: a narrow encoder at 64x64,
     two forked loader workers, two steps; a checkpoint, and validations that
@@ -739,14 +1193,7 @@ def test_main_train_two_steps_over_chunks(dev, tmp_path, monkeypatch):
     data = tmp_path / "data"
     chunks.write_chunk(data / "train" / "000000.torch", [chunks.make_scene(f"tr_{i}", 30, seed=i) for i in range(2)])
     chunks.write_chunk(data / "test" / "000000.torch", [chunks.make_scene("te_0", 60, seed=7)])
-    (tmp_path / "tiny.yaml").write_text(
-        "dataset: {image_shape: [64, 64]}\n"
-        "encoder: {d_feature: 16, num_depth_candidates: 16, costvolume_unet_feat_dim: 16,"
-        " costvolume_unet_channel_mult: [1, 1], costvolume_unet_attn_res: [2], depth_unet_feat_dim: 8,"
-        " depth_unet_attn_res: [4], depth_unet_channel_mult: [1, 1, 1], dav2_encoder: vits, dav2_input_size: 28,"
-        " gaussian_adapter: {sh_degree: 1}}\n"
-        "trainer: {batch_size: 1, num_workers: 2, val_check_interval: 0.5}\n"
-    )
+    (tmp_path / "tiny.yaml").write_text(TINY_YAML + "trainer: {batch_size: 1, num_workers: 2, val_check_interval: 0.5}\n")
     monkeypatch.chdir(tmp_path)
     run = tmp_path / "run"
     assert main(["train", "--config", "tiny.yaml", "--dataset-root", str(data), "--max-steps", "2",
@@ -754,6 +1201,124 @@ def test_main_train_two_steps_over_chunks(dev, tmp_path, monkeypatch):
     assert (run / "checkpoints" / "step_00000002.pt").exists()
     vals = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines() if "val_psnr" in x]
     assert [r["step"] for r in vals] == [1, 2] and all(r["val_scenes"] == ["te_0"] for r in vals)
+
+
+def _leaves(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        out.update(_leaves(v, (*prefix, k)) if isinstance(v, dict) else {(*prefix, k): np.asarray(v)})
+    return out
+
+
+def test_main_test_with_every_artifact_then_evaluate_batch_and_compute_metrics(dev, tmp_path, monkeypatch):
+    """`main test` on the card at 64x64 from weight files (a seeded narrow
+    encoder's tree in the JAX layout, seeded LPIPS weights) over seeded test
+    chunks, through the index `main generate-index` writes, with every
+    artifact: the request's kernels launched (counts reset just before),
+    renders, videos, PLY, stage timing, analysis and finite LPIPS written.
+    The encoder it loads equals the tree bit for bit, and
+    Evaluator.evaluate_batch on the card renders each scene as the CPU does
+    from the same weights (the tiny slice's bound: 98% of the values within
+    1e-4, all within 0.05). Then a second `main test` from seed-init weights
+    and `compute-metrics` over both runs' renders on the card."""
+    import json
+
+    from _torch_cases import seeded_lpips_state
+    from transplat_tpu_torch.config import load_config
+    from transplat_tpu_torch.convert import to_jax_tree
+    from transplat_tpu_torch.dataset import chunks
+    from transplat_tpu_torch.dataset.loader import DataLoader
+    from transplat_tpu_torch.evaluation import Evaluator
+    from transplat_tpu_torch.inference import init_random
+    from transplat_tpu_torch.main import main
+    from transplat_tpu_torch.model.encoder import EncoderTranSplat
+    from transplat_tpu_torch.training.schedule import make_lr_schedule
+    from transplat_tpu_torch.training.step import create_train_state, make_optimizer
+
+    data = tmp_path / "data"
+    chunks.write_chunk(data / "test" / "000000.torch", [chunks.make_scene(f"te_{i}", 60, seed=5 + i) for i in range(2)])
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "tiny.yaml").write_text(TINY_YAML)
+    index = tmp_path / "index.json"
+    cfg = load_config("re10k", yaml_path=tmp_path / "tiny.yaml", dataset=dict(roots=[str(data)]),
+                      test=dict(evaluation_index=str(index)),
+                      checkpointing=dict(pretrained_model=str(tmp_path / "tree.npy")))
+    seeded = EncoderTranSplat(cfg.encoder, device="cpu")
+    init_random(seeded, 17)
+    with torch.no_grad():  # keep depths off the 1/far clip (see test_torch_encoder.py)
+        seeded.depth_predictor.to_disparity_2.weight[0] *= 0.01
+    tree = to_jax_tree(seeded)
+    np.save(tmp_path / "tree.npy", tree, allow_pickle=True)
+    np.save(tmp_path / "lpips.npy", seeded_lpips_state("torchvision", seed=2), allow_pickle=True)
+    assert main(["generate-index", "--dataset-root", str(data), "--output", str(index)]) == 0
+    common = ["--config", "tiny.yaml", "--dataset-root", str(data), "--evaluation-index", str(index),
+              f"checkpointing.lpips_weights={tmp_path / 'lpips.npy'}"]
+    out = tmp_path / "weights"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    assert main(["test", *common, "--output", str(out), "--save-image", f"checkpointing.pretrained_model={tmp_path / 'tree.npy'}",
+                 "test.stage_timing=true", "test.analyze=true", "test.save_video=true", "test.save_ply=true"]) == 0
+    torch.cuda.synchronize()
+    assert all(kernels.launches.get(k, 0) > 0 for k in FORWARD_KERNELS), kernels.launches
+    files = sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file())
+    for scene in ("te_0", "te_1"):
+        for name in ("color/0000.png", "wobble.mp4", "interpolation.mp4", "gaussians.ply"):
+            assert f"{scene}/{name}" in files
+    for name in ("analysis_avg.json", "analysis_per_scene.json", "benchmark.json", "scores_all_avg.json",
+                 "scores_per_scene.json"):
+        assert name in files
+    assert all(np.isfinite(s["lpips"]) for s in json.loads((out / "scores_per_scene.json").read_text()).values())
+
+    state = create_train_state(cfg.encoder, make_optimizer(make_lr_schedule(cfg.optimizer.lr, 1000)), None,
+                               device=dev, seed=0, ckpt_cfg=cfg.checkpointing)
+    loaded, want = _leaves(to_jax_tree(state.encoder)), _leaves(tree)
+    assert sorted(loaded) == sorted(want) and all(np.array_equal(loaded[k], want[k]) for k in want)
+    on_card = Evaluator(cfg, state.encoder.eval(), None, device=dev)
+    on_cpu = Evaluator(cfg, seeded.eval(), None, device="cpu")
+    scenes = []
+    for batch in DataLoader(on_card.make_dataset(), batch_size=1, drop_last=False):
+        kernels.reset_launches()
+        scores, color = on_card.evaluate_batch(batch)
+        torch.cuda.synchronize()
+        assert all(kernels.launches.get(k, 0) > 0 for k in FORWARD_KERNELS), kernels.launches
+        assert scores["render_overflow"] == 0 and np.isfinite(scores["psnr"]) and np.isfinite(scores["ssim"])
+        diff = np.abs(color - on_cpu.evaluate_batch(batch)[1])
+        assert np.mean(diff > 1e-4) < 0.02 and diff.max() < 0.05, (np.mean(diff > 1e-4), diff.max())
+        scenes.append(batch["scene"][0])
+    assert sorted(scenes) == ["te_0", "te_1"]
+
+    other = tmp_path / "seeded"
+    assert main(["test", *common, "--output", str(other), "--save-image"]) == 0
+    assert main(["compute-metrics", "--ground-truth", str(out), "--method", f"weights={out}",
+                 "--method", f"seeded={other}", "--output", str(tmp_path / "m")]) == 0
+    summary = json.loads((tmp_path / "m" / "summary.json").read_text())
+    assert summary["weights"]["psnr"] == pytest.approx(120.0) and summary["weights"]["ssim"] == pytest.approx(1.0)
+    assert np.isfinite(summary["seeded"]["psnr"]) and summary["seeded"]["psnr"] < 120.0
+
+
+def test_main_bench_runs_the_card_kernels_at_a_tiny_size(dev, monkeypatch, capsys):
+    """`main bench` on the card, its sizes cut as tests/test_torch_cli.py cuts
+    them on the CPU (bench.run's keyword arguments; the training step at the
+    narrow encoder's 64x64): one JSON line of finite positive numbers, the
+    card's name as its device, every forward and backward kernel launched."""
+    import functools
+    import json
+
+    from transplat_tpu_torch import bench
+    from transplat_tpu_torch.main import main
+    from transplat_tpu_torch.train_demo import tiny_encoder_cfg
+
+    train = dict(encoder_cfg=tiny_encoder_cfg(), image_shape=(64, 64), inner=1, iters=1)
+    monkeypatch.setattr(bench, "run", functools.partial(bench.run, views=2, gaussians=4096, image=64, inner=2, outer=1,
+                                                        train=True, train_kwargs=train))
+    kernels.reset_launches()
+    assert main(["bench"]) == 0
+    torch.cuda.synchronize()
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    numbers = {k: v for k, v in record.items() if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    assert all(np.isfinite(v) and v > 0 for v in numbers.values()), record
+    assert record["device"] == torch.cuda.get_device_name(0) and record["train_step_ms"] > 0, record
+    assert all(kernels.launches.get(k, 0) > 0 for k in FORWARD_KERNELS + BACKWARD_KERNELS), kernels.launches
 
 
 # Evaluation from weight files (the staged encoder, the videos' 30-view decodes).
@@ -773,7 +1338,6 @@ def test_staged_encoder_matches_fused_on_the_card(dev):
     """The staged encoder runs the fused encoder's operations stage by stage,
     with a synchronisation and two CUDA events between stages: the same
     Gaussians (STAGED_TOL), every stage timed and measured on the card."""
-    from chip_smoke import STAGED_TOL
     from transplat_tpu_torch.dataset import synthetic_batch
     from transplat_tpu_torch.evaluation.staged import STAGES, StagedEncoder
     from transplat_tpu_torch.utils.benchmarker import Benchmarker
@@ -810,14 +1374,14 @@ def test_thirty_view_decode_matches_plain(dev):
     kernels.reset_launches()
     out = api.render(*cams, image_shape, bg, *gs)
     assert kernels.launches.get("composite", 0) == 1 and kernels.launches.get("bin_place", 0) == 1
-    gfeat, colors = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, image_shape))
+    gfeat, colors = binning.sort_by_depth(projection.project_views(*cams[:2], cams[2], *gs, image_shape))
     lists = binning.bin_gaussians(gfeat, image_shape)
     classic = binning.bin_gaussians_plain(gfeat, image_shape)
     assert torch.equal(lists.idx, classic.idx) and torch.equal(lists.ranges, classic.ranges)
     assert lists.idx.numel() > 0 and lists.ranges.dtype == torch.int32
     plain, _, _ = composite.composite_tiles_plain(gfeat, colors, lists, bg, image_shape)
     torch.cuda.synchronize()
-    require_composite(out.color, plain, "30-view decode")
+    assert_composite(out.color, plain, "30-view decode")
 
 
 def test_orthographic_render_on_the_card_matches_the_cpu(dev):
@@ -844,7 +1408,7 @@ def test_orthographic_render_on_the_card_matches_the_cpu(dev):
 
 @pytest.mark.parametrize("dp,sp", [(2, 1), (1, 2)])
 def test_parallel_step_of_two_ranks_on_the_card_matches_one_process(dev, dp, sp):
-    """chip_smoke.py's parallel phase at the tiny width: two gloo ranks
+    """The parallel step at the tiny width: two gloo ranks
     sharing the card take one step (dp: the joined batch split over the
     ranks, dropout off; sp: the views split, dropout on), held against the
     one-process step on the card; every rank launched K1-K4 in its step, and
@@ -854,7 +1418,6 @@ def test_parallel_step_of_two_ranks_on_the_card_matches_one_process(dev, dp, sp)
     1.5e-4, worst leaf 1.1e-2, update cosine 1 - 1.4e-4), which round
     further from the joined batch than the CPU's; the loss and BatchNorm
     statistics 1e-5."""
-    from chip_smoke import RASTER_KERNELS
     from test_torch_parallel import STEP_TOL
     from transplat_tpu_torch.parallel import dryrun, launch
 
@@ -1098,7 +1661,7 @@ PROJECT_SHAPE = (96, 128)
 def test_projection_kernel_equals_plain_on_exact_cameras(dev, degree, scale_invariant, sets, views):
     """csrc/project.cu against the plain chain on cameras that every
     inverse rounds alike: keys, rows and radii bit for bit, colours within
-    PROJECT_COLOR_TOL, the same depth order (chip_smoke.project_errors)."""
+    PROJECT_COLOR_TOL, the same depth order (_torch_cases.project_errors)."""
     from transplat_tpu_torch.ops.rasterizer.projection import project_rows_kernel, project_rows_plain
 
     args = project_case(dev, sets, views, 4096, degree, 10 * degree + sets + views, exact=True)
@@ -1170,7 +1733,7 @@ def test_render_takes_the_projection_kernel_once_without_a_gradient(dev):
     plain = api.render(extr, intr, near, far, PROJECT_SHAPE, bg, *leaves)
     assert "project" not in kernels.launches and trace.counters()["render.project.plain"] == 1
     assert plain.color.grad_fn is not None
-    require_composite(fused.color, plain.color.detach(), "fused vs plain route")
+    assert_composite(fused.color, plain.color.detach(), "fused vs plain route")
     assert torch.equal(fused.radii, plain.radii)
     with torch.no_grad():
         decoded = decode_splatting(Gaussians(*gs), extr.reshape(2, 3, 4, 4), intr.reshape(2, 3, 3, 3),
@@ -1181,5 +1744,5 @@ def test_render_takes_the_projection_kernel_once_without_a_gradient(dev):
     kernels.reset_launches()
     depth_plain = api.render_depth(extr, intr, near, far, PROJECT_SHAPE, *(x for i, x in enumerate(leaves) if i != 2))
     assert "project" not in kernels.launches
-    require_composite(depth_fused, depth_plain.detach(), "render_depth fused vs plain route")
+    assert_composite(depth_fused, depth_plain.detach(), "render_depth fused vs plain route")
 

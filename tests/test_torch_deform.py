@@ -4,7 +4,7 @@ On the CPU `deform_sample_scores` runs the plain version of kernel K5 (the
 gather + weights); it is held against the JAX Pallas kernel in interpret
 mode at shapes that kernel supports, against JAX's gather oracle at a shape
 it does not, and with locations far outside the map. The CUDA kernel is held
-against the plain version on the card (`cuda` test, chip_smoke.py).
+against the plain version on the card (tests/test_torch_cuda.py).
 """
 
 import jax

@@ -21,7 +21,7 @@ versions compute it arithmetically:
   * the plain deterministic K2 and K8 (order + in-order segment sums) agree
     with the JAX package's K2 (`bin_single_level`'s backward, the Pallas
     kernel in interpret mode) and K8 (`deform_sample_vectors` with
-    impl="pallas" and "xla") on the same numpy inputs, within chip_smoke.py's
+    impl="pallas" and "xla") on the same numpy inputs, within _torch_cases.py's
     GRAD_TOL: 1e-5 of the gradient's largest entry. The JAX K2 routes its
     cotangents through a two-way bf16 split (<= 2^-18 relative a value).
 """
@@ -37,9 +37,9 @@ from hypothesis import strategies as st
 from transplat_tpu.ops import deform as jax_deform
 from transplat_tpu.ops.rasterizer import pallas_binning as jax_binning
 from transplat_tpu_torch.ops import deform
-from transplat_tpu_torch.ops.rasterizer import api, binning
+from transplat_tpu_torch.ops.rasterizer import binning, projection
 
-GRAD_TOL = 1e-5  # chip_smoke.py GRAD_TOL["bin"] and ["deform"]
+GRAD_TOL = 1e-5  # _torch_cases.py GRAD_TOL["bin"] and ["deform"]
 DEAD = [1e9, 1e9, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]
 
 
@@ -73,13 +73,13 @@ def random_rows(views, g, shape, seed, dead_share=0.2):
 
 
 def request_rows(views, g, shape, seed):
-    """Projected, depth-sorted Gaussians of a synthetic scene (chip_smoke.py's
+    """Projected, depth-sorted Gaussians of a synthetic scene (_torch_cases.py's
     generator: a third needle-like) seen by `views` cameras."""
-    from chip_smoke import synthetic_scene
+    from _torch_cases import synthetic_scene
 
     cams, gs = synthetic_scene(g, views, torch.device("cpu"), seed)
     with torch.no_grad():
-        gfeat, colors = binning.sort_by_depth(api.project_views(*cams[:2], cams[2], *gs, shape))
+        gfeat, colors = binning.sort_by_depth(projection.project_views(*cams[:2], cams[2], *gs, shape))
     return gfeat, colors
 
 

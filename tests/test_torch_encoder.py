@@ -130,7 +130,8 @@ def test_port_imports_nothing_of_jax():
         "import importlib, pkgutil, sys, transplat_tpu_torch\n"
         "for m in pkgutil.walk_packages(transplat_tpu_torch.__path__, 'transplat_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_cases\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'transplat_tpu')]\n"
         "print(bad)\n"
         "print(' '.join(m for m in sys.modules if m.startswith('transplat_tpu_torch')))\n"
@@ -148,11 +149,18 @@ def test_port_imports_nothing_of_jax():
                  "convert.uv", "convert.depth_predictor", "convert.encoder", "convert_weights", "parallel.mesh",
                  "parallel.launch", "parallel.dryrun", "tools.test_splatter", "tools.visualize_epipolar_lines"):
         assert f"transplat_tpu_torch.{name}" in imported, name
-    files = sorted((ROOT / "transplat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
-    for path in files:
+    package = sorted((ROOT / "transplat_tpu_torch").rglob("*.py"))
+    card_side = [ROOT / "tests" / "_torch_cases.py", ROOT / "tests" / "test_torch_cuda.py"]
+    assert len(package) > 20
+    # The package imports nothing from outside itself: no module at the
+    # repository's root, of the benchmark or of the tests.
+    outside = ({p.stem for p in ROOT.glob("*.py")} | {p.stem for p in (ROOT / "tests").glob("*.py")}
+               | {"benchmark", "scripts", "tests"})
+    for path in package + card_side:
         for line in path.read_text().splitlines():
             words = line.replace(",", " ").split()
             if words[:1] in (["import"], ["from"]):
                 mods = {w.split(".")[0] for w in words[1:] if w not in ("import", "as")}
                 assert not mods & {"jax", "jaxlib", "flax", "transplat_tpu"}, f"{path}: {line}"
+                if path in package and len(words) > 1:
+                    assert words[1].split(".")[0] not in outside, f"{path}: {line}"

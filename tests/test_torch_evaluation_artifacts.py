@@ -33,7 +33,7 @@ import torch
 
 from test_torch_encoder import _tiny_cfgs
 from test_torch_modules import random_variables
-from chip_smoke import seeded_lpips_state as lpips_state_dict
+from _torch_cases import seeded_lpips_state as lpips_state_dict
 
 SHAPE = (32, 32)
 CTX_KEYS = ("image", "intrinsics", "extrinsics", "near", "far")

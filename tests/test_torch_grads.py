@@ -25,7 +25,7 @@ from transplat_tpu.ops import deform as jax_deform
 from transplat_tpu.ops.rasterizer import api as jax_api
 from transplat_tpu.ops.rasterizer.api import RasterizeConfig as JaxCfg
 from transplat_tpu_torch.ops import deform
-from transplat_tpu_torch.ops.rasterizer import api, binning, composite
+from transplat_tpu_torch.ops.rasterizer import api, binning, composite, projection
 
 
 def scaled(a, b) -> float:
@@ -149,7 +149,7 @@ def test_render_gradients_match_jax_reference(name, image_shape):
     bg = torch.from_numpy(BG).clone().requires_grad_(True)
     color = api.render(*cam_t, image_shape, bg, *leaves).color
     if name == "dense":
-        gfeat, colors = binning.sort_by_depth(api.project_views(*cam_t[:2], cam_t[2], *g_t, image_shape))
+        gfeat, colors = binning.sort_by_depth(projection.project_views(*cam_t[:2], cam_t[2], *g_t, image_shape))
         _, t_final, _ = composite.composite_tiles_plain(
             gfeat, colors, binning.bin_gaussians(gfeat, image_shape), torch.from_numpy(BG), image_shape
         )
@@ -186,7 +186,7 @@ def test_composite_and_bin_bwd_plain_match_autograd(name, image_shape, channels)
     on the same lists: gradients of the geometry rows, colours and background."""
     scene = _dense_scene(21) if name == "dense" else make_scene(22, g=300)
     cam_t, g_t = _args(scene, torch.from_numpy)
-    gfeat, colors = binning.sort_by_depth(api.project_views(*cam_t[:2], cam_t[2], *g_t, image_shape))
+    gfeat, colors = binning.sort_by_depth(projection.project_views(*cam_t[:2], cam_t[2], *g_t, image_shape))
     colors = colors[..., :channels].contiguous()
     lists = binning.bin_gaussians(gfeat, image_shape)
     bg = torch.from_numpy(BG)[:, :channels].contiguous()
@@ -268,7 +268,7 @@ def test_project_gaussians_gradients_match_jax():
     ref = jax.grad(jax_loss, argnums=(0, 1, 2))(*(jnp.asarray(scene[k][0]) for k in ("means", "covariances", "sh")))
     leaves = [torch.from_numpy(scene[k]).clone().requires_grad_(True) for k in ("means", "covariances", "sh")]
     cam_t, g_t = _args(scene, torch.from_numpy)
-    p = api.project_views(cam_t[0], cam_t[1], cam_t[2], leaves[0], leaves[1], leaves[2], g_t[3], (48, 64))
+    p = projection.project_views(cam_t[0], cam_t[1], cam_t[2], leaves[0], leaves[1], leaves[2], g_t[3], (48, 64))
     loss = sum(
         torch.sum(torch.where(p.valid[0].reshape((-1,) + (1,) * (v.ndim - 1)), getattr(p, k)[0], 0.0) * torch.from_numpy(v))
         for k, v in cots.items()

@@ -158,7 +158,7 @@ def test_encoder_gaussians_match_the_reference(models, scene):
 def test_adapter_stage_at_three_gaussians_a_pixel_matches_the_reference(models):
     """The shared adapter stage at gpp = 3 (plain, on the CPU) against the
     reference's own adapter over each (pixel, sample)."""
-    from chip_smoke import adapter_case
+    from _torch_cases import adapter_case
 
     _, reference = models
     cfg, (extr, intr, raw, depth, density, step, shape) = adapter_case(CPU, 1, 2, (8, 8), 4, 0, seed=5, samples=3)
@@ -174,7 +174,7 @@ def test_adapter_stage_at_one_gaussian_a_pixel_is_the_stage_as_it_was():
     """At s = 1 the plain stage gives the bits the stage gave before it took
     samples: the pixel grid plus the offsets, the opacity curve over
     gaussians_per_pixel, `adapt_gaussians` on (b, v, r) tensors."""
-    from chip_smoke import adapter_case
+    from _torch_cases import adapter_case
     from transplat_tpu_torch.geometry.projection import sample_image_grid
     from transplat_tpu_torch.model.adapter import adapt_gaussians
     from transplat_tpu_torch.model.encoder import map_pdf_to_opacity
@@ -195,10 +195,10 @@ def test_adapter_stage_at_one_gaussian_a_pixel_is_the_stage_as_it_was():
 @pytest.mark.parametrize("shape", [(256, 256), (37, 53)])
 def test_fused_adapter_at_three_gaussians_a_pixel_matches_the_plain_stage(shape):
     """The kernel (one launch) at gpp = 3 against the plain stage: all six
-    outputs within chip_smoke.ADAPTER_TOL, the (view, pixel, sample) order."""
+    outputs within _torch_cases.ADAPTER_TOL, the (view, pixel, sample) order."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the adapter kernel has no CPU mode")
-    from chip_smoke import ADAPTER_TOL, adapter_case, adapter_errors
+    from _torch_cases import ADAPTER_TOL, adapter_case, adapter_errors
 
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     cfg, args = adapter_case(torch.device("cuda"), 1, 2, shape, 4, 3, seed=8, samples=3)

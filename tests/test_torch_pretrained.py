@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import seeded_lpips_state as lpips_state_dict
+from _torch_cases import seeded_lpips_state as lpips_state_dict
 from test_torch_encoder import _tiny_cfgs
 from test_torch_modules import random_variables
 from transplat_tpu.config import CheckpointingCfg as JCkpt

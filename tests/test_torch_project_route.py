@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import project_case
+from _torch_cases import project_case
 from transplat_tpu_torch import kernels
 from transplat_tpu_torch.ops.rasterizer import api, binning, projection
 from transplat_tpu_torch.ops.rasterizer.projection import (

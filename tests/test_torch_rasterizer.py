@@ -3,7 +3,7 @@
 The same numpy scenes go through both. On the CPU the port's `auto` mode
 runs the plain versions of its kernels (K1 binning, K3 compositing); the
 CUDA kernels themselves are held against those plain versions on the card
-(chip_smoke.py and the `cuda` tests below).
+(tests/test_torch_cuda.py and the `cuda` tests below).
 
 Scenes include elongated covariances and opacities on both sides of 1/255,
 so the exact significance cull of the binning is exercised where it removes
@@ -30,7 +30,7 @@ from transplat_tpu.geometry.projection import get_fov as jax_get_fov
 from transplat_tpu_torch.ops.rasterizer import api
 from transplat_tpu_torch.ops.rasterizer.api import RasterizeConfig
 from transplat_tpu_torch.ops.rasterizer.binning import bin_gaussians, sort_by_depth
-from transplat_tpu_torch.ops.rasterizer.projection import ProjectedGaussians
+from transplat_tpu_torch.ops.rasterizer.projection import ProjectedGaussians, project_views
 
 # Colours are float32 sums of a few hundred alpha-weighted terms computed in
 # a different order (cumprod per chunk vs per list): agreement to 1e-5.
@@ -106,7 +106,7 @@ TILED = JaxCfg(mode="tiled", binning="fast", capacity=1024, chunk=128)
 
 def test_project_gaussians_matches_jax():
     scene = make_scene(1)
-    proj_t = api.project_views(
+    proj_t = project_views(
         *(torch.from_numpy(scene[k]) for k in ("extrinsics", "intrinsics", "near", "means", "covariances", "sh", "opacities")),
         (48, 64),
     )
@@ -189,7 +189,7 @@ def test_cull_drops_pairs():
     (which JAX's tiled mode bins, and whose image the port matches above)."""
     scene = make_scene(4)
     cam_t, g_t = _args(scene, torch.from_numpy)
-    proj = api.project_views(*cam_t[:2], cam_t[2], *g_t, (48, 64))
+    proj = project_views(*cam_t[:2], cam_t[2], *g_t, (48, 64))
     gfeat, _ = sort_by_depth(proj)
     lists = bin_gaussians(gfeat, (48, 64))
     mx, my, r = gfeat[..., 0], gfeat[..., 1], gfeat[..., 5]

@@ -16,7 +16,7 @@ from transplat_tpu_torch.inference import init_random, re10k_decoder_cfg
 from transplat_tpu_torch.model.decoder import decode_splatting
 from transplat_tpu_torch.model.encoder import STAGES, EncoderTranSplat
 from transplat_tpu_torch.ops import deform
-from transplat_tpu_torch.ops.rasterizer import api
+from transplat_tpu_torch.ops.rasterizer import api, projection
 from transplat_tpu_torch.ops.rasterizer.binning import bin_gaussians, sort_by_depth
 from transplat_tpu_torch.train_demo import build, tiny_encoder_cfg
 from transplat_tpu_torch.utils import trace
@@ -138,7 +138,7 @@ def _render_args(model):
 def test_the_render_counts_its_tile_pairs_and_views(model):
     args = _render_args(model)
     views = args[0].shape[0]
-    proj = api.project_views(*args[:3], *args[6:], image_shape=SHAPE)
+    proj = projection.project_views(*args[:3], *args[6:], image_shape=SHAPE)
     pairs = bin_gaussians(sort_by_depth(proj)[0], SHAPE).idx.numel()
     assert pairs > 0
     trace.reset_counters()

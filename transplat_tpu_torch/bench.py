@@ -41,6 +41,7 @@ import time
 
 import torch
 
+from . import kernels
 from .ops.rasterizer import api
 from .ops.rasterizer.api import RasterizeConfig
 
@@ -183,8 +184,7 @@ def main(device: str = "cuda", **sizes) -> int:
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("bench: no CUDA card (the bench measures the card; --device cpu runs it on the CPU)")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        kernels.strict_float32()
     print(json.dumps(run(device=device, **sizes)), flush=True)
     return 0
 

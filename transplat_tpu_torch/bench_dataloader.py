@@ -19,7 +19,7 @@ no chunk of its own ends at once, so the default of 8 chunks gives each of
 The budget: a step of `--step-ms` consumes `--dp` x `--batch-size`
 examples, so the loader must give dp * batch_size / step seconds examples
 per second. `--step-ms` has no default: pass a training step measured on
-the card (chip_smoke.py passes its own train_slice median). `--device cpu`
+the card (train_demo.py or the re10k-train cell reads one). `--device cpu`
 runs on a host with libjpeg, with no card; without it the tool needs one.
 """
 

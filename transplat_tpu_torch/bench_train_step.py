@@ -25,6 +25,7 @@ import time
 
 import torch
 
+from . import kernels
 from .inference import re10k_encoder_cfg
 from .model.encoder import EncoderCfg
 from .train_demo import build, tiny_encoder_cfg
@@ -72,8 +73,7 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("bench_train_step: no CUDA card (pass --device cpu to run on the CPU)")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        kernels.strict_float32()
     cfg, shape = (tiny_encoder_cfg(), (64, 64)) if args.tiny else (None, (256, 256))
     print(json.dumps(train_step_ms(args.inner, args.iters, device, cfg, shape, args.seed)), flush=True)
     return 0

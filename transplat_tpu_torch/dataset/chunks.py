@@ -1,5 +1,5 @@
 """Synthetic scenes in the RE10K chunk format, from a seed, for tests and
-chip_smoke.py (no dataset is fetched).
+the tools (no dataset is fetched).
 
 A chunk is a `torch.save`d list of scenes: {"key": str, "cameras": (n, 18)
 float32 tensor [fx, fy, cx, cy, 0, 0, world-to-camera 3x4 row-major],

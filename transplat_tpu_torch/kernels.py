@@ -103,6 +103,24 @@ def reset_launches() -> None:
     launches.clear()
 
 
+def strict_float32() -> None:
+    """Turn TF32 off for cuBLAS and cuDNN: the port computes in float32, as
+    the plain versions and the reference do."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def kernel_route(*tensors: torch.Tensor | None) -> bool:
+    """Whether a stage with a forward-only kernel takes it: every tensor given
+    (None skipped) float32 on the card, and none requiring grad while
+    autograd records (the kernel has no backward; training takes the plain
+    version)."""
+    given = [t for t in tensors if t is not None]
+    if not all(t.is_cuda and t.dtype == torch.float32 for t in given):
+        return False
+    return not (torch.is_grad_enabled() and any(t.requires_grad for t in given))
+
+
 def _nvcc() -> str:
     for cand in (
         shutil.which("nvcc"),

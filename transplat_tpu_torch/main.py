@@ -41,6 +41,8 @@ import json
 
 import torch
 
+from . import kernels
+
 MODES = ("train", "test", "generate-index", "bench", "compute-metrics")
 
 
@@ -95,8 +97,7 @@ def _device(name: str) -> torch.device:
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("no CUDA card: the port runs on the card; pass --device cpu to run on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        kernels.strict_float32()
     return device
 
 

@@ -6,7 +6,7 @@ world, means from camera rays, SH rotated by the camera-to-world rotation.
 `adapt_gaussians` is the plain version. `adapt_gaussians_fused` launches the
 hand-written kernel csrc/gaussian_adapter.cu, which does the encoder's whole
 stage 5 (the pixel offsets and the opacity too) in one launch and writes the
-Gaussians' layouts; the encoder takes it where `fused_adapter_applies`.
+Gaussians' layouts; the encoder takes it where `kernels.kernel_route` says.
 """
 
 from __future__ import annotations
@@ -86,15 +86,6 @@ def adapt_gaussians(
         "scales": scales,
         "rotations": rotations,
     }
-
-
-def fused_adapter_applies(*tensors: torch.Tensor) -> bool:
-    """Whether the encoder's stage 5 takes the kernel: every input a float32
-    CUDA tensor, and none requiring grad while autograd records (the kernel
-    has no backward; training takes the plain version)."""
-    if not all(t.is_cuda and t.dtype == torch.float32 for t in tensors):
-        return False
-    return not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
 
 
 def adapt_gaussians_fused(

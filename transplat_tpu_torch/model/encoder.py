@@ -27,10 +27,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from .. import kernels
 from ..geometry.projection import sample_image_grid, unnormalize_intrinsics
 from ..ops.interpolate import resize_bilinear
 from ..utils.trace import count
-from .adapter import GaussianAdapterCfg, adapt_gaussians, adapt_gaussians_fused, fused_adapter_applies
+from .adapter import GaussianAdapterCfg, adapt_gaussians, adapt_gaussians_fused
 from .backbone.multiview import BackboneMultiview, normalize_images
 from .dav2 import DAV2_CONFIGS, DepthAnythingV2
 from .depth_predictor import DepthPredictor, img2world_matrices, stage_span
@@ -141,7 +142,7 @@ def adapt_stage(
     divided by `cfg.gaussians_per_pixel`. One kernel launch where every
     input is float32 on the card and no gradient is recorded, the plain
     version otherwise; counted as `adapter.fused` / `adapter.plain`."""
-    if fused_adapter_applies(raw, depth, density, intrinsics, extrinsics):
+    if kernels.kernel_route(raw, depth, density, intrinsics, extrinsics):
         count("adapter.fused", 1)
         return adapt_gaussians_fused(
             cfg.gaussian_adapter, extrinsics.contiguous(), intrinsics.contiguous(), raw, depth.contiguous(),

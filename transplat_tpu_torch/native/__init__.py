@@ -1,5 +1,5 @@
 """The data path's native code: JPEG decode (and encode, for tests and
-chip_smoke.py) and the image resizes, bound with ctypes.
+the tools) and the image resizes, bound with ctypes.
 
 Counterpart of transplat_tpu/native/, split by what each part links:
 
@@ -333,7 +333,7 @@ def decode_jpeg_batch(blobs: list[bytes], route: str | None = None, num_threads:
 def encode_jpeg_batch(images: np.ndarray, quality: int = 95, route: str | None = None) -> list[bytes]:
     """Encode (n, h, w, 3) uint8 RGB images as JPEGs (4:2:0) with the
     library of `route` (default `jpeg_route()`), so that data written for a
-    test decodes with the same library. For tests and chip_smoke.py."""
+    test decodes with the same library. For tests and the tools."""
     route = route or jpeg_route()
     images = np.ascontiguousarray(images, np.uint8)
     n, h, w, _ = images.shape

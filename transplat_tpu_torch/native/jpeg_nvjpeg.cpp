@@ -6,7 +6,7 @@
 //
 // nvJPEG's chroma upsampling is not libjpeg's, so a decode does not equal
 // Pillow's bit for bit; it is held against the source pixels of the images
-// it encodes (chip_smoke.py, tests/test_torch_cuda.py). Built with the host
+// it encodes (tests/test_torch_cuda.py). Built with the host
 // compiler at first use, linked with -lnvjpeg -lcudart.
 
 #include <cstdint>

@@ -372,7 +372,7 @@ def vectors_bwd_keys_plain(loc01: torch.Tensor, attn_weights: torch.Tensor, h: i
 
 def vectors_bwd_order_by_sort(keys: torch.Tensor, n_rows: int):
     """The order by torch.sort(keys, stable=True) and the runs' starts: the
-    reference the counting sort is held to (tests and chip_smoke.py only)."""
+    reference the counting sort is held to (tests only)."""
     keys_sorted, perm = torch.sort(keys, stable=True)
     bounds = torch.arange(n_rows + 2, dtype=keys.dtype, device=keys.device)
     return perm.to(torch.int32), torch.searchsorted(keys_sorted, bounds).to(torch.int32)

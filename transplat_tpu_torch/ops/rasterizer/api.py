@@ -48,12 +48,12 @@ from typing import NamedTuple
 import torch
 
 from ...utils import trace
+from . import projection
 from .binning import bin_gaussians, sort_by_depth, sort_rows
 from .composite import composite_tiles
 from .projection import (
     ProjectedGaussians,
     project_rows_kernel,
-    project_views,
     projection_kernel_applies,
     repeat_sets,
     views_per_set,
@@ -159,7 +159,7 @@ def render(
     ):
         trace.count("render.project.plain", 1)
         with trace.span("render.project"):
-            proj = project_views(
+            proj = projection.project_views(
                 extrinsics, intrinsics, near, *(repeat_sets(x, views) for x in gaussians), image_shape, scale_invariant,
             )
         color = rasterize(proj, image_shape, background, feature, cfg, deterministic)

@@ -383,7 +383,7 @@ BWD_MAX_SCAN_BLOCKS = 48 * 1024
 def bin_bwd_order_by_sort(lists: TileLists, views: int, g: int):
     """The order by a stable sort of the keys view * G + idx and the runs'
     starts: the reference the order's kernels and plain version are held to
-    (tests and chip_smoke.py only)."""
+    (tests only)."""
     rows_sorted, perm = torch.sort(_pair_rows(lists, views, g), stable=True)
     cells = torch.arange(views * g + 1, device=rows_sorted.device)
     return perm.to(torch.int32), torch.searchsorted(rows_sorted, cells).to(torch.int32)

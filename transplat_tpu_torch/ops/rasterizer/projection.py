@@ -209,16 +209,10 @@ def sh_degree(sh: torch.Tensor) -> int | None:
 
 
 def projection_kernel_applies(*tensors: torch.Tensor | None, sh: torch.Tensor) -> bool:
-    """Whether a render's projection takes csrc/project.cu: every tensor given
-    a float32 CUDA tensor, none requiring grad while autograd records (the
-    kernel has no backward; training takes the plain version), and SH of a
-    degree 0-4."""
-    given = [t for t in (*tensors, sh) if t is not None]
-    if not all(t.is_cuda and t.dtype == torch.float32 for t in given):
-        return False
-    if torch.is_grad_enabled() and any(t.requires_grad for t in given):
-        return False
-    return sh_degree(sh) is not None
+    """Whether a render's projection takes csrc/project.cu: the kernels'
+    route (`kernels.kernel_route`) for every tensor given, and SH of a degree
+    0-4."""
+    return kernels.kernel_route(*tensors, sh) and sh_degree(sh) is not None
 
 
 def project_rows_plain(

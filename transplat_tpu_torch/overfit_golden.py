@@ -28,6 +28,7 @@ import time
 
 import torch
 
+from . import kernels
 from .config import RootCfg, load_config
 from .dataset import batch_to_device, golden_scene_batch
 from .training import create_train_state, make_lr_schedule, make_optimizer, make_train_step
@@ -50,8 +51,7 @@ def main(argv=None, cfg: RootCfg | None = None) -> int:
 
     device = torch.device(args.device)
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        kernels.strict_float32()
     cfg = cfg if cfg is not None else load_config("re10k")
     shape = (args.size, args.size)
     batch = batch_to_device(golden_scene_batch(image_shape=shape), device)

@@ -7,8 +7,8 @@ and backward (K1 -> K3, K4 -> K2 on a card) through the sharded decode.
 
     python -m transplat_tpu_torch.parallel.dryrun [--ranks 2] [--device cpu|cuda]
 
-`step_rank` / `reference_step` are the parity runs that the tests and
-chip_smoke.py hold against each other: the same seeded state and global
+`step_rank` / `reference_step` are the parity runs that the tests hold
+against each other: the same seeded state and global
 batch through a dp x sp step on spawned ranks and through the one-process
 step on the joined batch. Ranks on the CPU talk over gloo; on one card
 (`device="cuda"`) gloo too, since NCCL takes a card per rank.
@@ -74,7 +74,7 @@ def _setup(spec: StepSpec, device: torch.device, mesh=None):
     optimizer = make_optimizer(make_lr_schedule(LR, 1000), grad_clip=0.5)
     state = create_train_state(cfg, optimizer, LPIPS(device=device, seed=SEED), device=device)
     init_random(state.encoder, SEED)
-    with torch.no_grad():  # keep depths off the 1/far clip, where 1/disparity amplifies rounding (chip_smoke.py)
+    with torch.no_grad():  # keep depths off the 1/far clip, where 1/disparity amplifies rounding
         state.encoder.depth_predictor.to_disparity_2.weight[0] *= 0.01
     step = make_train_step(cfg, LossCfg(), re10k_decoder_cfg(), optimizer, spec.image,
                            deterministic=not spec.dropout, mesh=mesh)
@@ -127,8 +127,7 @@ def step_rank(spec: StepSpec) -> dict:
 
     device = torch.device(spec.device)
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        kernels.strict_float32()
     mesh = make_mesh(spec.dp, spec.sp, device=device, backend=spec.backend)
     device = mesh.device
     state, step, batch = _setup(spec, device, mesh)
@@ -150,7 +149,7 @@ def step_rank(spec: StepSpec) -> dict:
 @torch.no_grad()
 def _decode_check(state, batch: dict, image: tuple[int, int], mesh) -> dict:
     from ..dataset.loader import CONTEXT_KEYS
-    from ..ops.rasterizer import api, binning
+    from ..ops.rasterizer import binning, projection
 
     ctx, tgt = batch["context"], batch["target"]
     gaussians = state.encoder(*(ctx[k] for k in CONTEXT_KEYS))
@@ -164,7 +163,7 @@ def _decode_check(state, batch: dict, image: tuple[int, int], mesh) -> dict:
     b, v = sharded.shape[:2]
     rep = lambda x: x[:, None].expand(b, v, *x.shape[1:]).reshape(b * v, *x.shape[1:])  # noqa: E731
     flat = [c[:, views].reshape(b * v, *c.shape[2:]) for c in cams]
-    proj = binning.sort_by_depth(api.project_views(*flat[:3], *(rep(x) for x in gaussians), image))
+    proj = binning.sort_by_depth(projection.project_views(*flat[:3], *(rep(x) for x in gaussians), image))
     pairs = int(binning.bin_gaussians(proj[0], image).idx.numel()) if sharded.is_cuda else None
     return {"views": [views.start, views.stop], "max_abs_err": float((sharded - whole).abs().max()),
             "finite": bool(torch.isfinite(sharded).all()), "launches": launches, "pairs": pairs,

@@ -1,6 +1,6 @@
 """Run a function on several ranks, one spawned process each, and collect
-what each returns: the mesh's tests, `dryrun_multichip` and chip_smoke.py's
-parallel phase. A rank finds torchrun's environment (RANK, WORLD_SIZE,
+what each returns: the mesh's tests, `dryrun_multichip` and the card tests'
+parallel steps. A rank finds torchrun's environment (RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR, MASTER_PORT), so `make_mesh` inside it joins the
 group. Processes are spawned, never forked: a parent that has touched CUDA
 cannot fork a child that uses it.

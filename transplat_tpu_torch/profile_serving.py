@@ -2,7 +2,7 @@
 
     python -m transplat_tpu_torch.profile_serving [--requests 5]
 
-Builds the re10k encoder with the seeded random weights of chip_smoke.py
+Builds the re10k encoder with seeded random weights
 (`inference.init_random`), serves one warm-up request (2 context views at
 256x256 -> 131,072 Gaussians -> 4 target views at 256x256), times
 `--requests` requests without the profiler (host clock, each ending in a
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from . import kernels
 from .utils.stage_timing import union_us
 from .utils.trace import span
 
@@ -68,9 +69,9 @@ def report(prof, spans, differences, count: int, top: int, wall_ms: float) -> tu
             "host_ms": host[outer] - sum(host[n] for n in inner),
             "device_span_ms": span[outer] - sum(span[n] for n in inner),
         }))
-    kernels = [e for e in events if is_device(e) and e.key not in spans]
-    kernels.sort(key=device_ms, reverse=True)
-    for e in kernels[:top]:
+    device_ops = [e for e in events if is_device(e) and e.key not in spans]
+    device_ops.sort(key=device_ms, reverse=True)
+    for e in device_ops[:top]:
         print(json.dumps({"kernel": e.key[:120], "calls": e.count // count, "device_ms": device_ms(e)}))
     intervals = [
         (e.time_range.start, e.time_range.end)
@@ -82,7 +83,7 @@ def report(prof, spans, differences, count: int, top: int, wall_ms: float) -> tu
     busy_ms = union_us(intervals) / 1e3 / count
     if busy_ms > wall_ms:
         raise RuntimeError(f"device busy {busy_ms} ms per iteration exceeds the wall time {wall_ms} ms")
-    return busy_ms, sum(device_ms(e) for e in kernels)
+    return busy_ms, sum(device_ms(e) for e in device_ops)
 
 
 def main() -> None:
@@ -97,8 +98,7 @@ def main() -> None:
     from .inference import init_random, re10k_encoder_cfg, render_novel_views
     from .model.encoder import STAGES, EncoderTranSplat
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    kernels.strict_float32()
     encoder = EncoderTranSplat(re10k_encoder_cfg(), device="cuda")
     init_random(encoder, SEED)
     batch = synthetic_batch(SEED, batch_size=1, num_context=2, num_target=4, image_shape=(256, 256))

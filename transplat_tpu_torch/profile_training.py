@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from . import kernels
 from .profile_serving import report
 from .utils.trace import span
 
@@ -51,8 +52,7 @@ def main() -> None:
     from .inference import re10k_encoder_cfg
     from .train_demo import build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    kernels.strict_float32()
     cfg = dataclasses.replace(re10k_encoder_cfg(), s2d_unet=False, compute_dtype=args.compute_dtype,
                               remat_unet=args.remat, remat_matching=args.remat)
     state, train_step, batch, gen = build(cfg, (256, 256), "cuda", SEED)

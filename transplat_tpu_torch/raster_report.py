@@ -4,7 +4,7 @@
     python -m transplat_tpu_torch.raster_report [--label NAME] [--out outputs/raster_report.json]
 
 Run from the repository's root on a card. It builds the Gaussians of
-chip_smoke.py's request (time_kernels.request_lists: 4 target views x
+one seeded request (time_kernels.request_lists: 4 target views x
 131,072 Gaussians and their tile lists) and reports, for K3 and K4:
 
 - `regs`, `smem_bytes`, `local_bytes` (spills), `blocks_per_sm` and `waves`
@@ -26,7 +26,7 @@ chip_smoke.py's request (time_kernels.request_lists: 4 target views x
   (pixel, entry) evaluations that keep the entry;
 - the work the function needs (`needed_work`): the evaluations before each
   tile saturates, those that no warp can cull, and the (pixel, entry) pairs
-  that keep the entry while the pixel is live. chip_smoke.py's
+  that keep the entry while the pixel is live. time_kernels.py's
   `needed_bound_ms` of K3 and K4 is computed from the last two.
 
 Prints one JSON line and writes it to --out.
@@ -118,7 +118,7 @@ def _entries(gfeat, lists: binning.TileLists, visited: torch.Tensor):
 def needed_work(gfeat, colors, lists: binning.TileLists) -> dict:
     """What the compositing function needs on these lists, under the plain
     version's gate, in (pixel, entry) pairs: `evaluations` before each tile
-    saturates (the plain compositor's count, which the bound of chip_smoke.py
+    saturates (the plain compositor's count, which the bound of time_kernels.py
     charges in full); `unculled`, those of them whose warp's 8x4 footprint
     meets the entry's rectangle (the evaluations no warp can skip); `kept`,
     the pairs that keep the entry while the pixel is live (the only ones the
@@ -208,7 +208,7 @@ def composite_inputs(dev):
     """The request's lists and K4's inputs (coloured background, random cotangent), as time_kernels.py takes them."""
     from .time_kernels import IMAGE, SEED, request_lists
 
-    gfeat, colors, lists, _ = request_lists(dev)
+    gfeat, colors, lists, *_ = request_lists(dev)
     b, _, _ = gfeat.shape
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     bg = torch.rand((b, colors.shape[-1]), device=dev, generator=gen)
@@ -252,8 +252,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("raster_report: needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    kernels.strict_float32()
     dev = torch.device("cuda")
     kernels.load()
     gfeat, colors, lists, bg, g_out, image_shape = composite_inputs(dev)

@@ -20,6 +20,7 @@ import time
 
 import torch
 
+from . import kernels
 from .dataset import batch_to_device, synthetic_batch
 from .inference import init_random, re10k_decoder_cfg, re10k_encoder_cfg
 from .loss import LPIPS, LossCfg
@@ -66,8 +67,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        kernels.strict_float32()
     cfg, image_shape = (tiny_encoder_cfg(), (64, 64)) if args.tiny else (re10k_encoder_cfg(), (256, 256))
     state, step, batch, gen = build(cfg, image_shape, device, args.seed, deterministic_kernels=args.deterministic_kernels)
     times = []

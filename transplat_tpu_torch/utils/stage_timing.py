@@ -58,8 +58,7 @@ def resolve_device(name: str, prog: str) -> torch.device:
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit(f"{prog}: no CUDA card: the port runs on the card; pass --device cpu to run on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        kernels.strict_float32()
     return device
 
 
