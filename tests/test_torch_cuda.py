@@ -7,6 +7,8 @@ on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+import json
 import re
 from pathlib import Path
 
@@ -1643,9 +1645,13 @@ def test_encoder_takes_the_adapter_kernel_only_without_a_gradient(dev):
     kernels.reset_launches()
     with torch.no_grad():
         fast = encoder(*ctx)
-    assert trace.counters() == {"adapter.fused": 1} and kernels.launches["gaussian_adapter"] == 1
+    # The first forward without a gradient runs eagerly and captures the CUDA graphs (utils/graphs.py).
+    graph = {"encoder.graph.eager": 1, "encoder.graph.captures": 1}
+    assert trace.counters() == {"adapter.fused": 1, **graph} and kernels.launches["gaussian_adapter"] == 1
     plain = encoder(*ctx)
-    assert trace.counters() == {"adapter.fused": 1, "adapter.plain": 1} and kernels.launches["gaussian_adapter"] == 1
+    graph["encoder.graph.eager"] = 2
+    assert trace.counters() == {"adapter.fused": 1, "adapter.plain": 1, **graph}
+    assert kernels.launches["gaussian_adapter"] == 1
     assert plain.means.requires_grad
     for name, a, b in zip(fast._fields, fast, plain):
         err = float((a - b.detach()).abs().max() / b.detach().abs().max())
@@ -1746,3 +1752,171 @@ def test_render_takes_the_projection_kernel_once_without_a_gradient(dev):
     assert "project" not in kernels.launches
     assert_composite(depth_fused, depth_plain.detach(), "render_depth fused vs plain route")
 
+
+
+# The TranSplat encoder's CUDA graphs (utils/graphs.py) at the re10k (2
+# views) and dtu-nctx3 (3 views) widths, seeded weights: a replay launches
+# the eager forward's kernels, so it gives its values (GRAPH_TOL, relative
+# L2 of each field), its spans and its counts.
+
+GRAPH_TOL = 1e-6
+CONTEXT = ("image", "intrinsics", "extrinsics", "near", "far")
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30))
+
+
+@pytest.fixture(scope="module", params=[2, 3], ids=["re10k", "dtu-nctx3"])
+def graph_encoder(request):
+    """The re10k encoder at `views` context views of 256^2 with seeded
+    weights, and two requests' context tensors on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    from transplat_tpu_torch.dataset import synthetic_batch
+    from transplat_tpu_torch.inference import init_random, re10k_encoder_cfg
+    from transplat_tpu_torch.model.encoder import EncoderTranSplat
+
+    kernels.strict_float32()
+    views = request.param
+    encoder = EncoderTranSplat(dataclasses.replace(re10k_encoder_cfg(), num_context_views=views), device="cuda")
+    init_random(encoder, 11)
+    requests = []
+    for seed in (1, 2):
+        batch = synthetic_batch(seed, batch_size=1, num_context=views, num_target=1, image_shape=(256, 256))
+        requests.append([torch.as_tensor(batch["context"][k], device="cuda") for k in CONTEXT])
+    yield encoder, requests
+    del encoder
+    torch.cuda.empty_cache()
+
+
+def test_encoder_graph_replay_equals_the_eager_forward(dev, graph_encoder):
+    encoder, (ctx, _) = graph_encoder
+    encoder._graphs.clear()
+    with torch.no_grad():
+        eager = encoder._forward(*ctx)
+        first, replay = encoder(*ctx), encoder(*ctx)  # warm-up and capture, then a replay
+        eager_aux = encoder._forward(*ctx, return_aux=True)[1]
+        _, aux = encoder(*ctx, return_aux=True)
+        _, aux = encoder(*ctx, return_aux=True)
+    assert len(encoder._graphs) == 2
+    for name, e, f, r in zip(eager._fields, eager, first, replay):
+        assert torch.equal(f, e) and _rel(r, e) <= GRAPH_TOL, name
+    assert set(aux) == set(eager_aux) and all(_rel(aux[k], eager_aux[k]) <= GRAPH_TOL for k in aux)
+
+
+def test_encoder_graph_returns_what_a_later_request_cannot_overwrite(dev, graph_encoder):
+    encoder, (a, b) = graph_encoder
+    with torch.no_grad():
+        encoder(*a)
+        got_a = encoder(*a)
+        kept = [t.clone() for t in got_a]
+        got_b = encoder(*b)
+        want_b = encoder._forward(*b)
+    assert all(torch.equal(t, k) for t, k in zip(got_a, kept))
+    assert all(_rel(g, w) <= GRAPH_TOL for g, w in zip(got_b, want_b))
+    assert not torch.equal(got_a.means, got_b.means)
+
+
+def test_encoder_graph_follows_an_in_place_weight_change(dev, graph_encoder):
+    encoder, (ctx, _) = graph_encoder
+    bias = encoder.depth_predictor.to_gaussians_2.bias
+    held = bias.detach().clone()
+    with torch.no_grad():
+        before = encoder(*ctx)
+        try:
+            bias.add_(0.5)
+            got, want = encoder(*ctx), encoder._forward(*ctx)
+        finally:
+            bias.copy_(held)
+    assert not torch.equal(got.harmonics, before.harmonics)
+    assert all(_rel(g, w) <= GRAPH_TOL for g, w in zip(got, want))
+
+
+def test_moving_the_encoder_drops_its_graphs(dev, graph_encoder):
+    from transplat_tpu_torch.utils import trace
+
+    encoder, (ctx, _) = graph_encoder
+    with torch.no_grad():
+        encoder(*ctx)
+        assert len(encoder._graphs) >= 1
+        encoder.to(dev)
+        assert len(encoder._graphs) == 0
+        trace.reset_counters()
+        encoder(*ctx)
+        encoder(*ctx)
+    assert trace.counters() == {"adapter.fused": 2, "encoder.graph.eager": 1, "encoder.graph.captures": 1,
+                                "encoder.graph.replay": 1}
+
+
+def _span_device_ms(fn, path: Path, spans, units: int = 10) -> tuple[dict, set]:
+    """Device ms a call of each span's ops (an op belongs to a span when the
+    runtime call that launched it lies inside it on the host), over `units`
+    calls of `fn` under torch.profiler; and the names of every kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(units):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    launch, intervals, device = {}, {}, []
+    for ev in events:
+        cat, args = str(ev.get("cat", "")).lower(), ev.get("args") or {}
+        if ev.get("ph") != "X":
+            continue
+        if cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch[args["correlation"]] = ev["ts"]
+        elif cat == "user_annotation":
+            intervals.setdefault(ev["name"], []).append((ev["ts"], ev["ts"] + ev["dur"]))
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((ev["name"], ev["ts"], ev["ts"] + ev["dur"], args.get("correlation")))
+    out = {}
+    for span in spans:
+        ops = sorted((s, e) for _, s, e, c in device
+                     if c in launch and any(a <= launch[c] <= b for a, b in intervals.get(span, ())))
+        total, end = 0.0, float("-inf")
+        for s, e in ops:
+            if e > end:
+                total += e - max(s, end)
+                end = e
+        out[span] = total / 1e3 / units
+    return out, {name for name, *_ in device}
+
+
+def test_encoder_graph_spans_hold_their_device_ops_under_the_profiler(dev, graph_encoder, tmp_path):
+    """Under torch.profiler each of the ten encoder stages and the two
+    sampler spans holds device ops on a replay, within 10% of the eager
+    forward's device ms; the hand-written kernels (K5, K7, the adapter) run
+    inside the graphs."""
+    from transplat_tpu_torch.model.encoder import STAGES
+
+    encoder, (ctx, _) = graph_encoder
+    spans = (*STAGES, "deform.scores", "deform.vectors")
+    with torch.no_grad():
+        encoder(*ctx)
+        eager, _ = _span_device_ms(lambda: encoder._forward(*ctx), tmp_path / "eager.json", spans)
+        replay, names = _span_device_ms(lambda: encoder(*ctx), tmp_path / "replay.json", spans)
+    for span in spans:
+        assert eager[span] > 0 and abs(replay[span] - eager[span]) <= 0.1 * eager[span], (span, eager[span], replay[span])
+    for kernel in ("deform_scores_kernel", "deform_vectors_kernel", "gaussian_adapter_kernel"):
+        assert any(kernel in n for n in names), kernel
+
+
+def test_a_replay_counts_the_adapter_and_itself_once(dev, graph_encoder):
+    from transplat_tpu_torch.utils import trace
+
+    encoder, (ctx, _) = graph_encoder
+    with torch.no_grad():
+        encoder(*ctx)
+        kernels.reset_launches()
+        encoder._forward(*ctx)
+        one = dict(kernels.launches)
+        trace.reset_counters()
+        kernels.reset_launches()
+        for _ in range(3):
+            encoder(*ctx)
+    assert trace.counters() == {"adapter.fused": 3, "encoder.graph.replay": 3}
+    assert one["gaussian_adapter"] == 1 and kernels.launches == {k: 3 * n for k, n in one.items()}

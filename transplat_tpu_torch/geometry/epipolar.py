@@ -19,8 +19,9 @@ from .projection import get_world_rays, homogenize_points, homogenize_vectors, t
 
 
 def relative_pose(extrinsics_ref: torch.Tensor, extrinsics_tgt: torch.Tensor) -> torch.Tensor:
-    """Transform taking ref-camera points into tgt-camera coordinates."""
-    return torch.matmul(torch.linalg.inv(extrinsics_tgt), extrinsics_ref)
+    """Transform taking ref-camera points into tgt-camera coordinates. (`inv_ex`
+    is `inv`'s kernel without its error check, which waits for the card.)"""
+    return torch.matmul(torch.linalg.inv_ex(extrinsics_tgt).inverse, extrinsics_ref)
 
 
 def pixel_grid(h: int, w: int, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -48,7 +49,7 @@ def epipolar_sample_grid(
     Returns loc01 (..., D, h*w, 2) in [0, 1] (x, y), normalized by (w-1, h-1).
     """
     grid = pixel_grid(h, w, depths.device, depths.dtype)  # (3, HW)
-    rays = torch.matmul(torch.linalg.inv(intrinsics_px), grid)
+    rays = torch.matmul(torch.linalg.inv_ex(intrinsics_px).inverse, grid)
     rays = torch.matmul(rel_pose[..., :3, :3], rays)  # (..., 3, HW)
     points = rays[..., :, None, :] * depths[..., None, :, None]  # (..., 3, D, HW)
     points = points + rel_pose[..., :3, 3:4][..., None, :]

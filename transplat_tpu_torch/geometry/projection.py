@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.constants import device_constant
+
 _EPS = 1.1920929e-07  # float32 machine epsilon
 
 
@@ -107,5 +109,4 @@ def get_fov(intrinsics: torch.Tensor) -> torch.Tensor:
 def unnormalize_intrinsics(intrinsics: torch.Tensor, image_shape: tuple[int, int]) -> torch.Tensor:
     """Scale [0,1]-normalized intrinsics to pixel units for (h, w) images."""
     h, w = image_shape
-    scale = torch.tensor([[w], [h], [1.0]], dtype=intrinsics.dtype, device=intrinsics.device)
-    return intrinsics * scale
+    return intrinsics * device_constant(((w,), (h,), (1.0,)), intrinsics)

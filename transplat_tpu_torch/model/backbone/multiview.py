@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...utils.constants import device_constant
 from ..cam_encoder import CamParamEncoder
 from ..layers import to_nchw, to_nhwc
 from .cnn import CNNEncoder
@@ -19,9 +20,7 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
     """ImageNet-normalize (..., H, W, 3) images in [0, 1]."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)
-    std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)
-    return (images - mean) / std
+    return (images - device_constant(IMAGENET_MEAN, images)) / device_constant(IMAGENET_STD, images)
 
 
 class BackboneMultiview(nn.Module):

@@ -8,6 +8,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ...utils.constants import device_array
+
 
 @lru_cache(maxsize=16)
 def position_embedding_sine(h: int, w: int, num_pos_feats: int = 64, temperature: float = 10000.0) -> np.ndarray:
@@ -27,12 +29,15 @@ def position_embedding_sine(h: int, w: int, num_pos_feats: int = 64, temperature
     return np.concatenate([pos_y, pos_x], axis=-1)
 
 
+def position_windowed(h: int, w: int, splits: int, feature_channels: int) -> np.ndarray:
+    """(h, w, feature_channels) sine positions, local to each of splits x splits windows."""
+    if splits > 1:
+        return np.tile(position_embedding_sine(h // splits, w // splits, feature_channels // 2), (splits, splits, 1))
+    return position_embedding_sine(h, w, feature_channels // 2)
+
+
 def add_position_windowed(features: torch.Tensor, splits: int, feature_channels: int) -> torch.Tensor:
     """Add window-local sine positions to (N, H, W, C) features."""
     _, h, w, _ = features.shape
-    if splits > 1:
-        pos = position_embedding_sine(h // splits, w // splits, feature_channels // 2)
-        pos = np.tile(pos, (splits, splits, 1))
-    else:
-        pos = position_embedding_sine(h, w, feature_channels // 2)
-    return features + torch.from_numpy(pos).to(features.device, features.dtype)
+    return features + device_array(position_windowed, h, w, splits, feature_channels, device=features.device,
+                                   dtype=features.dtype)

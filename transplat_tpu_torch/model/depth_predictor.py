@@ -48,10 +48,11 @@ def _span_and_stage(tag: str, stage):
 
 
 def img2world_matrices(intrinsics_px: torch.Tensor, extrinsics: torch.Tensor) -> torch.Tensor:
-    """extrinsics @ inv([[K, 0], [0, 1]]) for (b, v) pixel intrinsics."""
+    """extrinsics @ inv([[K, 0], [0, 1]]) for (b, v) pixel intrinsics. (`inv_ex`
+    is `inv`'s kernel without its error check, which waits for the card.)"""
     camk = torch.eye(4, dtype=extrinsics.dtype, device=extrinsics.device).expand(*extrinsics.shape[:-2], 4, 4).clone()
     camk[..., :3, :3] = intrinsics_px
-    return torch.matmul(extrinsics, torch.linalg.inv(camk))
+    return torch.matmul(extrinsics, torch.linalg.inv_ex(camk).inverse)
 
 
 class DepthPredictor(nn.Module):

@@ -17,10 +17,21 @@ where its inputs are float32 on the card and no gradient is recorded
 (serving, evaluation, the stage tools), and its plain PyTorch version
 otherwise (training, the CPU); `counters()["adapter.fused"]` and
 `["adapter.plain"]` count the two (utils/trace.py).
+
+A forward in eval mode whose inputs are float32 on the card, with no
+gradient recorded, no `stage` and no `generator` (serving, evaluation)
+replays CUDA graphs of the forward, one set a signature of its inputs
+(utils/graphs.py): the same kernels, launched by a few host calls instead of
+~1,900. Every other forward runs eagerly (training, the stage tools, the
+CPU). `counters()["encoder.graph.replay"]` / `["encoder.graph.eager"]`
+count the two. The graphs read the parameters where they lie, so an
+in-place update (`load_state_dict`) is seen; `.to()` and the like, and
+`train()`, drop them.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -30,6 +41,8 @@ from torch import nn
 from .. import kernels
 from ..geometry.projection import sample_image_grid, unnormalize_intrinsics
 from ..ops.interpolate import resize_bilinear
+from ..utils.constants import device_constant
+from ..utils.graphs import GraphCache
 from ..utils.trace import count
 from .adapter import GaussianAdapterCfg, adapt_gaussians, adapt_gaussians_fused
 from .backbone.multiview import BackboneMultiview, normalize_images
@@ -184,6 +197,7 @@ class EncoderTranSplat(nn.Module):
         if cfg.num_surfaces != 1:
             raise NotImplementedError("num_surfaces > 1 is not implemented")
         self.cfg = cfg
+        self._graphs = GraphCache("encoder.graph")
         adapter = cfg.gaussian_adapter
         self.backbone = BackboneMultiview(cfg.d_feature)
         self.da_model = DepthAnythingV2(cfg.dav2_encoder)
@@ -209,11 +223,28 @@ class EncoderTranSplat(nn.Module):
         self.to(device)
         self.eval()
 
+    def _apply(self, fn, *args, **kwargs):
+        self._graphs.clear()  # the graphs hold the addresses of the tensors replaced here
+        return super()._apply(fn, *args, **kwargs)
+
+    def train(self, mode: bool = True):
+        if mode:
+            self._graphs.clear()
+        return super().train(mode)
+
+    def graph_route(self, inputs) -> bool:
+        """Whether a forward without `stage` and `generator` may replay CUDA
+        graphs: eval mode, every input float32 on the card, and no gradient
+        recorded."""
+        if self.training or not kernels.kernel_route(*inputs):
+            return False
+        return not (torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()))
+
     def dav2_inputs(self, images: torch.Tensor) -> torch.Tensor:
         """DAv2's input (b*v, S, S, 3): the images normalized, channels
         shuffled [2, 0, 1], resized (align corners) to the DAv2 input size."""
         b, v, h, w, _ = images.shape
-        da_in = normalize_images(images)[..., [2, 0, 1]]
+        da_in = normalize_images(images)[..., device_constant((2, 0, 1), images, torch.int64)]
         size = self.cfg.dav2_input_size
         return resize_bilinear(da_in.reshape(b * v, h, w, 3), (size, size), align_corners=True)
 
@@ -248,7 +279,22 @@ class EncoderTranSplat(nn.Module):
         `depth_candidates` (b, v, D), and `depths` (b, v, H, W), `scales`
         (b, v*H*W, 3), `rotations` (b, v*H*W, 4, xyzw) and the backbone's
         matching `features` (b, v, hf, wf, C), NHWC as the JAX encoder lays
-        them out."""
+        them out. Where `graph_route` holds, a replay of the forward's CUDA
+        graphs for these shapes, `return_aux`, opacity exponent and TF32
+        settings (the first such call runs eagerly and captures them)."""
+        inputs = (images, intrinsics, extrinsics, near, far)
+        if stage is None and generator is None and self.graph_route(inputs):
+            key = (
+                tuple(tuple(x.shape) for x in inputs), return_aux, opacity_exponent(self.cfg.opacity_mapping, global_step),
+                images.device, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            )
+            run = functools.partial(self._forward, global_step=global_step, return_aux=return_aux)
+            return self._graphs(key, run, inputs)
+        count("encoder.graph.eager", 1)
+        return self._forward(*inputs, global_step, generator, deterministic_kernels, return_aux, stage)
+
+    def _forward(self, images, intrinsics, extrinsics, near, far, global_step=0, generator=None,
+                 deterministic_kernels=False, return_aux=False, stage=None):
         cfg = self.cfg
         b, v, h, w, _ = images.shape
 

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from ..ops.deform import deform_sample_scores, deform_sample_vectors
+from ..utils.constants import device_constant
 from .layers import FFN, Dropout, checkpointed, layer_norm
 
 
@@ -60,7 +61,7 @@ class UVSelfAttention(nn.Module):
         weights = torch.softmax(self.attention_weights(q_in), dim=-1)
         value = self.value_proj(query)
         h, w = hw
-        norm = torch.tensor([w, h], dtype=q_in.dtype, device=q_in.device)
+        norm = device_constant((w, h), q_in)
         loc = ref_2d[..., None, :] + offsets / norm
         out = deform_sample_vectors(value, hw, loc, weights, deterministic=deterministic_kernels)  # K7; backward K8
         return self.dropout(self.output_proj(out), generator) + query
@@ -86,7 +87,7 @@ class UVCrossAttention(nn.Module):
         value = self.value_proj(value_feat)
         scores = torch.matmul(key_feat, value.transpose(-1, -2)) / c  # mean over channels
         h, w = hw
-        norm = torch.tensor([w, h], dtype=query.dtype, device=query.device)
+        norm = device_constant((w, h), query)
         loc = grid[..., None, :] + offsets / norm
         corr = deform_sample_scores(scores, hw, loc, weights, deterministic=deterministic_kernels)  # (N, Q, D)
         return self.dropout(self.output_proj(corr), generator) + query

@@ -17,6 +17,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.constants import device_array
+
 
 def _gather_2d(values: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
     """values: (H, W, C); iy/ix: (...,) int64 -> (..., C) with zero padding."""
@@ -92,17 +94,11 @@ def _resize_cubic_weights(n_in: int, n_out: int, scale: float | None) -> np.ndar
     return w_mat.astype(np.float32)
 
 
-def _matrices(x, wh: np.ndarray, ww: np.ndarray):
-    return (
-        torch.from_numpy(wh).to(device=x.device, dtype=x.dtype),
-        torch.from_numpy(ww).to(device=x.device, dtype=x.dtype),
-    )
-
-
 def resize_bilinear_nchw(x: torch.Tensor, out_shape: tuple[int, int], align_corners: bool = True) -> torch.Tensor:
     """(..., H, W) -> (..., h2, w2), torch F.interpolate bilinear semantics."""
     h, w = x.shape[-2:]
-    wh, ww = _matrices(x, _resize_weights(h, out_shape[0], align_corners), _resize_weights(w, out_shape[1], align_corners))
+    wh = device_array(_resize_weights, h, out_shape[0], align_corners, device=x.device, dtype=x.dtype)
+    ww = device_array(_resize_weights, w, out_shape[1], align_corners, device=x.device, dtype=x.dtype)
     return torch.matmul(torch.matmul(wh, x), ww.transpose(0, 1))
 
 
@@ -117,7 +113,8 @@ def resize_bicubic_torch(
     """(..., H, W, C) -> (..., h2, w2, C), torch bicubic a=-0.75 semantics."""
     h, w = x.shape[-3:-1]
     sh, sw = scale if scale is not None else (None, None)
-    wh, ww = _matrices(x, _resize_cubic_weights(h, out_shape[0], sh), _resize_cubic_weights(w, out_shape[1], sw))
+    wh = device_array(_resize_cubic_weights, h, out_shape[0], sh, device=x.device, dtype=x.dtype)
+    ww = device_array(_resize_cubic_weights, w, out_shape[1], sw, device=x.device, dtype=x.dtype)
     y = torch.matmul(torch.matmul(wh, x.movedim(-1, -3)), ww.transpose(0, 1))
     return y.movedim(-3, -1)
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.constants import device_array
+
 
 def window_partition(x: torch.Tensor, splits: int) -> torch.Tensor:
     """(N, H, W, C) -> (N * splits^2, H/splits, W/splits, C)."""
@@ -28,9 +30,8 @@ def window_merge(x: torch.Tensor, splits: int) -> torch.Tensor:
     return x.reshape(n, s * hs, s * ws, c)
 
 
-def shifted_window_mask(h: int, w: int, window_h: int, window_w: int, shift_h: int, shift_w: int, device=None) -> torch.Tensor:
-    """Additive attention mask (num_windows, wl, wl) for shifted windows, built
-    on `device` (a (4, 1024, 1024) mask at the flagship shapes)."""
+def window_regions(h: int, w: int, window_h: int, window_w: int, shift_h: int, shift_w: int) -> np.ndarray:
+    """(num_windows, wl) int64: the shifted-window region of each pixel of each window."""
     img_mask = np.zeros((h, w), np.int64)
     cnt = 0
     for hs in (slice(0, -window_h), slice(-window_h, -shift_h), slice(-shift_h, None)):
@@ -38,8 +39,22 @@ def shifted_window_mask(h: int, w: int, window_h: int, window_w: int, shift_h: i
             img_mask[hs, ws] = cnt
             cnt += 1
     s = w // window_w
-    blocks = img_mask.reshape(s, window_h, s, window_w).transpose(0, 2, 1, 3).reshape(s * s, window_h * window_w)
-    blocks = torch.from_numpy(blocks).to(device)
+    return img_mask.reshape(s, window_h, s, window_w).transpose(0, 2, 1, 3).reshape(s * s, window_h * window_w)
+
+
+def key_order(m: int, wl: int) -> np.ndarray:
+    """The mask's key column of each of m views' wl window keys, tiled
+    pixel-major over view-major keys (the reference's quirk for m > 1)."""
+    i_idx, l_idx = np.divmod(np.arange(m * wl), wl)
+    return (l_idx * m + i_idx) % wl
+
+
+def shifted_window_mask(h: int, w: int, window_h: int, window_w: int, shift_h: int, shift_w: int, device=None) -> torch.Tensor:
+    """Additive attention mask (num_windows, wl, wl) for shifted windows, built
+    on `device` (a (4, 1024, 1024) mask at the flagship shapes) from the
+    regions, which are copied there once."""
+    blocks = device_array(window_regions, h, w, window_h, window_w, shift_h, shift_w, device=device or "cpu",
+                          dtype=torch.int64)
     diff = blocks[:, None, :] - blocks[:, :, None]
     return torch.where(diff != 0, -100.0, 0.0).to(torch.float32)
 
@@ -87,8 +102,7 @@ def window_attention(
         if multi:
             # Reference quirk kept for checkpoint parity: for v > 2 the mask is
             # tiled pixel-major over view-major keys (see the JAX module).
-            i_idx, l_idx = np.divmod(np.arange(m * wl), wl)
-            perm = torch.from_numpy((l_idx * m + i_idx) % wl).to(q.device)
+            perm = device_array(key_order, m, wl, device=q.device, dtype=torch.int64)
             scores = scores + mask[:, :, perm][None]
         else:
             scores = scores + mask[None]

@@ -8,6 +8,11 @@ no-op context otherwise, so that an untraced run pays a flag check for it
 no profiler running). The ranges land in the profiler's own trace, on the clock of the
 device ops they launch, and are written out with it
 (`torch.profiler.profile.export_chrome_trace`, `Benchmarker.trace`).
+While a CUDA graph is captured in segments (`cut_at_spans`,
+utils/graphs.py) a span opens no range: its opening and its closing each
+end one segment and begin the next, and the replay opens the span around
+the segments it held, so a traced replay puts every device op under the
+span it has in an eager run.
 
 The spans, by layer:
 
@@ -43,27 +48,66 @@ What the program counts, always on:
     whose segment [near, far] meets the other view's image
     (model/encoder_epipolar.py). The second is summed on the card
     (`count_on_device`): no forward waits for it, and `counters()` reads it
+  * `counters()["encoder.graph.replay"]`: the TranSplat encoder's forwards
+    that replayed its CUDA graphs; `["encoder.graph.eager"]`: those that ran
+    eagerly, the forward that warmed up and captured a graph included;
+    `["encoder.graph.captures"]`: the graphs' captures, one a signature
+    (model/encoder.py, utils/graphs.py)
   * `kernels.launches`: the launches of each hand-written kernel
+
+A forward that replays a graph runs no Python of its layers: the counts its
+captured pass added (`adapter.fused`, `kernels.launches`) are taken back at
+the capture and added again at every replay (utils/graphs.py).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
 _OFF = contextlib.nullcontext()
 _counters: dict[str, int] = {}
 _device_counters: dict[str, torch.Tensor] = {}
+_capture = threading.local()  # .cut: where span() reports while a graph is captured in segments
 
 
 def span(name: str):
     """A `record_function(name)` range while a profiler runs (on this thread,
     or on autograd's for a backward it runs); a shared no-op context
-    otherwise."""
+    otherwise; inside `cut_at_spans`, the cut points of a capture."""
+    cut = getattr(_capture, "cut", None)
+    if cut is not None:
+        return _CutSpan(cut, name)
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _OFF
+
+
+class _CutSpan:
+    __slots__ = ("cut", "name")
+
+    def __init__(self, cut, name: str):
+        self.cut, self.name = cut, name
+
+    def __enter__(self):
+        self.cut(self.name, True)
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is None:  # a capture that raised is abandoned (utils/graphs.py)
+            self.cut(self.name, False)
+
+
+@contextlib.contextmanager
+def cut_at_spans(cut):
+    """Inside (on this thread), `span(name)` opens no range: it calls
+    `cut(name, True)` where it opens and `cut(name, False)` where it closes."""
+    _capture.cut = cut
+    try:
+        yield
+    finally:
+        _capture.cut = None
 
 
 def count(name: str, n: int) -> None:
@@ -85,6 +129,22 @@ def counters() -> dict[str, int]:
     for name, t in _device_counters.items():
         out[name] = out.get(name, 0) + int(t)
     return out
+
+
+@contextlib.contextmanager
+def withheld(into: dict, counts: dict | None = None):
+    """What is added inside to `counts` (default: the counters `count` adds
+    to; e.g. `kernels.launches`) lands in `into` instead."""
+    counts = _counters if counts is None else counts
+    held = dict(counts)
+    try:
+        yield into
+    finally:
+        for name, n in counts.items():
+            if n != held.get(name, 0):
+                into[name] = n - held.get(name, 0)
+        counts.clear()
+        counts.update(held)
 
 
 def reset_counters() -> None:
